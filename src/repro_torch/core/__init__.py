@@ -1,0 +1,31 @@
+"""The IOTSim simulator core on PyTorch (open-loop sweep path).
+
+* configs — :class:`~repro_torch.core.config.Scenario` and the paper's
+  Table I–III presets;
+* :mod:`~repro_torch.core.engine` — batch encoding, ``mr_epoch`` stepping,
+  metrics;
+* :mod:`~repro_torch.core.sweep` — declarative scenario sweeps.
+"""
+from . import control, elasticity, engine, network, storage, sweep, telemetry
+from .config import (JOB_BIG, JOB_MEDIUM, JOB_SMALL, JOB_TYPES, VM_LARGE,
+                     VM_MEDIUM, VM_SMALL, VM_TYPES, BindingPolicy,
+                     DatacenterSpec, JobSpec, NetworkSpec, Scenario,
+                     SchedPolicy, VMSpec, paper_scenario)
+from .control import ControlPolicy, ControlSpec, DeadlinePolicy
+from .elasticity import ArrivalProcess, ElasticitySpec
+from .engine import JobMetrics, ScenarioArrays, ScenarioMetrics, SimOutput
+from .storage import Placement, StorageSpec
+from .sweep import Axis, SweepPlan, SweepResult
+
+__all__ = [
+    "control", "elasticity", "engine", "network", "storage", "sweep",
+    "telemetry",
+    "Scenario", "VMSpec", "JobSpec", "NetworkSpec", "DatacenterSpec",
+    "StorageSpec", "Placement", "SchedPolicy", "BindingPolicy",
+    "ElasticitySpec", "ArrivalProcess", "ControlSpec", "ControlPolicy",
+    "DeadlinePolicy",
+    "VM_SMALL", "VM_MEDIUM", "VM_LARGE", "VM_TYPES",
+    "JOB_SMALL", "JOB_MEDIUM", "JOB_BIG", "JOB_TYPES",
+    "paper_scenario", "JobMetrics", "ScenarioArrays", "ScenarioMetrics",
+    "SimOutput", "Axis", "SweepPlan", "SweepResult",
+]

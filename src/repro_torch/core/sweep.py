@@ -1,0 +1,1024 @@
+"""Declarative scenario sweeps on torch tensors (DESIGN.md §4, §6).
+
+* :func:`axis` — one labelled sweep dimension over any ``Scenario``-level
+  parameter (MR combination, VM count, per-VM vectors, policies, network,
+  storage and elasticity knobs, VM/job presets);
+* :func:`zip_` / :func:`product` — compose axes into a :class:`SweepPlan`;
+* :meth:`SweepPlan.run` — encode the plan into :class:`ScenarioArrays`
+  batches (one per shape bucket), step them through the ``mr_epoch``
+  kernel and return a labelled :class:`SweepResult`.
+
+:func:`encode_cell` is written batch-native: every parameter is a Python
+scalar shared by the batch or a tensor led by the cell dimension, in place
+of the reference's ``vmap`` over one cell.  Its float ops are the
+reference's, one rounding each, so encoded batches are bitwise equal.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import inspect
+from functools import partial
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from . import costmodel as costmodel_mod
+from . import elasticity as elasticity_mod
+from . import storage as storage_mod
+from .config import (JOB_SMALL, VM_SMALL, BindingPolicy, SchedPolicy,
+                     as_job_spec, as_vm_spec, base_task_lengths_f32)
+from .control import (ControlPolicy, DeadlinePolicy, as_control_policy,
+                      as_deadline_policy)
+from .control import failure_times as _failure_times
+from .elasticity import ElasticitySpec, as_arrival_process
+from .engine import (_BIG, JobMetrics, ScenarioArrays, ScenarioMetrics,
+                     bind_tasks, job_metrics, scenario_metrics)
+from .storage import Placement, StorageSpec, as_placement
+from .util import pow2_pad, pow2_pads
+
+_DEFAULT_STORAGE = StorageSpec()
+_DEFAULT_ELASTICITY = ElasticitySpec()
+F32, I32 = torch.float32, torch.int32
+
+
+# ---------------------------------------------------------------------------
+# Batch-native cell encoder
+# ---------------------------------------------------------------------------
+
+def _lead(*xs) -> int | None:
+    """The cell count of the first tensor among ``xs``."""
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            return x.shape[0]
+    return None
+
+
+def encode_cell(n_maps, n_reduces, n_vms, vm_mips, vm_pes, vm_cost,
+                job_length, job_data, *, pad_tasks: int, pad_vms: int,
+                reduce_factor=0.5, net_enabled=1.0, net_bw=1000.0,
+                kappa_in=17.0, kappa_shuffle=4.25, net_cost_per_unit=1.0,
+                task_mult=None, sched_policy=0, binding_policy=0,
+                storage_enabled=0.0,
+                block_size_mb=_DEFAULT_STORAGE.block_size_mb,
+                replication=_DEFAULT_STORAGE.replication,
+                placement=int(_DEFAULT_STORAGE.placement),
+                storage_seed=_DEFAULT_STORAGE.seed,
+                job_submit=0.0, vm_start=0.0, vm_stop=_BIG,
+                spinup_delay=_DEFAULT_ELASTICITY.spinup_delay,
+                billing_granularity=_DEFAULT_ELASTICITY.billing_granularity,
+                task_prio=None, vm_fail=_BIG, vm_restore=_BIG, vm_auto=0.0,
+                control_policy=0, ctl_queue=0.0, ctl_busy=0.0,
+                redispatch_delay=0.0, task_deadline=None,
+                deadline_policy=0, deadline_slack=0.0, preempt=0,
+                preempt_resume=0, device="cuda") -> ScenarioArrays:
+    """A batch of paper cells — homogeneous or per-VM heterogeneous.
+
+    Each parameter is a Python scalar (shared by every cell) or a tensor
+    with the cell dimension first: ``[N]`` for one value per cell,
+    ``[N, pad_vms]`` for the per-VM parameters, ``[N, pad_tasks]`` for the
+    per-task ones.  The parameters and their defaults are the reference
+    ``encode_cell``'s; a statically disabled store (the scalar default
+    ``storage_enabled=0.0``) skips the placement math, and a scalar
+    ``binding_policy`` computes only that strategy.
+    """
+    given = locals()
+    N = _lead(*(given[p] for p in _CELL_PARAMS)) or 1
+    dev = torch.device(device)
+    T, V = pad_tasks, pad_vms
+
+    def col(x, dtype):
+        """A per-cell ``[N]`` column."""
+        x = torch.as_tensor(x, dtype=dtype, device=dev)
+        return x.expand(N) if x.dim() == 0 else x
+
+    def vec(x, width):
+        """A per-VM / per-task ``[N, width]`` block."""
+        x = torch.as_tensor(x, dtype=F32, device=dev)
+        if x.dim() == 0:
+            return x.expand(N, width)
+        return x[:, None].expand(N, width) if x.dim() == 1 else x
+
+    f32 = partial(col, dtype=F32)
+    i32 = partial(col, dtype=I32)
+    t = torch.arange(T, dtype=I32, device=dev)
+    n_maps, n_reduces, n_vms = i32(n_maps), i32(n_reduces), i32(n_vms)
+    n_tasks = n_maps + n_reduces
+    is_red = t[None, :] >= n_maps[:, None]
+    valid = t[None, :] < n_tasks[:, None]
+    task_mult = (torch.ones((N, T), dtype=F32, device=dev)
+                 if task_mult is None else vec(task_mult, T))
+    task_prio = (torch.zeros((N, T), dtype=F32, device=dev)
+                 if task_prio is None else vec(task_prio, T))
+    task_deadline = (torch.full((N, T), _BIG, dtype=F32, device=dev)
+                     if task_deadline is None else vec(task_deadline, T))
+    vm_valid = torch.arange(V, device=dev)[None, :] < n_vms[:, None]
+
+    def per_vm(x, fill):
+        return torch.where(vm_valid, vec(x, V), torch.full(
+            (N, V), fill, dtype=F32, device=dev))
+
+    def per_vm_capped(x):
+        big = torch.full((N, V), _BIG, dtype=F32, device=dev)
+        return torch.where(vm_valid, torch.minimum(vec(x, V), big), big)
+
+    vm_mips_a = per_vm(vm_mips, 1.0)
+    vm_pes_a = per_vm(vm_pes, 1.0)
+    vm_cost_a = per_vm(vm_cost, 0.0)
+    vm_start_a = per_vm(vm_start, 0.0)
+    vm_stop_a = per_vm_capped(vm_stop)
+    vm_fail_a = per_vm_capped(vm_fail)
+    vm_restore_a = per_vm_capped(vm_restore)
+    vm_auto_a = vm_valid & (vec(vm_auto, V) > 0.5)
+    map_len, red_len = base_task_lengths_f32(
+        f32(job_length), n_maps.to(F32), n_reduces.to(F32),
+        f32(reduce_factor))
+    base_len = torch.where(is_red, red_len[:, None], map_len[:, None])
+
+    static_off = (not isinstance(storage_enabled, torch.Tensor)
+                  and np.ndim(storage_enabled) == 0
+                  and float(storage_enabled) == 0.0)
+    if static_off:
+        block_vm = torch.full((N, T, V), -1, dtype=I32, device=dev)
+        block_mb = torch.zeros((N, T), dtype=F32, device=dev)
+        cand = None
+    else:
+        seed = storage_seed
+        if isinstance(seed, int):
+            seed = seed % (1 << 32)
+        rep_vm, rep_mb = storage_mod.map_block_placement_torch(
+            t, torch.zeros(T, dtype=I32, device=dev),
+            seed=col(seed, torch.int64), placement=i32(placement),
+            replication=i32(replication), block_size_mb=f32(block_size_mb),
+            job_data=f32(job_data), n_vms=n_vms, pad_vms=V)
+        on = (f32(storage_enabled) > 0.5)[:, None]
+        is_map = valid & ~is_red
+        block_vm = torch.where((on & is_map)[:, :, None], rep_vm,
+                               torch.full_like(rep_vm, -1))
+        block_mb = torch.where(on & is_map, rep_mb,
+                               torch.zeros_like(rep_mb))
+        cand = storage_mod.locality_candidates(block_vm, vm_valid)
+    bp = (int(binding_policy) if not isinstance(binding_policy, torch.Tensor)
+          and np.ndim(binding_policy) == 0 else i32(binding_policy))
+    task_vm = bind_tasks(bp, valid, base_len, vm_mips_a, vm_pes_a, vm_valid,
+                         locality_cand=cand)
+    return ScenarioArrays(
+        task_job=torch.zeros((N, T), dtype=I32, device=dev),
+        task_is_reduce=is_red & valid,
+        task_vm=task_vm,
+        task_valid=valid,
+        task_mult=task_mult.contiguous(),
+        job_length=f32(job_length)[:, None],
+        job_data=f32(job_data)[:, None],
+        job_n_maps=n_maps[:, None],
+        job_n_reduces=n_reduces[:, None],
+        job_submit=f32(job_submit)[:, None],
+        job_reduce_factor=f32(reduce_factor)[:, None],
+        job_valid=torch.ones((N, 1), dtype=torch.bool, device=dev),
+        vm_mips=vm_mips_a, vm_pes=vm_pes_a, vm_cost=vm_cost_a,
+        vm_valid=vm_valid,
+        net_enabled=f32(net_enabled), net_bw=f32(net_bw),
+        kappa_in=f32(kappa_in), kappa_shuffle=f32(kappa_shuffle),
+        net_cost_per_unit=f32(net_cost_per_unit),
+        sched_policy=i32(sched_policy), binding_policy=i32(binding_policy),
+        block_vm=block_vm, block_size=block_mb,
+        storage_enabled=f32(storage_enabled),
+        vm_start=vm_start_a, vm_stop=vm_stop_a,
+        spinup_delay=f32(spinup_delay),
+        bill_gran=f32(billing_granularity),
+        task_prio=task_prio.contiguous(),
+        vm_fail=vm_fail_a, vm_restore=vm_restore_a, vm_auto=vm_auto_a,
+        control_policy=i32(control_policy), ctl_queue=f32(ctl_queue),
+        ctl_busy=f32(ctl_busy), redispatch_delay=f32(redispatch_delay),
+        task_deadline=torch.minimum(
+            task_deadline, torch.full_like(task_deadline, _BIG)),
+        deadline_policy=i32(deadline_policy),
+        deadline_slack=f32(deadline_slack), preempt=i32(preempt),
+        preempt_resume=i32(preempt_resume),
+    )
+
+
+# encode_cell parameters an axis/grid may target (pads/device are not)
+_CELL_PARAMS = tuple(p for p in inspect.signature(encode_cell).parameters
+                     if p not in ("pad_tasks", "pad_vms", "device"))
+_INT_PARAMS = frozenset(
+    {"n_maps", "n_reduces", "n_vms", "sched_policy", "binding_policy",
+     "replication", "placement", "storage_seed", "control_policy",
+     "deadline_policy", "preempt", "preempt_resume"})
+_PER_VM = frozenset({"vm_mips", "vm_pes", "vm_cost", "vm_start", "vm_stop",
+                     "vm_fail", "vm_restore", "vm_auto"})
+_PER_TASK = frozenset({"task_mult", "task_prio", "task_deadline"})
+_STORAGE_KNOBS = frozenset(
+    {"block_size_mb", "replication", "placement", "storage_seed"})
+# columns that switch the reference onto the closed-loop control path
+# (DESIGN.md §10) — this port's ROADMAP slice A5
+_CONTROL_PARAMS = frozenset(
+    {"vm_fail", "vm_restore", "vm_auto", "control_policy", "ctl_queue",
+     "ctl_busy", "redispatch_delay", "task_deadline", "deadline_policy",
+     "deadline_slack", "preempt", "preempt_resume"})
+_PER_VM_FILL = {"vm_fail": _BIG, "vm_restore": _BIG}
+
+
+def _validate_cell_columns(cols: Mapping[str, Any]) -> None:
+    """Plan-build-time checks of the parameter columns (named errors, not
+    shape errors deep inside the encoder)."""
+    conc = {n: np.asarray(v) for n, v in cols.items()}
+    for n in conc:
+        if n in _INT_PARAMS and not np.issubdtype(conc[n].dtype, np.integer):
+            raise ValueError(
+                f"grid_arrays: parameter {n!r} is integer-valued; got "
+                f"dtype {conc[n].dtype} (a float column here would be "
+                "silently truncated per cell)")
+    if "placement" in conc:
+        bad = np.setdiff1d(conc["placement"], [int(p) for p in Placement])
+        if bad.size:
+            raise ValueError(
+                f"grid_arrays: placement values {bad.tolist()} are not "
+                f"Placement members {[f'{int(p)}={p.name}' for p in Placement]}")
+    if "replication" in conc and (conc["replication"] < 1).any():
+        raise ValueError(
+            "grid_arrays: replication must be >= 1 in every cell (disable "
+            "the store with storage_enabled=0 instead of replication=0)")
+    for n, what in (("block_size_mb", "> 0"), ("billing_granularity", "> 0"),
+                    ("spinup_delay", ">= 0"), ("vm_start", ">= 0"),
+                    ("job_submit", ">= 0"), ("deadline_slack", ">= 0"),
+                    ("redispatch_delay", ">= 0"), ("ctl_queue", ">= 0"),
+                    ("ctl_busy", ">= 0")):
+        if n in conc:
+            bad = (conc[n] <= 0) if what == "> 0" else (conc[n] < 0)
+            if bad.any():
+                raise ValueError(
+                    f"grid_arrays: {n} must be {what} in every cell")
+    for n, enum_t in (("control_policy", ControlPolicy),
+                      ("deadline_policy", DeadlinePolicy)):
+        if n in conc:
+            bad = np.setdiff1d(conc[n], [int(p) for p in enum_t])
+            if bad.size:
+                raise ValueError(
+                    f"grid_arrays: {n} values {bad.tolist()} are not "
+                    f"{enum_t.__name__} members "
+                    f"{[f'{int(p)}={p.name}' for p in enum_t]}")
+    if "task_deadline" in conc:
+        dl = conc["task_deadline"].astype(np.float64)
+        if not np.isfinite(dl).all():
+            raise ValueError(
+                "grid_arrays: task_deadline must be finite in every cell "
+                "(use the _BIG sentinel, not inf/nan, for 'no deadline')")
+        live = dl < _BIG / 2
+        submit = conc.get("job_submit")
+        sub = np.asarray(0.0 if submit is None else submit, np.float64)
+        while sub.ndim < dl.ndim:
+            sub = sub[..., None]
+        if (live & (dl <= sub)).any():
+            raise ValueError(
+                "grid_arrays: task_deadline must exceed the job's submit "
+                "time in every cell")
+    for n in ("preempt", "preempt_resume"):
+        if n in conc and (conc[n] != 0).any() and "task_prio" not in cols:
+            raise ValueError(
+                f"grid_arrays: {n!r} enables priority preemption but no "
+                "'task_prio' column is set, so the knob would silently do "
+                f"nothing — add a task_prio axis/base or drop {n!r}")
+    knobs = sorted(_STORAGE_KNOBS & set(cols))
+    if knobs and "storage_enabled" not in cols:
+        raise ValueError(
+            f"grid_arrays: {knobs} configure the storage model but "
+            "'storage_enabled' is never set, so they would silently do "
+            "nothing — add axis('storage', [True]) / storage=True (or an "
+            "explicit storage_enabled column)")
+
+
+def grid_arrays(params: dict[str, np.ndarray], *, pad_tasks: int,
+                pad_vms: int, static_params: Mapping[str, int] | None = None,
+                device="cuda") -> ScenarioArrays:
+    """Encode equal-length parameter columns into one batch on ``device``.
+
+    Each value is ``[N]`` (one scalar per cell) or ``[N, pad_vms]`` /
+    ``[N, pad_tasks]`` for the per-VM / per-task parameters.
+    ``static_params`` pins parameters to one Python value for the whole
+    batch (the bucketed ``run`` path pins a bucket's uniform policies).
+    """
+    names = list(params)
+    static = dict(static_params or {})
+    for n in static:
+        if n not in _CELL_PARAMS:
+            raise ValueError(f"grid_arrays: unknown static parameter {n!r}")
+        if n in names:
+            raise ValueError(
+                f"grid_arrays: parameter {n!r} passed both as a column and "
+                "as a static parameter")
+    if not names:
+        raise ValueError("grid_arrays: empty parameter dict")
+    unknown = [n for n in names if n not in _CELL_PARAMS]
+    if unknown:
+        raise ValueError(
+            f"grid_arrays: unknown encode_cell parameter(s) {unknown}; "
+            f"valid: {list(_CELL_PARAMS)}")
+    sizes = {}
+    for n in names:
+        shape = np.shape(params[n])
+        if len(shape) == 0:
+            raise ValueError(
+                f"grid_arrays: parameter {n!r} must be an array with a "
+                "leading grid dimension (got a scalar)")
+        if len(shape) == 2:
+            if n in _PER_VM:
+                want, pad = "pad_vms", pad_vms
+            elif n in _PER_TASK:
+                want, pad = "pad_tasks", pad_tasks
+            else:
+                raise ValueError(
+                    f"grid_arrays: parameter {n!r} takes one scalar per "
+                    f"cell, got 2-D shape {shape}")
+            if shape[1] != pad:
+                raise ValueError(
+                    f"grid_arrays: {n!r} has trailing width {shape[1]}, "
+                    f"expected {want}={pad}")
+        elif len(shape) > 2:
+            raise ValueError(
+                f"grid_arrays: parameter {n!r} has {len(shape)} dims; "
+                "at most [N, width] is supported")
+        sizes[n] = shape[0]
+    n0 = sizes[names[0]]
+    bad = [f"{n} has length {sizes[n]}" for n in names if sizes[n] != n0]
+    if bad:
+        raise ValueError(
+            "grid_arrays: parameter arrays must share one leading grid "
+            f"length; {names[0]!r} has length {n0} but " + ", ".join(bad))
+    _validate_cell_columns(params)
+    dev = torch.device(device)
+    kw = {n: torch.as_tensor(np.ascontiguousarray(params[n]), device=dev)
+          for n in names}
+    kw.update(static)
+    return encode_cell(**kw, pad_tasks=pad_tasks, pad_vms=pad_vms,
+                       device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Declarative sweep plans
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One labelled sweep dimension: coordinate ``names``, one label tuple
+    per point, and the encode_cell parameter ``columns`` it sets."""
+    names: tuple[str, ...]
+    labels: tuple[tuple[Any, ...], ...]
+    columns: Mapping[str, np.ndarray]
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+
+def axis(name: str, values: Sequence[Any]) -> Axis:
+    """One sweep dimension: ``name`` + the values it takes.
+
+    ``name`` is a raw :func:`encode_cell` parameter or a spec axis:
+    ``"vm"``/``"vm_type"``, ``"vms"`` (heterogeneous clusters),
+    ``"job"``/``"job_type"``, ``"sched_policy"``/``"binding_policy"``,
+    ``"network_delay"``, ``"storage"``, ``"placement"``,
+    ``"control_policy"``, ``"deadline_policy"``.
+    """
+    values = list(values)
+    if not values:
+        raise ValueError(f"axis {name!r}: empty value list")
+    f32 = partial(np.asarray, dtype=np.float32)
+    if name in ("vm", "vm_type"):
+        specs = [as_vm_spec(v) for v in values]
+        return Axis((name,), tuple((s.name,) for s in specs), {
+            "vm_mips": f32([s.mips for s in specs]),
+            "vm_pes": f32([float(s.pes) for s in specs]),
+            "vm_cost": f32([s.cost_per_sec for s in specs]),
+        })
+    if name == "vms":
+        clusters = [tuple(as_vm_spec(v) for v in vs) for vs in values]
+        if any(not c for c in clusters):
+            raise ValueError("axis 'vms': every point needs >= 1 VM")
+        V = max(len(c) for c in clusters)
+
+        def vcol(get):
+            out = np.zeros((len(clusters), V), np.float32)
+            for i, c in enumerate(clusters):
+                out[i, :len(c)] = [get(s) for s in c]
+            return out
+
+        return Axis((name,),
+                    tuple((tuple(s.name for s in c),) for c in clusters), {
+            "n_vms": np.asarray([len(c) for c in clusters], np.int32),
+            "vm_mips": vcol(lambda s: s.mips),
+            "vm_pes": vcol(lambda s: float(s.pes)),
+            "vm_cost": vcol(lambda s: s.cost_per_sec),
+        })
+    if name in ("job", "job_type"):
+        specs = [as_job_spec(v) for v in values]
+        return Axis((name,), tuple((s.name,) for s in specs), {
+            "job_length": f32([s.length_mi for s in specs]),
+            "job_data": f32([s.data_mb for s in specs]),
+            "reduce_factor": f32([s.reduce_factor for s in specs]),
+        })
+    if name == "network_delay":
+        labels = tuple((bool(v),) for v in values)
+        return Axis((name,), labels,
+                    {"net_enabled": f32([1.0 if v else 0.0 for v in values])})
+    if name == "storage":
+        labels = tuple((bool(v),) for v in values)
+        return Axis((name,), labels, {
+            "storage_enabled": f32([1.0 if v else 0.0 for v in values])})
+    coerce = {"placement": as_placement, "sched_policy": SchedPolicy,
+              "binding_policy": BindingPolicy,
+              "control_policy": as_control_policy,
+              "deadline_policy": as_deadline_policy}
+    if name in coerce:
+        members = [coerce[name](v) for v in values]
+        return Axis((name,), tuple((m,) for m in members),
+                    {name: np.asarray(members, np.int32)})
+    if name not in _CELL_PARAMS:
+        raise ValueError(
+            f"axis {name!r}: not an encode_cell parameter or spec axis; "
+            f"valid: {list(_CELL_PARAMS)} + ['vm', 'vm_type', 'vms', 'job', "
+            "'job_type', 'network_delay', 'storage', 'placement', "
+            "'control_policy', 'deadline_policy']")
+    if any(np.ndim(v) > 0 for v in values):        # per-VM / per-task vectors
+        if name not in _PER_VM and name not in _PER_TASK:
+            raise ValueError(
+                f"axis {name!r}: vector values only make sense for the "
+                f"per-VM parameters {sorted(_PER_VM)} or the per-task "
+                f"parameters {sorted(_PER_TASK)}; "
+                f"{name!r} takes one scalar per cell")
+        if not all(np.ndim(v) == 1 for v in values):
+            raise ValueError(
+                f"axis {name!r}: vector values must all be 1-D with one "
+                "shared length (use the 'vms' axis for ragged clusters)")
+        widths = {int(np.shape(v)[0]) for v in values}
+        if len(widths) != 1:
+            raise ValueError(
+                f"axis {name!r}: vector values must share one length, got "
+                f"{sorted(widths)} (use the 'vms' axis for ragged clusters)")
+        return Axis((name,), tuple((tuple(np.asarray(v).tolist()),)
+                                   for v in values),
+                    {name: np.stack([f32(v) for v in values])})
+    dtype = np.int32 if name in _INT_PARAMS else np.float32
+    return Axis((name,), tuple((v,) for v in values),
+                {name: np.asarray(values, dtype)})
+
+
+def zip_(*axes: Axis) -> Axis:
+    """Fuse equal-length axes into one dimension that advances together."""
+    if not axes:
+        raise ValueError("zip_: need at least one axis")
+    lens = {"x".join(a.names): len(a) for a in axes}
+    if len(set(lens.values())) != 1:
+        raise ValueError(f"zip_: axes must share one length; got {lens}")
+    columns: dict[str, np.ndarray] = {}
+    for a in axes:
+        for cname, c in a.columns.items():
+            if cname in columns:
+                raise ValueError(
+                    f"zip_: parameter {cname!r} set by more than one axis")
+            columns[cname] = c
+    names = tuple(n for a in axes for n in a.names)
+    if len(set(names)) != len(names):
+        raise ValueError(f"zip_: duplicate coordinate names in {names}")
+    labels = tuple(tuple(part for a in axes for part in a.labels[i])
+                   for i in range(len(axes[0])))
+    return Axis(names, labels, columns)
+
+
+def arrivals(n: int, *, rate, process="poisson", seed: int = 0,
+             burst: int = 4) -> Axis:
+    """An arrival-stream dimension (DESIGN.md §8): ``n`` seeded draws of an
+    inter-arrival process become ``job_submit`` instants; a sequence of
+    rates flattens rates × arrivals into one labelled dimension."""
+    proc = as_arrival_process(process)
+    rates = list(rate) if np.ndim(rate) > 0 else [rate]
+    if not rates:
+        raise ValueError("arrivals: empty rate list")
+    times = [elasticity_mod.arrival_times(n, rate=float(r), process=proc,
+                                          seed=seed, burst=burst)
+             for r in rates]
+    c = np.concatenate(times).astype(np.float32)
+    if np.ndim(rate) > 0:
+        labels = tuple((float(r), k) for r in rates for k in range(n))
+        return Axis(("arrival_rate", "arrival"), labels, {"job_submit": c})
+    return Axis(("arrival",), tuple((k,) for k in range(n)),
+                {"job_submit": c})
+
+
+def failures(n: int, *, rate, n_vms: int, seed: int = 0,
+             repair_delay: float = np.inf) -> Axis:
+    """A failure-stream dimension (DESIGN.md §10): ``n`` seeded draws of
+    per-VM failure/restore instants.  Running a plan with it needs the
+    closed-loop lowering, ROADMAP slice A5."""
+    rates = list(rate) if np.ndim(rate) > 0 else [rate]
+    if not rates:
+        raise ValueError("failures: empty rate list")
+    cols_f, cols_r = [], []
+    for r in rates:
+        for k in range(n):
+            f, rr = _failure_times(n_vms, rate=float(r), seed=seed + k,
+                                   repair_delay=float(repair_delay))
+            cols_f.append(f)
+            cols_r.append(rr)
+    col_f = np.stack(cols_f).astype(np.float32)
+    col_r = np.stack(cols_r).astype(np.float32)
+    if np.ndim(rate) > 0:
+        labels = tuple((float(r), k) for r in rates for k in range(n))
+        return Axis(("failure_rate", "failure"), labels,
+                    {"vm_fail": col_f, "vm_restore": col_r})
+    return Axis(("failure",), tuple((k,) for k in range(n)),
+                {"vm_fail": col_f, "vm_restore": col_r})
+
+
+def product(*dims: Axis, **base: Any) -> "SweepPlan":
+    """Cartesian :class:`SweepPlan` over ``dims`` (row-major: the last axis
+    varies fastest); ``base`` pins non-swept parameters for every cell."""
+    return SweepPlan(dims=tuple(dims), base=dict(base))
+
+
+# Paper defaults for parameters no axis/base sets: the §5 baseline cell
+_DEFAULTS: dict[str, float] = dict(
+    n_maps=1, n_reduces=1, n_vms=3,
+    vm_mips=VM_SMALL.mips, vm_pes=float(VM_SMALL.pes),
+    vm_cost=VM_SMALL.cost_per_sec,
+    job_length=JOB_SMALL.length_mi, job_data=JOB_SMALL.data_mb,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """A declarative experiment plan: labelled axes × pinned base
+    parameters.  ``pad_tasks``/``pad_vms`` override the inferred paddings
+    (they cap the buckets)."""
+    dims: tuple[Axis, ...]
+    base: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    pad_tasks: int | None = None
+    pad_vms: int | None = None
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(len(d) for d in self.dims)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) if self.dims else 1
+
+    def replace(self, **kw) -> "SweepPlan":
+        return dataclasses.replace(self, **kw)
+
+    def arrivals(self, n: int, *, rate, process="poisson", seed: int = 0,
+                 burst: int = 4) -> "SweepPlan":
+        """Append an arrival-stream dimension (see :func:`arrivals`)."""
+        dim = arrivals(n, rate=rate, process=process, seed=seed, burst=burst)
+        return self.replace(dims=self.dims + (dim,))
+
+    def failures(self, n: int, *, rate, n_vms: int, seed: int = 0,
+                 repair_delay: float = np.inf) -> "SweepPlan":
+        """Append a failure-stream dimension (see :func:`failures`)."""
+        dim = failures(n, rate=rate, n_vms=n_vms, seed=seed,
+                       repair_delay=repair_delay)
+        return self.replace(dims=self.dims + (dim,))
+
+    def _compiled(self) -> tuple[dict[str, np.ndarray], int, int]:
+        """Flatten axes + base + defaults into N-cell parameter columns."""
+        shape, N = self.shape, self.size
+        cols: dict[str, np.ndarray] = {}
+        owner: dict[str, str] = {}
+        for k, dim in enumerate(self.dims):
+            outer = int(np.prod(shape[:k], dtype=np.int64))
+            inner = int(np.prod(shape[k + 1:], dtype=np.int64))
+            idx = np.tile(np.repeat(np.arange(shape[k]), inner), outer)
+            src = "axis " + "×".join(dim.names)
+            for cname, c in dim.columns.items():
+                if cname in cols:
+                    raise ValueError(
+                        f"SweepPlan: parameter {cname!r} set by both "
+                        f"{owner[cname]} and {src}")
+                cols[cname] = np.asarray(c)[idx]
+                owner[cname] = src
+        for bname, value in self.base.items():
+            for cname, c in axis(bname, [value]).columns.items():
+                if cname in cols:
+                    raise ValueError(
+                        f"SweepPlan: parameter {cname!r} set by both "
+                        f"{owner[cname]} and base argument {bname!r}")
+                c = np.asarray(c)
+                cols[cname] = np.broadcast_to(c[0], (N,) + c.shape[1:])
+                owner[cname] = f"base argument {bname!r}"
+        for cname, default in _DEFAULTS.items():
+            if cname not in cols:
+                dtype = np.int32 if cname in _INT_PARAMS else np.float32
+                cols[cname] = np.full(N, default, dtype)
+        n_tasks = int((cols["n_maps"].astype(np.int64)
+                       + cols["n_reduces"].astype(np.int64)).max())
+        pad_tasks = self.pad_tasks if self.pad_tasks is not None else n_tasks
+        v_needed = max(int(cols["n_vms"].max()),
+                       *(c.shape[1] for n, c in cols.items()
+                         if n in _PER_VM and c.ndim == 2), 1)
+        pad_vms = self.pad_vms if self.pad_vms is not None else v_needed
+        if pad_tasks < n_tasks or pad_vms < v_needed:
+            raise ValueError(
+                f"SweepPlan: padding too small — need pad_tasks>={n_tasks} "
+                f"(got {pad_tasks}), pad_vms>={v_needed} (got {pad_vms})")
+        n_vms_max = int(cols["n_vms"].max())
+        for cname in _PER_VM:
+            c = cols.get(cname)
+            if c is None or c.ndim != 2:
+                continue
+            if c.shape[1] < n_vms_max:
+                raise ValueError(
+                    f"SweepPlan: per-VM column {cname!r} has width "
+                    f"{c.shape[1]} but some cell has n_vms={n_vms_max}; "
+                    "give every VM vector >= n_vms entries (or use the "
+                    "'vms' axis, which sets n_vms itself)")
+            if c.shape[1] < pad_vms:
+                cols[cname] = np.pad(
+                    c, ((0, 0), (0, pad_vms - c.shape[1])),
+                    constant_values=_PER_VM_FILL.get(cname, 0.0))
+        for cname, fill in (("task_mult", 1.0), ("task_prio", 0.0),
+                            ("task_deadline", _BIG)):
+            if cname in cols and cols[cname].ndim == 2 \
+                    and cols[cname].shape[1] != pad_tasks:
+                tm = cols[cname]
+                if tm.shape[1] > pad_tasks:
+                    raise ValueError(
+                        f"SweepPlan: {cname} width {tm.shape[1]} exceeds "
+                        f"pad_tasks={pad_tasks}")
+                cols[cname] = np.pad(
+                    tm, ((0, 0), (0, pad_tasks - tm.shape[1])),
+                    constant_values=fill)
+        _validate_cell_columns(cols)
+        return cols, pad_tasks, pad_vms
+
+    def params(self) -> dict[str, np.ndarray]:
+        """The flattened ``grid_arrays`` parameter columns (host numpy)."""
+        return self._compiled()[0]
+
+    def arrays(self, device="cuda") -> ScenarioArrays:
+        """Encode the whole plan as one batch (leading dim = the grid)."""
+        cols, pad_tasks, pad_vms = self._compiled()
+        return grid_arrays(cols, pad_tasks=pad_tasks, pad_vms=pad_vms,
+                           device=device)
+
+    def run(self, mesh=None, chunk: int | None = None, *,
+            bucket: object = "auto", backend: str | None = None,
+            stream_to=None, compact: object = None,
+            cost_model: costmodel_mod.CostModel | None = None,
+            report: bool = False, device="cuda") -> "SweepResult":
+        """Execute the plan and return a labelled :class:`SweepResult`.
+
+        ``bucket="auto"`` groups cells into power-of-two padded-shape
+        buckets (and per-policy buckets when every combination fills one),
+        ``False`` runs one max-shape batch; metric values are the same
+        either way, only ``realized_epochs`` follows the buckets.  ``chunk``
+        encodes and steps at most ``chunk`` cells at a time.
+
+        ``backend="cuda"`` steps the batches through the CUDA ``mr_epoch``
+        kernel (the default on the card), ``"torch"`` through its plain
+        version (the default on the CPU).  ``cost_model`` overrides the
+        bucket-split coefficients (default: the JAX package's fallback
+        constants, see :mod:`costmodel`).
+
+        Not ported yet, each raising ``NotImplementedError``: ``mesh=``
+        (ROADMAP A8), ``compact=`` (A4), ``stream_to=`` (A3), ``report=``
+        (A6) and closed-loop control columns (A5).
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "run(mesh=...): multi-device sweeps are ROADMAP slice A8")
+        if compact is not None and compact is not False:
+            raise NotImplementedError(
+                "run(compact=...): active-lane compaction is ROADMAP "
+                "slice A4")
+        if stream_to is not None:
+            raise NotImplementedError(
+                "run(stream_to=...): the streamed parquet export is the "
+                "rest of ROADMAP slice A3")
+        if report:
+            raise NotImplementedError(
+                "run(report=True): the RunReport is ROADMAP slice A6")
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"run: chunk must be >= 1, got {chunk}")
+        from ..kernels.mr_sched.ops import resolve_backend
+        dev = torch.device(device)
+        backend = resolve_backend(backend, dev)
+        cols, pad_tasks, pad_vms = self._compiled()
+        ctl = sorted(_CONTROL_PARAMS & set(cols))
+        if ctl:
+            raise NotImplementedError(
+                f"run: the control columns {ctl} need the closed-loop "
+                "lowering, ROADMAP slice A5")
+        metrics, n_jobs = _execute_grid(cols, self.size, pad_tasks, pad_vms,
+                                        bucket, chunk, backend, cost_model,
+                                        dev)
+        shaped = {
+            name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
+                   else m.reshape(self.shape + (n_jobs,)))
+            for name, m in metrics.items()}
+        return SweepResult(axis_names=tuple(d.names for d in self.dims),
+                           axis_labels=tuple(d.labels for d in self.dims),
+                           metrics=shaped, n_jobs=n_jobs)
+
+
+def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
+                  pad_vms: int, bucket, chunk, backend, cost, device
+                  ) -> tuple[dict[str, np.ndarray], int]:
+    """Bucket + simulate ``N`` flattened cells; returns ``(metrics,
+    n_jobs)`` with per-job columns ``[N, n_jobs]`` and per-scenario ones
+    ``[N]``."""
+    groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost)
+    parts = [(idx, *_run_cells(gcols, len(idx), tb, vb, statics, chunk,
+                               backend, device))
+             for idx, gcols, statics, tb, vb in groups]
+    n_jobs = int(parts[0][1]["makespan"].shape[-1])
+    metrics: dict[str, np.ndarray] = {}
+    for f in JobMetrics._fields:
+        out = np.empty((N, n_jobs), parts[0][1][f].dtype)
+        for idx, jm, _, _ in parts:
+            out[idx] = jm[f]
+        metrics[f] = out
+    for f in ScenarioMetrics._fields:
+        out = np.empty(N, parts[0][2][f].dtype)
+        for idx, _, sm, _ in parts:
+            out[idx] = sm[f]
+        metrics[f] = out
+    realized = np.empty(N, np.int32)
+    for idx, _, _, rz in parts:
+        realized[idx] = rz
+    metrics["realized_epochs"] = realized
+    return metrics, n_jobs
+
+
+def _pad_cells(cols: dict[str, np.ndarray], n: int) -> dict[str, np.ndarray]:
+    """Pad parameter columns to ``n`` cells by repeating the last cell."""
+    have = len(next(iter(cols.values())))
+    if have == n:
+        return cols
+    return {k: np.concatenate([v, np.repeat(v[-1:], n - have, axis=0)])
+            for k, v in cols.items()}
+
+
+# ---------------------------------------------------------------------------
+# Adaptive execution schedule: shape buckets + per-bucket execution
+# ---------------------------------------------------------------------------
+
+def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
+                   bucket, cost: costmodel_mod.CostModel | None = None
+                   ) -> list[tuple[np.ndarray, dict[str, np.ndarray],
+                                   dict[str, int] | None, int, int]]:
+    """Partition grid cells into padded-shape buckets (DESIGN.md §6).
+
+    Returns ``[(cell_indices, columns, static_params, pad_tasks,
+    pad_vms)]`` with indices ascending in every bucket.  Policy columns
+    split per combination when every combination fills 64 cells; task
+    paddings round up to powers of two and a run of cells stands alone
+    when the cost model's split gain beats one dispatch; each bucket's
+    VM padding is its own ``n_vms`` max rounded up likewise.
+    """
+    N = len(next(iter(cols.values())))
+    all_idx = np.arange(N)
+    if bucket is False or bucket is None or N <= 1:
+        return [(all_idx, cols, None, pad_tasks, pad_vms)]
+    if bucket is not True and bucket != "auto":
+        raise ValueError(
+            f"run: bucket must be 'auto', True, or False; got {bucket!r}")
+    cost = cost or costmodel_mod.fallback_cost_model()
+    need_t = (cols["n_maps"].astype(np.int64)
+              + cols["n_reduces"].astype(np.int64))
+    need_v = cols["n_vms"].astype(np.int64)
+    tb = pow2_pads(need_t, pad_tasks)
+
+    policy_cols = [p for p in ("sched_policy", "binding_policy")
+                   if p in cols]
+    uniform_pols = {p: int(cols[p][0]) for p in policy_cols
+                    if len(np.unique(cols[p])) == 1}
+    policy_names = [p for p in policy_cols if p not in uniform_pols]
+    if policy_names:
+        combo_key = np.stack([cols[p].astype(np.int64)
+                              for p in policy_names], axis=1)
+        combos, combo_id = np.unique(combo_key, axis=0, return_inverse=True)
+        combo_id = combo_id.reshape(-1)
+        if N < len(combos) * 64:            # too fragmented to specialize
+            policy_names, combo_id = [], np.zeros(N, np.int64)
+    else:
+        combo_id = np.zeros(N, np.int64)
+
+    merged: list[np.ndarray] = []
+    for c in np.unique(combo_id):
+        cidx = all_idx[combo_id == c]
+        sizes = tb[cidx]
+        pend: list[np.ndarray] = []
+        done_here: list[np.ndarray] = []
+        for t in np.unique(sizes):          # ascending shape runs
+            pend.append(cidx[sizes == t])
+            n_pend = sum(map(len, pend))
+            if cost.split_gain_us(n_pend, int(t), pad_tasks) \
+                    >= cost.dispatch_us:
+                done_here.append(np.sort(np.concatenate(pend)))
+                pend = []
+        if pend:                            # tail that never paid alone
+            tail = np.concatenate(pend)
+            if done_here:
+                prev = done_here[-1]
+                t_prev = int(tb[prev].max())
+                t_tail = int(tb[tail].max())
+                if cost.split_gain_us(len(prev), t_prev, t_tail) \
+                        < cost.dispatch_us:
+                    tail = np.concatenate([done_here.pop(), tail])
+            done_here.append(np.sort(tail))
+        merged.extend(done_here)
+
+    groups = []
+    for idx in merged:
+        t = pow2_pad(int(need_t[idx].max()), pad_tasks)
+        vb = pow2_pad(int(need_v[idx].max()), pad_vms)
+        statics = dict(uniform_pols)
+        statics.update({p: int(cols[p][idx[0]]) for p in policy_names})
+        gcols = {}
+        for cname, cvals in cols.items():
+            if cname in statics:
+                continue
+            cv = cvals[idx]
+            if cv.ndim == 2:
+                cv = cv[:, :t] if cname in _PER_TASK else cv[:, :vb]
+            gcols[cname] = cv
+        groups.append((idx, gcols, statics or None, t, vb))
+    return groups
+
+
+def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes):
+    """Encode, step and reduce one batch of cells; host-side results."""
+    from ..kernels.mr_sched.ops import epoch_schedule
+    batch = grid_arrays(cols, pad_tasks=pad_tasks, pad_vms=pad_vms,
+                        static_params=statics, device=device)
+    out = epoch_schedule(batch, backend=backend, max_pes=max_pes)
+    jm = job_metrics(batch, out)
+    sm = scenario_metrics(batch, out)
+    host = lambda t: {k: v.cpu().numpy()                       # noqa: E731
+                      for k, v in t._asdict().items()}
+    return host(jm), host(sm), int(out.n_epochs.max())
+
+
+def _run_cells(cols: dict[str, np.ndarray], n: int, pad_tasks: int,
+               pad_vms: int, statics: dict[str, int] | None, chunk, backend,
+               device):
+    """Encode + simulate one bucket's cells; returns host-side
+    ``(job metrics, scenario metrics, realized_epochs[n])``."""
+    max_pes = max(int(np.ceil(float(np.max(cols["vm_pes"])))), 1)
+    if chunk is None:
+        jm, sm, rz = _run_batch(cols, pad_tasks, pad_vms, statics, backend,
+                                device, max_pes)
+        return jm, sm, np.full(n, rz, np.int32)
+    parts, realized = [], np.empty(n, np.int32)
+    for lo in range(0, n, chunk):
+        part = _pad_cells({k: v[lo:lo + chunk] for k, v in cols.items()},
+                          min(chunk, n))
+        take = min(chunk, n - lo)
+        jm, sm, rz = _run_batch(part, pad_tasks, pad_vms, statics, backend,
+                                device, max_pes)
+        parts.append(({k: v[:take] for k, v in jm.items()},
+                      {k: v[:take] for k, v in sm.items()}))
+        realized[lo:lo + take] = rz
+    jm = {k: np.concatenate([p[0][k] for p in parts]) for k in parts[0][0]}
+    sm = {k: np.concatenate([p[1][k] for p in parts]) for k in parts[0][1]}
+    return jm, sm, realized
+
+
+# ---------------------------------------------------------------------------
+# Labelled results
+# ---------------------------------------------------------------------------
+
+def _plain_label(v):
+    """One coordinate label as a column-friendly scalar (enum -> name,
+    nested sequences -> string)."""
+    if isinstance(v, enum.Enum):
+        return v.name
+    if isinstance(v, (tuple, list, np.ndarray)):
+        return ",".join(str(_plain_label(x)) for x in np.asarray(v).tolist())
+    return v
+
+
+def _long_form_columns(axis_names, axis_labels, shape, flat_metrics,
+                       n_jobs, lo, hi) -> dict[str, np.ndarray]:
+    """Long-form rows for the flat grid cells ``[lo, hi)``."""
+    n = hi - lo
+    flat = np.arange(lo, hi)
+    cols: dict[str, np.ndarray] = {}
+    for d, (names, labs) in enumerate(zip(axis_names, axis_labels)):
+        inner = int(np.prod(shape[d + 1:], dtype=np.int64))
+        di = (flat // inner) % shape[d]
+        for ci, cname in enumerate(names):
+            vals = np.asarray([_plain_label(lab[ci]) for lab in labs])
+            cols[cname] = np.repeat(vals[di], n_jobs)
+    if n_jobs > 1:
+        cols["job"] = np.tile(np.arange(n_jobs), n)
+    for mname, m in flat_metrics.items():
+        cols[mname] = (m.reshape(n * n_jobs) if m.ndim == 2
+                       else np.repeat(m, n_jobs))
+    return cols
+
+
+def _match_label(label, want) -> bool:
+    if label is want:
+        return True
+    if isinstance(label, enum.Enum) and isinstance(want, str):
+        return label.name == want
+    try:
+        return bool(label == want)
+    except (TypeError, ValueError):
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """Labelled sweep output: axis coordinates + named metric arrays
+    (host numpy, the plan's grid shape; per-job metrics gain a trailing
+    job dim when a cell holds more than one job)."""
+    axis_names: tuple[tuple[str, ...], ...]
+    axis_labels: tuple[tuple[tuple[Any, ...], ...], ...]
+    metrics: Mapping[str, np.ndarray]
+    n_jobs: int = 1
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(len(labs) for labs in self.axis_labels)
+
+    @property
+    def metric_names(self) -> tuple[str, ...]:
+        return tuple(self.metrics)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        try:
+            return self.metrics[name]
+        except KeyError:
+            raise KeyError(f"no metric {name!r}; "
+                           f"available: {list(self.metrics)}") from None
+
+    def coord(self, index: Sequence[int]) -> dict[str, Any]:
+        """Axis coordinates of one grid point."""
+        out: dict[str, Any] = {}
+        for d, (names, labs) in enumerate(zip(self.axis_names,
+                                              self.axis_labels)):
+            out.update(zip(names, labs[int(index[d])]))
+        return out
+
+    def select(self, **coords: Any) -> "SweepResult":
+        """Slice by axis-coordinate labels; a coordinate matching one point
+        drops its dimension, several keep a filtered dimension."""
+        names = list(self.axis_names)
+        labels = list(self.axis_labels)
+        metrics = dict(self.metrics)
+        by_dim: dict[int, dict[str, Any]] = {}
+        for key, want in coords.items():
+            for d, ns in enumerate(names):
+                if key in ns:
+                    by_dim.setdefault(d, {})[key] = want
+                    break
+            else:
+                raise KeyError(
+                    f"select: no axis {key!r}; axes: "
+                    f"{[n for ns in names for n in ns]}")
+        for d in sorted(by_dim, reverse=True):
+            wants = by_dim[d]
+            comp = {k: names[d].index(k) for k in wants}
+            hits = [i for i, lab in enumerate(labels[d])
+                    if all(_match_label(lab[comp[k]], w)
+                           for k, w in wants.items())]
+            if not hits:
+                raise KeyError(
+                    f"select: {wants} not on the axis "
+                    f"{'×'.join(names[d])}; labels: {list(labels[d])}")
+            if len(hits) == 1:
+                metrics = {k: v.take(hits[0], axis=d)
+                           for k, v in metrics.items()}
+                del names[d], labels[d]
+            else:
+                metrics = {k: v.take(hits, axis=d) for k, v in metrics.items()}
+                labels[d] = tuple(labels[d][i] for i in hits)
+        return SweepResult(tuple(names), tuple(labels), metrics, self.n_jobs)
+
+    def to_dict(self) -> dict[str, Any]:
+        """Metrics as plain ``{name: ndarray}`` (0-d arrays as scalars)."""
+        return {k: (v.item() if np.ndim(v) == 0 else np.asarray(v))
+                for k, v in self.metrics.items()}
+
+    def to_table(self) -> dict[str, np.ndarray]:
+        """Columnar (long-form) export: one row per grid cell (times
+        ``n_jobs``), axis coordinates first, metric columns after."""
+        shape = self.shape
+        N = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        nj = self.n_jobs
+        flat = {}
+        for mname, m in self.metrics.items():
+            arr = np.asarray(m)
+            flat[mname] = (arr.reshape(N, nj)
+                           if arr.ndim == len(shape) + 1
+                           else arr.reshape(N))
+        return _long_form_columns(self.axis_names, self.axis_labels, shape,
+                                  flat, nj, 0, N)
+
+    def __repr__(self) -> str:
+        ax = ", ".join(f"{'×'.join(ns)}[{len(labs)}]"
+                       for ns, labs in zip(self.axis_names, self.axis_labels))
+        return (f"SweepResult(axes=({ax}), n_jobs={self.n_jobs}, "
+                f"metrics={list(self.metrics)})")

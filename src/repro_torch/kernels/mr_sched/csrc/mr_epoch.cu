@@ -1,0 +1,333 @@
+// mr_epoch: the IOTSim event-epoch loop for a batch of scenario lanes,
+// open-loop lowering, written by hand for NVIDIA Hopper (sm_90a).
+//
+// Replaces the JAX package's Pallas TPU kernel
+// kernels/mr_sched/megakernel.py:_kernel (called through _mr_epoch_impl).
+// The plain PyTorch version, megakernel.py:mr_epoch_plain, runs the same
+// op sequence; the two agree bit for bit on all 8 carry leaves.
+//
+// What bounds it on this card.  Per lane and epoch the work is a few dozen
+// compare/select operations per task slot plus max_pes admission passes,
+// on data that fits in shared memory; the bytes it must move (lane data in,
+// carry in and out) are a few KB per lane for a whole history of up to
+// 2T+2 epochs.  Neither HBM bandwidth nor the fp32 rate is the limit: the
+// loop is a chain of dependent steps (next-event min -> completions ->
+// admission -> next epoch), so it is latency bound.  The design keeps the
+// whole carry of a lane in shared memory for its entire history (one HBM
+// read and one write per leaf), gives each lane one warp so the per-epoch
+// reductions are warp shuffles with no block barrier, and runs several
+// lanes per block so many independent chains are in flight on each SM.
+// Each warp stops at its own lane's last event (the TPU kernel stopped a
+// whole tile at its slowest lane); a finished lane is a fixed point of the
+// epoch body, so per-lane results, n_epochs included, are the same.
+//
+// Layout: one warp per lane; task slot t is owned by thread t % 32.  The
+// per-VM reductions (running counts, the admission scan) run one thread
+// per VM over that VM's task list, built once per launch in index order.
+//
+// Rounding: built with -fmad=false and IEEE division, so every op rounds on
+// its own, except the two places where the reference's XLA:CPU lowering
+// fuses a multiply into an add (rem - dt * r, and the tie threshold
+// t + 1e-6 * max(t, 1)): those use fmaf, one rounding, as the reference.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Params {
+  // lane data
+  const int* task_vm;
+  const int* is_red;
+  const int* valid;
+  const float* shuffle;
+  const float* vm_mips;
+  const float* vm_pes;
+  const int* sched;
+  const float* vm_start;
+  const float* vm_stop;
+  const float* spinup;
+  const float* prio;
+  // carry in
+  const float* time_in;
+  const float* rem_in;
+  const int* running_in;
+  const float* start_in;
+  const float* finish_in;
+  const float* ready_in;
+  const int* maps_left_in;
+  const int* n_epochs_in;
+  // carry out
+  float* time_out;
+  float* rem_out;
+  int* running_out;
+  float* start_out;
+  float* finish_out;
+  float* ready_out;
+  int* maps_left_out;
+  int* n_epochs_out;
+  int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
+  float big, half_big, eps, tiny;
+};
+
+// Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes agrees.
+__host__ __device__ inline int lane_smem_bytes(int T, int V) {
+  return (60 * T + 20 * V + 4 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ float warp_min(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__global__ void mr_epoch_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long n = (long)blockIdx.x * p.lanes_per_block + warp;
+  if (n >= p.N) return;  // the whole warp leaves together
+  const int T = p.T, V = p.V;
+
+  // per-lane shared memory: f32[T] x 11, f32[V] x 4, i32[T] x 2, i32[V+1],
+  // u8[T] x 8 (flags)
+  unsigned char* base = smem + (size_t)warp * p.lane_bytes;
+  float* rem = reinterpret_cast<float*>(base);
+  float* start = rem + T;
+  float* finish = start + T;
+  float* ready = finish + T;
+  float* elig = ready + T;
+  float* prio = elig + T;
+  float* avail = prio + T;
+  float* close_t = avail + T;
+  float* tpes = close_t + T;
+  float* rate = tpes + T;
+  float* eta = rate + T;
+  float* vmips = eta + T;
+  float* vpes = vmips + V;
+  float* von = vpes + V;
+  float* vshare = von + V;
+  int* tvm = reinterpret_cast<int*>(vshare + V);
+  int* vtasks = tvm + T;
+  int* voff = vtasks + T;
+  unsigned char* f_valid = reinterpret_cast<unsigned char*>(voff + V + 1);
+  unsigned char* f_red = f_valid + T;
+  unsigned char* f_run = f_red + T;
+  unsigned char* f_ns = f_run + T;     // not started (epoch start)
+  unsigned char* f_el = f_ns + T;      // eligible this epoch
+  unsigned char* f_rm = f_el + T;      // still in the admission scan
+  unsigned char* f_ad = f_rm + T;      // admitted by the scan
+  unsigned char* f_done = f_ad + T;    // completed this epoch
+
+  const long rT = n * T, rV = n * V;
+  const float spin = p.spinup[n];
+  for (int t = lane; t < T; t += 32) {
+    const int v = p.task_vm[rT + t];
+    const bool inr = v >= 0 && v < V;
+    tvm[t] = v;
+    rem[t] = p.rem_in[rT + t];
+    start[t] = p.start_in[rT + t];
+    finish[t] = p.finish_in[rT + t];
+    ready[t] = p.ready_in[rT + t];
+    prio[t] = p.prio[rT + t];
+    // the reference gathers per-VM (vm_start + spinup), vm_stop, vm_pes
+    // through one-hot sums: exact, 0 for a task bound out of range
+    avail[t] = inr ? p.vm_start[rV + v] + spin : 0.f;
+    close_t[t] = inr ? p.vm_stop[rV + v] : 0.f;
+    tpes[t] = inr ? p.vm_pes[rV + v] : 0.f;
+    f_valid[t] = p.valid[rT + t] != 0;
+    f_red[t] = p.is_red[rT + t] != 0;
+    f_run[t] = p.running_in[rT + t] != 0;
+  }
+  __syncwarp();
+  // each VM's task list, in task-index order
+  for (int v = lane; v < V; v += 32) {
+    vmips[v] = p.vm_mips[rV + v];
+    vpes[v] = p.vm_pes[rV + v];
+    int c = 0;
+    for (int t = 0; t < T; ++t) c += tvm[t] == v;
+    voff[v + 1] = c;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    voff[0] = 0;
+    for (int v = 0; v < V; ++v) voff[v + 1] += voff[v];
+  }
+  __syncwarp();
+  for (int v = lane; v < V; v += 32) {
+    int k = voff[v];
+    for (int t = 0; t < T; ++t)
+      if (tvm[t] == v) vtasks[k++] = t;
+  }
+  __syncwarp();
+
+  float time = p.time_in[n];
+  int maps_left = p.maps_left_in[n];
+  int lane_ep = p.n_epochs_in[n];
+  const float shuffle = p.shuffle[n];
+  const bool is_space = p.sched[n] != 0;
+
+  for (int step = 0; step < p.epoch_limit; ++step) {
+    bool unfinished = false;
+    for (int t = lane; t < T; t += 32)
+      unfinished |= f_valid[t] && finish[t] >= p.half_big;
+    if (!__any_sync(kFull, unfinished)) break;
+
+    // processor-sharing rates: per-VM running counts and shares
+    for (int v = lane; v < V; v += 32) {
+      float c = 0.f;
+      for (int k = voff[v]; k < voff[v + 1]; ++k) c += f_run[vtasks[k]] ? 1.f : 0.f;
+      von[v] = c;
+      vshare[v] = vmips[v] * fminf(1.f, vpes[v] / fmaxf(c, 1.f));
+    }
+    __syncwarp();
+
+    // next event: completions and lease-gated arrivals
+    float lmin = p.big;
+    for (int t = lane; t < T; t += 32) {
+      const int v = tvm[t];
+      const bool inr = v >= 0 && v < V;
+      const bool run = f_run[t];
+      const float r = run && inr ? vshare[v] : 0.f;
+      rate[t] = r;
+      const float e = run ? time + rem[t] / fmaxf(r, p.tiny) : p.big;
+      eta[t] = e;
+      const bool ns = f_valid[t] && !run && finish[t] >= p.half_big &&
+                      start[t] >= p.half_big;
+      f_ns[t] = ns;
+      const float el = fmaxf(ready[t], avail[t]);
+      elig[t] = el;
+      const float cand = fmaxf(el, time);
+      const bool slot = (tpes[t] - (inr ? von[v] : 0.f)) > 0.5f;
+      const float a = ns && (!is_space || slot) && cand < close_t[t] ? cand : p.big;
+      lmin = fminf(lmin, fminf(e, a));
+    }
+    const float t_next = warp_min(lmin);
+    const bool live = t_next < p.half_big;
+    const float thr = fmaf(p.eps, fmaxf(t_next, 1.f), t_next);
+    const float neg_dt = -(t_next - time);
+
+    // advance the fluid state; fire every completion in the tie window
+    int maps_done = 0;
+    for (int t = lane; t < T; t += 32) {
+      bool run = f_run[t];
+      float rm = rem[t];
+      if (run) rm = fmaf(neg_dt, rate[t], rm);
+      const bool done = live && run && eta[t] <= thr;
+      if (done) {
+        finish[t] = t_next;
+        run = false;
+        rm = 0.f;
+        maps_done += !f_red[t];
+      }
+      f_done[t] = done;
+      f_run[t] = run;
+      rem[t] = rm;
+    }
+    maps_done = __reduce_add_sync(kFull, maps_done);
+    const int maps_left_new = maps_left - maps_done;
+    const bool phase_done = maps_left_new == 0 && maps_left > 0;
+    const float release = t_next + shuffle;
+    for (int t = lane; t < T; t += 32) {
+      if (f_red[t] && phase_done) ready[t] = release;
+      const bool e = live && f_ns[t] && elig[t] <= thr && t_next < close_t[t];
+      f_el[t] = e;
+      f_rm[t] = e;
+      f_ad[t] = 0;
+    }
+    __syncwarp();
+
+    // space-shared admission: per VM, take the lexicographic minimum of
+    // (priority desc, eligible time, index) max_pes times; the task taken
+    // at step s is admitted iff s < the VM's free slots after completions
+    for (int v = lane; v < V; v += 32) {
+      float done_c = 0.f;
+      for (int k = voff[v]; k < voff[v + 1]; ++k) done_c += f_done[vtasks[k]] ? 1.f : 0.f;
+      const float free_v = vpes[v] - (von[v] - done_c);
+      if (!is_space) continue;
+      for (int s = 0; s < p.max_pes; ++s) {
+        float mx = -p.big;
+        for (int k = voff[v]; k < voff[v + 1]; ++k) {
+          const int t = vtasks[k];
+          if (f_rm[t]) mx = fmaxf(mx, prio[t]);
+        }
+        float mn = p.big;
+        for (int k = voff[v]; k < voff[v + 1]; ++k) {
+          const int t = vtasks[k];
+          if (f_rm[t] && prio[t] == mx) mn = fminf(mn, elig[t]);
+        }
+        int pick = T;
+        for (int k = voff[v]; k < voff[v + 1]; ++k) {
+          const int t = vtasks[k];
+          if (f_rm[t] && prio[t] == mx && elig[t] == mn) {
+            pick = t;  // lists ascend, so the first match is the min index
+            break;
+          }
+        }
+        if (pick < T) {
+          if ((float)s < free_v) f_ad[pick] = 1;
+          f_rm[pick] = 0;
+        }
+      }
+    }
+    __syncwarp();
+
+    for (int t = lane; t < T; t += 32) {
+      if (f_el[t] && (!is_space || f_ad[t])) {
+        start[t] = t_next;
+        f_run[t] = 1;
+      }
+    }
+    if (live) time = t_next;
+    maps_left = maps_left_new;
+    ++lane_ep;
+    __syncwarp();
+  }
+
+  for (int t = lane; t < T; t += 32) {
+    p.rem_out[rT + t] = rem[t];
+    p.running_out[rT + t] = f_run[t];
+    p.start_out[rT + t] = start[t];
+    p.finish_out[rT + t] = finish[t];
+    p.ready_out[rT + t] = ready[t];
+  }
+  if (lane == 0) {
+    p.time_out[n] = time;
+    p.maps_left_out[n] = maps_left;
+    p.n_epochs_out[n] = lane_ep;
+  }
+}
+
+}  // namespace
+
+extern "C" int mr_epoch_launch(
+    const int* task_vm, const int* is_red, const int* valid,
+    const float* shuffle, const float* vm_mips, const float* vm_pes,
+    const int* sched, const float* vm_start, const float* vm_stop,
+    const float* spinup, const float* prio,
+    const float* time_in, const float* rem_in, const int* running_in,
+    const float* start_in, const float* finish_in, const float* ready_in,
+    const int* maps_left_in, const int* n_epochs_in,
+    float* time_out, float* rem_out, int* running_out, float* start_out,
+    float* finish_out, float* ready_out, int* maps_left_out,
+    int* n_epochs_out,
+    int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+    float big, float half_big, float eps, float tiny, void* stream) {
+  Params p{task_vm, is_red, valid, shuffle, vm_mips, vm_pes, sched,
+           vm_start, vm_stop, spinup, prio,
+           time_in, rem_in, running_in, start_in, finish_in, ready_in,
+           maps_left_in, n_epochs_in,
+           time_out, rem_out, running_out, start_out, finish_out, ready_out,
+           maps_left_out, n_epochs_out,
+           N, T, V, max_pes, epoch_limit, lanes_per_block,
+           lane_smem_bytes(T, V), big, half_big, eps, tiny};
+  const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mr_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(32 * lanes_per_block);
+  const dim3 grid((N + lanes_per_block - 1) / lanes_per_block);
+  mr_epoch_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}

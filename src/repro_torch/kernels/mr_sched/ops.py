@@ -1,0 +1,98 @@
+"""Wrappers: ScenarioArrays (J=1) -> ``mr_epoch`` inputs -> SimOutput.
+
+The derived per-task quantities (task lengths, stage-in readiness with the
+storage fetch delay, shuffle delays) are plain tensor ops, O(N·T), in the
+reference's exact op sequence; the event loop runs in ``mr_epoch``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core import network, storage
+from ...core.engine import ScenarioArrays, SimOutput, _sim_output
+from .megakernel import mr_epoch, mr_epoch_plain
+
+F32, I32 = torch.float32, torch.int32
+BACKENDS = ("cuda", "torch")
+
+
+def _derived_inputs(batch: ScenarioArrays):
+    """``(task_len, ready0, shuffle)`` for single-job lanes."""
+    nm = batch.job_n_maps.to(F32)[:, 0]
+    nr = batch.job_n_reduces.to(F32)[:, 0]
+    stage_in = network.transfer_delay(batch.kappa_in, batch.job_data[:, 0],
+                                      nm, batch.net_bw, batch.net_enabled)
+    shuffle = network.transfer_delay(batch.kappa_shuffle,
+                                     batch.job_data[:, 0], nm,
+                                     batch.net_bw, batch.net_enabled)
+    map_len = batch.job_length[:, 0] / nm
+    red_len = batch.job_reduce_factor[:, 0] * batch.job_length[:, 0] / nr
+    task_len = torch.where(batch.task_is_reduce, red_len[:, None],
+                           map_len[:, None]) * batch.task_mult
+    task_len = torch.where(batch.task_valid, task_len,
+                           torch.zeros_like(task_len))
+    fetch = storage.remote_fetch_delay(
+        batch.block_vm, batch.block_size, batch.task_vm,
+        batch.kappa_in[:, None], batch.net_bw[:, None],
+        batch.net_enabled[:, None])
+    ready0 = torch.where(batch.task_valid & ~batch.task_is_reduce,
+                         (batch.job_submit[:, 0] + stage_in)[:, None] + fetch,
+                         torch.full_like(fetch, 1e30))
+    return task_len, ready0, shuffle
+
+
+def kernel_inputs(batch: ScenarioArrays):
+    """The 13 ``mr_epoch`` lane-data tensors of a batch, in call order."""
+    task_len, ready0, shuffle = _derived_inputs(batch)
+    c = torch.Tensor.contiguous
+    return (c(task_len.to(F32)), c(batch.task_vm.to(I32)), c(ready0.to(F32)),
+            c(batch.task_is_reduce.to(I32)), c(batch.task_valid.to(I32)),
+            c(shuffle.to(F32)[:, None]), c(batch.vm_mips.to(F32)),
+            c(batch.vm_pes.to(F32)), c(batch.sched_policy.to(I32)[:, None]),
+            c(batch.vm_start.to(F32)), c(batch.vm_stop.to(F32)),
+            c(batch.spinup_delay.to(F32)[:, None]),
+            c(batch.task_prio.to(F32)))
+
+
+def batch_max_pes(batch: ScenarioArrays) -> int:
+    """The static admission-scan depth a batch needs."""
+    if batch.vm_pes.numel() == 0:
+        return 1
+    return max(int(torch.ceil(batch.vm_pes.max()).item()), 1)
+
+
+def resolve_backend(backend: str | None, device: torch.device) -> str:
+    """``None`` picks the kernel on the card and its plain version on the
+    CPU; an explicit ``"cuda"`` needs tensors on the card."""
+    if backend is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"backend='cuda' runs the CUDA kernel and needs "
+                         f"tensors on the card, got {device}")
+    return backend
+
+
+def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
+                   max_pes: int | None = None,
+                   device=None) -> SimOutput:
+    """Step a stacked J=1 batch to completion through ``mr_epoch``.
+
+    ``device`` moves the batch first (``None`` keeps it where it is);
+    ``backend="cuda"`` launches the CUDA kernel, ``"torch"`` runs the
+    plain version on the batch's device.  ``max_pes`` bounds the static
+    admission scan (default: the batch's largest PE count).
+    """
+    if device is not None:
+        batch = ScenarioArrays(*(x.to(device) for x in batch))
+    backend = resolve_backend(backend, batch.task_vm.device)
+    if batch.job_length.shape[1] != 1:
+        raise ValueError("epoch_schedule: the kernel steps one job per lane "
+                         f"(J=1), got J={batch.job_length.shape[1]}")
+    if max_pes is None:
+        max_pes = batch_max_pes(batch)
+    step = mr_epoch if backend == "cuda" else mr_epoch_plain
+    st = step(*kernel_inputs(batch), max_pes=max_pes)
+    return _sim_output(batch, st[3], st[4], st[5], st[7][:, 0])

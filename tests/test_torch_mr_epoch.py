@@ -1,0 +1,160 @@
+"""The port's ``mr_epoch`` against the JAX package's Pallas kernel.
+
+Seeded lanes (made by the JAX encoder, so both kernels read the same bits)
+go through JAX ``mr_epoch(..., interpret=True)`` and the port's
+``mr_epoch_plain`` on the CPU; all 8 carry leaves must be bitwise equal,
+across tiles, both sched policies, the four bindings, LOCALITY on skewed
+placement, elastic lease windows with spinup and priorities, the tail-heavy
+straggler shape, and a run resumed at ``epoch_limit``.  The CUDA kernel
+itself is held against the plain version on the card in
+``test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import elasticity as jel
+from repro.core import sweep as jsweep
+from repro.kernels.mr_sched import megakernel as jmk
+from repro.kernels.mr_sched import ops as jops
+from repro_torch.kernels.mr_sched import megakernel as tmk
+
+V = 9
+
+
+def _params(kind, n, T, seed):
+    rng = np.random.default_rng(seed)
+    p = dict(
+        n_maps=rng.integers(1, T - 1, n).astype(np.int32),
+        n_reduces=rng.integers(1, 3, n).astype(np.int32),
+        n_vms=rng.integers(1, V + 1, n).astype(np.int32),
+        vm_mips=rng.choice([250.0, 500.0, 1000.0], n).astype(np.float32),
+        vm_pes=rng.choice([1.0, 2.0, 4.0], n).astype(np.float32),
+        vm_cost=rng.choice([1.0, 2.0], n).astype(np.float32),
+        job_length=rng.choice([362880.0, 725760.0], n).astype(np.float32),
+        job_data=rng.choice([2e5, 4e5, 8e5], n).astype(np.float32),
+        sched_policy=rng.integers(0, 2, n).astype(np.int32),
+        binding_policy=rng.integers(0, 4, n).astype(np.int32),
+    )
+    if kind in ("mixed", "locality"):
+        p["storage_enabled"] = (rng.random(n) < 0.7).astype(np.float32)
+        p["replication"] = rng.integers(1, 4, n).astype(np.int32)
+        p["placement"] = rng.integers(0, 2, n).astype(np.int32)
+        p["block_size_mb"] = rng.choice([8192.0, 32768.0], n
+                                        ).astype(np.float32)
+        p["storage_seed"] = rng.integers(0, 1000, n).astype(np.int32)
+    if kind == "locality":
+        p["binding_policy"] = np.full(n, 3, np.int32)
+        p["placement"] = np.ones(n, np.int32)
+    if kind == "elastic":
+        p["job_submit"] = jel.arrival_times(n, rate=0.002, seed=seed)
+        start = rng.choice([0.0, 500.0, 2000.0], (n, V)).astype(np.float32)
+        p["vm_start"] = start
+        p["vm_stop"] = np.where(rng.random((n, V)) < 0.5, 1e30,
+                                start + p["job_submit"][:, None]
+                                + rng.choice([3000.0, 40000.0], (n, 1))
+                                ).astype(np.float32)
+        p["spinup_delay"] = rng.choice([0.0, 60.0], n).astype(np.float32)
+        p["task_prio"] = rng.integers(0, 3, (n, T)).astype(np.float32)
+        p["sched_policy"] = np.ones(n, np.int32)
+    if kind == "tailheavy":
+        strag = rng.random(n) < 1.0 / 8.0
+        strag[0] = True
+        p["n_maps"] = np.full(n, T - 1, np.int32)
+        p["n_reduces"] = np.ones(n, np.int32)
+        p["n_vms"] = np.where(strag, 1, rng.integers(6, V + 1, n)
+                              ).astype(np.int32)
+        p["vm_pes"] = np.where(strag, 1.0, rng.choice([2.0, 4.0], n)
+                               ).astype(np.float32)
+        p["sched_policy"] = np.ones(n, np.int32)
+        p["binding_policy"] = np.zeros(n, np.int32)
+    return p
+
+
+def _lanes(kind, n=64, T=16, seed=0):
+    """The 13 mr_epoch lane-data arrays (numpy) of a seeded grid, derived
+    by the JAX package's own wrapper code, plus ``max_pes``."""
+    b = jsweep.grid_arrays(_params(kind, n, T, seed), pad_tasks=T,
+                           pad_vms=V)
+    task_len, ready0, shuffle = jops._derived_inputs(b)
+    arrs = (task_len, b.task_vm, ready0, b.task_is_reduce.astype(np.int32),
+            b.task_valid.astype(np.int32), shuffle[:, None], b.vm_mips,
+            b.vm_pes, b.sched_policy[:, None], b.vm_start, b.vm_stop,
+            b.spinup_delay[:, None], b.task_prio)
+    dtypes = (np.float32, np.int32, np.float32, np.int32, np.int32,
+              np.float32, np.float32, np.float32, np.int32, np.float32,
+              np.float32, np.float32, np.float32)
+    lanes = tuple(np.ascontiguousarray(np.asarray(a, d))
+                  for a, d in zip(arrs, dtypes))
+    return lanes, max(int(np.ceil(lanes[7].max())), 1)
+
+
+def _jax(lanes, max_pes, **kw):
+    return tuple(np.asarray(x) for x in jmk.mr_epoch(
+        *lanes, max_pes=max_pes, interpret=True, **kw))
+
+
+def _torch(lanes, max_pes, state=None, **kw):
+    st = None if state is None else tuple(torch.tensor(x) for x in state)
+    out = tmk.mr_epoch_plain(*(None if x is None else torch.tensor(x)
+                               for x in lanes),
+                             state=st, max_pes=max_pes, **kw)
+    return tuple(x.numpy() for x in out)
+
+
+def _assert_bitwise(want, got, what):
+    assert len(want) == len(got) == 8
+    for name, a, b in zip(tmk.STATE_LEAVES, want, got):
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, name)
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                      err_msg=f"{what}: leaf {name}")
+
+
+@pytest.mark.parametrize("kind,tile,T", [
+    ("mixed", 8, 16), ("locality", 16, 16), ("elastic", 64, 16),
+    ("tailheavy", 32, 24)])
+def test_plain_matches_pallas_bitwise(kind, tile, T):
+    lanes, max_pes = _lanes(kind, T=T, seed=T + tile)
+    want = _jax(lanes, max_pes, tile=tile)
+    got = _torch(lanes, max_pes)
+    _assert_bitwise(want, got, kind)
+    assert want[7].max() > 2            # lanes took real event epochs
+
+
+def test_resume_split_matches_pallas_and_one_call():
+    lanes, max_pes = _lanes("elastic", T=16, seed=3)
+    full = _torch(lanes, max_pes)
+    split = int(full[7].max()) // 2
+    j1 = _jax(lanes, max_pes, tile=16, epoch_limit=split)
+    t1 = _torch(lanes, max_pes, epoch_limit=split)
+    _assert_bitwise(j1, t1, "first chunk")
+    # the second call gets the rest of the 2T+2 budget: lanes stranded
+    # behind a closed lease run to the budget, as in the one call
+    rest = 2 * 16 + 2 - split
+    resumed = _torch((lanes[0], lanes[1], None) + lanes[3:], max_pes,
+                     state=t1, epoch_limit=rest)
+    _assert_bitwise(full, resumed, "resumed")
+    assert (t1[7] <= split).all() and (full[7] > split).any()
+    assert (full[7] == 2 * 16 + 2).any()    # the grid strands some lanes
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    lanes, max_pes = _lanes("mixed", n=16, T=8, seed=9)
+    before = tmk.mr_epoch.launches
+    got = tmk.mr_epoch(*(torch.tensor(x) for x in lanes),
+                       max_pes=max_pes)
+    assert tmk.mr_epoch.launches == before     # no kernel launched
+    _assert_bitwise(_torch(lanes, max_pes), tuple(x.numpy() for x in got),
+                    "wrapper")
+
+
+def test_kernel_shared_memory_layout():
+    # the C source's lane_smem_bytes and the wrapper's agree
+    src = (tmk.__file__.rsplit("/", 1)[0] + "/csrc/mr_epoch.cu")
+    text = open(src).read()
+    assert "(60 * T + 20 * V + 4 + 15) / 16 * 16" in text
+    assert tmk.lane_smem_bytes(64, 16) == (60 * 64 + 20 * 16 + 4 + 15) \
+        // 16 * 16
+    assert tmk._lanes_per_block(64, 16) == 4
+    with pytest.raises(ValueError):
+        tmk._lanes_per_block(8192, 16)
