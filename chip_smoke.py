@@ -10,21 +10,34 @@ and ``nvidia-smi``; it imports neither JAX nor the JAX package.  Phases,
 each printing one line of numbers:
 
 1. device   — the card's name and power limit (``nvidia-smi``), torch/CUDA.
-2. build    — every CUDA kernel of the path, one ``nvcc`` per source, in
+2. build    — every CUDA kernel of the port, one ``nvcc`` per source, in
               parallel, with ``ptxas`` register/shared-memory lines.
 3. kernels  — each kernel against its plain PyTorch version on the card, on
-              seeded grids of 2048 lanes at T = 8, 32 and 64 (mixed time- and
-              space-shared lanes, all four bindings, LOCALITY on skewed
-              placement, elastic lease windows with spinup and priorities,
-              the tail-heavy straggler shape): every carry leaf bitwise, and
-              a run split at ``epoch_limit`` bitwise against one call.
+              seeded grids of 2048 lanes at T = 8, 32 and 64: every carry leaf
+              bitwise, and a run split at ``epoch_limit`` bitwise against one
+              call.  The open-loop ``mr_epoch`` on the open-loop kinds (mixed
+              time- and space-shared lanes, all four bindings, LOCALITY on
+              skewed placement, elastic lease windows with spinup and
+              priorities, the tail-heavy straggler shape); the control
+              instantiation on the closed-loop kinds (seeded failures with
+              AUTOSCALE, deadlines with SHED/BOOST and preemption, reserve
+              fleets, failover onto replica holders), all 15 leaves; and the
+              control instantiation on degenerate control data against the
+              open-loop kernel on the 8 shared leaves.
 4. main     — ``SweepPlan.run(device="cuda")`` on 65,536 open-loop cells; the
               kernel's launch count must rise; wall time, scenarios/s, the
               kernel's own time (CUDA events), the plain version's time on
-              the same batches and the kernel's bound.
+              the same batches, the kernel's bound and the per-layer split.
 5. cpu      — 2048 cells drawn from every bucket of the main run, stepped
               again by the port on the CPU at the same bucket shapes:
               integer metrics exact, float metrics bitwise.
+6. control  — the same for the closed loop: ``SweepPlan.run(device="cuda")``
+              on 65,536 closed-loop cells, a quarter of each closed-loop kind;
+              the control instantiation's launch count must rise, every lane's
+              ``n_epochs`` stays within its epoch bound, and the grid's totals
+              of failures, re-dispatches, scale events, shed tasks and
+              preemptions must each be > 0.  Then 2048 of its cells bitwise
+              on the CPU.
 
 Then one JSON line describing each kernel, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -52,6 +65,9 @@ TIMING_REPS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores (same)
 KINDS = ("mixed_policies", "locality", "elastic", "tailheavy")
+CONTROL_KINDS = ("control", "deadline", "reserves", "failover_locality")
+CONTROL_RATE = 0.0005       # per-VM failure rate of the closed-loop kinds
+CONTROL_REPAIR = 600.0      # ... and their repair delay (seconds)
 
 
 def cell_columns(kind: str, n: int, rng, T: int | None = None):
@@ -135,6 +151,119 @@ def mixed_columns(n: int, seed: int, T: int | None = None):
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
+def control_columns(kind: str, n: int, rng, T: int | None = None):
+    """Seeded closed-loop parameter columns for ``n`` cells of one kind.
+
+    ``control`` and ``deadline`` are the recipe of
+    ``benchmarks/sweep_throughput.py:_random_cols(control=True)`` and
+    ``(deadline=True)``, copied here: the elastic grid plus per-lane
+    seeded failure/restore streams (rate 0.0005, repair 600 s), re-dispatch
+    after 0 or 30 s and the AUTOSCALE hook (queue 2 or 8, busy 0.5);
+    ``deadline`` adds per-task deadlines on half the tasks with SHED or
+    BOOST, slack 0 or 120 s and preemption (resume 0 or 1), and counts its
+    failure instants from the job's arrival.  ``reserves``
+    gives the last one or two VMs of each lane as AUTOSCALE reserves
+    (queue 2, busy 0.5) to a space-shared job of 8-20 maps.
+    ``failover_locality`` puts the failure streams on the storage grid
+    (LOCALITY binding, replication 1-3, skewed placement), so failover
+    targets are replica holders, with the last VM an AUTOSCALE reserve:
+    a block held only there fails over to a non-holder and pays a
+    re-replication fetch.
+    Every kind fills the same column set, degenerate where it does not use
+    a column.
+    """
+    from repro_torch.core import control
+    base = "elastic" if kind in ("control", "deadline") else (
+        "locality" if kind == "failover_locality" else "mixed_policies")
+    cols = cell_columns(base, n, rng, T)
+    w = cols["task_prio"].shape[1]
+    cols.update(
+        vm_fail=np.full((n, 9), 1e30, np.float32),
+        vm_restore=np.full((n, 9), 1e30, np.float32),
+        vm_auto=np.zeros((n, 9), np.float32),
+        control_policy=np.zeros(n, np.int32),
+        ctl_queue=np.zeros(n, np.float32), ctl_busy=np.zeros(n, np.float32),
+        redispatch_delay=np.zeros(n, np.float32),
+        task_deadline=np.full((n, w), 1e30, np.float32),
+        deadline_policy=np.zeros(n, np.int32),
+        deadline_slack=np.zeros(n, np.float32),
+        preempt=np.zeros(n, np.int32), preempt_resume=np.zeros(n, np.int32))
+    if kind in ("control", "deadline", "failover_locality"):
+        f, r = control.failure_times(9 * n, rate=CONTROL_RATE, seed=n,
+                                     repair_delay=CONTROL_REPAIR)
+        f = np.asarray(f, np.float32).reshape(n, 9)
+        r = np.asarray(r, np.float32).reshape(n, 9)
+        if kind == "deadline":
+            # instants counted from the job's arrival, so failures land
+            # while the job runs and re-dispatched tasks contend for full
+            # VMs (preemption's trigger); counted from 0, nearly all fall
+            # before the Poisson arrivals
+            sub = cols["job_submit"][:, None]
+            f = np.minimum(f + sub, np.float32(1e30))
+            r = np.minimum(r + sub, np.float32(1e30))
+        cols["vm_fail"], cols["vm_restore"] = f, r
+        cols["redispatch_delay"] = rng.choice([0.0, 30.0], n
+                                              ).astype(np.float32)
+    if kind in ("control", "deadline"):
+        cols["control_policy"] = np.ones(n, np.int32)          # AUTOSCALE
+        cols["ctl_queue"] = rng.choice([2.0, 8.0], n).astype(np.float32)
+        cols["ctl_busy"] = np.full(n, 0.5, np.float32)
+        cols["binding_policy"] = np.zeros(n, np.int32)
+    if kind == "deadline":
+        dl = (cols["job_submit"][:, None]
+              + rng.choice([3000.0, 12000.0, 48000.0], (n, w))
+              ).astype(np.float32)
+        cols["task_deadline"] = np.where(rng.random((n, w)) < 0.5, 1e30,
+                                         dl).astype(np.float32)
+        cols["deadline_policy"] = rng.integers(1, 3, n).astype(np.int32)
+        cols["deadline_slack"] = rng.choice([0.0, 120.0], n
+                                            ).astype(np.float32)
+        cols["preempt"] = np.ones(n, np.int32)
+        cols["preempt_resume"] = rng.integers(0, 2, n).astype(np.int32)
+    elif kind == "reserves":
+        hi = 20 if T is None else max(1, min(20, T - 1))
+        cols["n_maps"] = rng.integers(min(8, hi), hi + 1, n).astype(np.int32)
+        cols["n_vms"] = rng.integers(3, 10, n).astype(np.int32)
+        k = rng.integers(1, 3, n)
+        cols["vm_auto"] = (np.arange(9)[None, :] >= (cols["n_vms"] - k)[:, None]
+                           ).astype(np.float32)
+        cols["control_policy"] = np.ones(n, np.int32)
+        cols["ctl_queue"] = np.full(n, 2.0, np.float32)
+        cols["ctl_busy"] = np.full(n, 0.5, np.float32)
+        cols["sched_policy"] = np.ones(n, np.int32)
+        cols["binding_policy"] = np.zeros(n, np.int32)
+    elif kind == "failover_locality":
+        # the last VM is an AUTOSCALE reserve: a block held only there
+        # fails over to a non-holder and pays the re-replication fetch
+        cols["n_vms"] = np.maximum(cols["n_vms"], 2).astype(np.int32)
+        cols["vm_auto"] = (np.arange(9)[None, :]
+                           == (cols["n_vms"] - 1)[:, None]).astype(np.float32)
+        cols["control_policy"] = np.ones(n, np.int32)
+        cols["ctl_queue"] = np.full(n, 2.0, np.float32)
+        cols["ctl_busy"] = np.full(n, 0.5, np.float32)
+    elif kind != "control":
+        raise ValueError(f"unknown kind {kind!r}")
+    return cols
+
+
+def mixed_control_columns(n: int, seed: int, T: int | None = None):
+    """``n`` closed-loop cells, a quarter of each kind, in one column set."""
+    rng = np.random.default_rng(seed)
+    parts = [control_columns(k, n // len(CONTROL_KINDS), rng, T)
+             for k in CONTROL_KINDS]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def fit_tasks(cols, T):
+    """Cut or pad the per-task columns to ``T`` slots."""
+    for name, fill in (("task_prio", 0.0), ("task_deadline", 1e30)):
+        if name in cols:
+            c = cols[name][:, :T]
+            cols[name] = np.pad(c, ((0, 0), (0, T - c.shape[1])),
+                                constant_values=fill)
+    return cols
+
+
 def bits(x):
     """A tensor's raw bits, so equality is bitwise (-0.0 != 0.0)."""
     import torch
@@ -149,16 +278,14 @@ def nvidia_smi() -> str:
 
 
 def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
-    """Kernel vs plain version on the card; returns the largest absolute
-    difference seen (0.0 when every leaf is bitwise equal)."""
+    """Open-loop kernel vs plain version on the card; returns the largest
+    absolute difference seen (0.0 when every leaf is bitwise equal)."""
     import torch
     from repro_torch.core import sweep
     from repro_torch.kernels.mr_sched import megakernel, ops
     worst, checked = 0.0, 0
     for T in ts:
-        cols = mixed_columns(lanes, seed + T, T)
-        cols["task_prio"] = np.pad(cols["task_prio"][:, :T],
-                                   ((0, 0), (0, max(0, T - 21))))
+        cols = fit_tasks(mixed_columns(lanes, seed + T, T), T)
         batch = sweep.grid_arrays(cols, pad_tasks=T, pad_vms=9,
                                   device=device)
         inputs = ops.kernel_inputs(batch)
@@ -166,12 +293,8 @@ def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
         kern = megakernel.mr_epoch(*inputs, max_pes=max_pes)
         plain = megakernel.mr_epoch_plain(*inputs, max_pes=max_pes)
         torch.cuda.synchronize()
-        for name, a, b in zip(megakernel.STATE_LEAVES, kern, plain):
-            if a.dtype == torch.float32:
-                worst = max(worst, float((a - b).abs().max()))
-            if not torch.equal(bits(a), bits(b)):
-                raise AssertionError(f"T={T}: mr_epoch leaf {name} differs "
-                                     "from its plain version")
+        worst = max(worst, compare(megakernel.STATE_LEAVES, kern, plain,
+                                   f"T={T}: mr_epoch"))
         # resume: two calls split at epoch_limit against one call
         split = max(1, int(kern[7].max()) // 2)
         first = megakernel.mr_epoch(*inputs, max_pes=max_pes,
@@ -179,11 +302,63 @@ def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
         rest = megakernel.mr_epoch(inputs[0], inputs[1], None, *inputs[3:],
                                    state=first, max_pes=max_pes,
                                    epoch_limit=2 * T + 2 - split)
-        for name, a, b in zip(megakernel.STATE_LEAVES, rest, kern):
-            if not torch.equal(bits(a), bits(b)):
-                raise AssertionError(f"T={T}: resumed leaf {name} differs")
+        compare(megakernel.STATE_LEAVES, rest, kern, f"T={T}: resumed")
+        # the control instantiation on degenerate control data is the
+        # open loop on the 8 shared leaves
+        ctl = megakernel.mr_epoch(*inputs, *ops.control_lane_data(batch),
+                                  max_pes=max_pes, control=True)
+        compare(megakernel.STATE_LEAVES, ctl[:8], kern,
+                f"T={T}: degenerate control")
         checked += lanes
     return worst, checked
+
+
+def phase_control_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
+    """Control instantiation vs its plain version on closed-loop grids;
+    returns ``(max_abs_err, lanes checked, totals of hit tasks, scale
+    events, shed tasks and evictions)``."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.kernels.mr_sched import megakernel, ops
+    worst, checked = 0.0, 0
+    totals = np.zeros(4, np.int64)
+    for T in ts:
+        cols = fit_tasks(mixed_control_columns(lanes, seed + 100 + T, T), T)
+        batch = sweep.grid_arrays(cols, pad_tasks=T, pad_vms=9,
+                                  device=device)
+        inputs = ops.kernel_inputs(batch) + ops.control_lane_data(batch)
+        max_pes = ops.batch_max_pes(batch)
+        kern = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=True)
+        plain = megakernel.mr_epoch_plain(*inputs, max_pes=max_pes,
+                                          control=True)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(megakernel.STATE_LEAVES_CONTROL, kern,
+                                   plain, f"T={T}: control mr_epoch"))
+        split = max(1, int(kern[7].max()) // 2)
+        first = megakernel.mr_epoch(*inputs, max_pes=max_pes,
+                                    epoch_limit=split, control=True)
+        rest = megakernel.mr_epoch(
+            inputs[0], inputs[1], None, *inputs[3:], state=first,
+            max_pes=max_pes, control=True,
+            epoch_limit=megakernel.default_epoch_limit(T, 9, True) - split)
+        compare(megakernel.STATE_LEAVES_CONTROL, rest, kern,
+                f"T={T}: control resumed")
+        totals += [int(kern[i].sum()) for i in (8, 11, 12, 13)]
+        checked += lanes
+    return worst, checked, totals
+
+
+def compare(names, got, want, what):
+    """Raise unless every leaf is bitwise equal; the largest absolute
+    difference of the float leaves (0.0 when equal)."""
+    import torch
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        if a.dtype == torch.float32:
+            worst = max(worst, float((a - b).abs().max()))
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{what}: leaf {name} differs")
+    return worst
 
 
 def bucket_batches(cols, pad_tasks, pad_vms, device):
@@ -199,7 +374,7 @@ def bucket_batches(cols, pad_tasks, pad_vms, device):
     return out
 
 
-def layer_seconds(buckets, device):
+def layer_seconds(buckets, device, control=False):
     """Wall seconds of the main path's layers, summed over its buckets:
     encode (``grid_arrays``), step (``epoch_schedule``: derived inputs,
     the kernel, ``SimOutput``) and metrics (``job_metrics`` +
@@ -216,7 +391,7 @@ def layer_seconds(buckets, device):
                                   static_params=statics, device=device)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = ops.epoch_schedule(batch, max_pes=max_pes)
+        out = ops.epoch_schedule(batch, max_pes=max_pes, control=control)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         engine.to_numpy(engine.job_metrics(batch, out))
@@ -226,21 +401,30 @@ def layer_seconds(buckets, device):
     return enc, step, met
 
 
-def kernel_bound_ms(batch, n_epochs, max_pes):
+def kernel_bound_ms(batch, n_epochs, max_pes, control=False):
     """Least time the card could take for one ``mr_epoch`` call on this
     batch: the larger of its bytes over HBM bandwidth and its operations
     over the fp32 rate.  Bytes: each input read once, each output written
-    once (per lane 4 T-wide + 3 scalar + 4 V-wide inputs, 5 T-wide + 3
-    scalar carry leaves in and out, 4 bytes each).  Operations, counted
-    from the op sequence per realized epoch of a lane: about 32 per task
-    slot (rates, event times, the next-event min, completions, release,
-    eligibility, starts), 6 per VM, and 6 per task slot per admission step
-    on space-shared lanes, times this run's realized epochs per lane."""
+    once, 4 bytes each.  Open loop, per lane: 4 T-wide + 3 scalar + 4
+    V-wide inputs, 5 T-wide + 3 scalar carry leaves in and out.  Control:
+    8 T-wide + 11 scalar + 6 V-wide inputs, 8 T-wide + 2 V-wide + 5 scalar
+    carry leaves in and out.  Operations, counted from the op sequence per
+    realized epoch of a lane: open loop about 32 per task slot (rates,
+    event times, the next-event min, completions, release, eligibility,
+    starts), 6 per VM, and 6 per task slot per admission step on
+    space-shared lanes; control about 100 per task slot (the same, plus
+    the hook's counts, down-window gates, SHED/BOOST predicates, kills and
+    the preemption extrema), 20 per VM, and 8 per task slot per admission
+    step (the urgency tier); times this run's realized epochs per lane."""
     N, T = batch.task_vm.shape
     V = batch.vm_mips.shape[1]
-    nbytes = N * (4 * (4 * T + 3 + 4 * V) + 2 * 4 * (5 * T + 3))
     space = (batch.sched_policy != 0).double().cpu().numpy()
-    per_epoch = 32.0 * T + 6.0 * V + space * 6.0 * T * max_pes
+    if control:
+        nbytes = N * (4 * (8 * T + 11 + 6 * V) + 2 * 4 * (8 * T + 2 * V + 5))
+        per_epoch = 100.0 * T + 20.0 * V + space * 8.0 * T * max_pes
+    else:
+        nbytes = N * (4 * (4 * T + 3 + 4 * V) + 2 * 4 * (5 * T + 3))
+        per_epoch = 32.0 * T + 6.0 * V + space * 6.0 * T * max_pes
     ops = float((n_epochs.double().cpu().numpy() * per_epoch).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
@@ -261,14 +445,110 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def phase_main(cols, dev, control=False, pad_tasks=None):
+    """Drive ``SweepPlan.run(device=dev)`` on the grid twice (the
+    kernels' launch counts zeroed just before the first run and read just
+    after it), check its results, then time the kernel, its plain version
+    and the layers bucket by bucket.  Returns the measurements."""
+    import torch
+    from repro_torch.core import engine, sweep
+    from repro_torch.kernels.mr_sched import megakernel, ops
+    n = len(cols["n_maps"])
+    plan = sweep.product(sweep.Axis(("cell",), tuple(
+        (i,) for i in range(n)), cols)).replace(pad_tasks=pad_tasks)
+    megakernel.mr_epoch.launches = 0
+    megakernel.mr_epoch.control_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = plan.run(device=dev)
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    launches = (megakernel.mr_epoch.launches,
+                megakernel.mr_epoch.control_launches)
+    if launches[int(control)] < 1:
+        raise AssertionError("the main path never launched its mr_epoch "
+                             "instantiation")
+    t0 = time.perf_counter()
+    again = plan.run(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k in result.metrics:
+        if not np.array_equal(result[k], again[k]):
+            raise AssertionError(f"main path not repeatable: {k}")
+    for k in ("finish_time", "makespan", "utilization"):
+        if not np.isfinite(result[k]).all():
+            raise AssertionError(f"non-finite {k} in the main path")
+    compiled, pad_t, pad_v = plan._compiled()
+    buckets = bucket_batches(compiled, pad_t, pad_v, dev)
+    k_ms = p_ms = b_ms = by_ops = 0.0
+    for idx, gcols, statics, tb, vb, batch, max_pes in buckets:
+        inputs = ops.kernel_inputs(batch)
+        if control:
+            inputs = inputs + ops.control_lane_data(batch)
+        st = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=control)
+        bound = (engine._lane_bound(batch) if control
+                 else torch.full_like(st[7][:, 0], 2 * tb + 2))
+        if not ((st[7][:, 0] >= 1) & (st[7][:, 0] <= bound)).all():
+            raise AssertionError(f"n_epochs outside [1, lane bound] at "
+                                 f"T={tb}")
+        if not np.array_equal(result["n_epochs"].reshape(-1)[idx],
+                              st[7][:, 0].cpu().numpy()):
+            raise AssertionError("the kernel's n_epochs differ from the run")
+        k_ms += cuda_ms(lambda: megakernel.mr_epoch(
+            *inputs, max_pes=max_pes, control=control), TIMING_REPS)
+        p_ms += cuda_ms(lambda: megakernel.mr_epoch_plain(
+            *inputs, max_pes=max_pes, control=control), 1)
+        bound_ms, by = kernel_bound_ms(batch, st[7][:, 0], max_pes, control)
+        b_ms += bound_ms
+        by_ops += bound_ms if by == "operations" else 0.0
+    layers = layer_seconds(buckets, dev, control)
+    return dict(result=result, buckets=buckets, launches=launches,
+                wall_first=wall_first, wall=wall, k_ms=k_ms, p_ms=p_ms,
+                b_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2
+                else "bytes", layers=layers, n=n)
+
+
+def phase_cpu(m, control=False, seed=5):
+    """Re-run ``CPU_CELLS`` cells drawn from every bucket of a main run on
+    the CPU at the same bucket shapes; every metric must be bitwise the
+    card's.  Returns the cell count."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import JobMetrics, ScenarioMetrics
+    result, buckets, n = m["result"], m["buckets"], m["n"]
+    rng = np.random.default_rng(seed)
+    n_checked = 0
+    share = CPU_CELLS / n
+    for i, (idx, gcols, statics, tb, vb, batch, max_pes) in enumerate(
+            buckets):
+        k = max(1, int(round(len(idx) * share)))
+        if i == len(buckets) - 1:
+            k = max(1, min(len(idx), CPU_CELLS - n_checked))
+        pick = np.sort(rng.choice(len(idx), size=min(k, len(idx)),
+                                  replace=False))
+        sub = {c: v[pick] for c, v in gcols.items()}
+        jm, sm, _ = sweep._run_batch(sub, tb, vb, statics, "torch",
+                                     torch.device("cpu"), max_pes, control)
+        for f in JobMetrics._fields:
+            want = result.metrics[f].reshape(n, -1)[idx[pick]]
+            if not np.array_equal(want.view(np.int32),
+                                  jm[f].view(np.int32)):
+                raise AssertionError(f"CPU run differs from the card: {f}")
+        for f in ScenarioMetrics._fields:
+            want = result.metrics[f].reshape(n)[idx[pick]]
+            if not np.array_equal(want.view(np.int32),
+                                  sm[f].view(np.int32)):
+                raise AssertionError(f"CPU run differs from the card: {f}")
+        n_checked += len(pick)
+    return n_checked
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from repro_torch.core import sweep
     from repro_torch.kernels import _build
-    from repro_torch.kernels.mr_sched import megakernel, ops
     dev = torch.device("cuda")
     smi = nvidia_smi()
 
@@ -280,7 +560,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     built = _build.build()
-    ptxas = [ln.strip() for name in built for ln in
+    ptxas = [f"{name}: {ln.strip()}" for name in built for ln in
              _build.build_log(name).splitlines() if "Used" in ln]
     print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
           f"{json.dumps({k: round(v, 2) for k, v in built.items()})} | "
@@ -290,101 +570,86 @@ def main() -> int:
     t0 = time.perf_counter()
     worst, checked = phase_kernels(dev)
     print(f"kernels: mr_epoch bitwise == mr_epoch_plain on {checked} lanes "
-          f"at T={list(KERNEL_TS)} (+ resume split), max_abs_err {worst}, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"at T={list(KERNEL_TS)} (+ resume split; control instantiation "
+          f"on degenerate data == open loop on 8 leaves), max_abs_err "
+          f"{worst}, {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    worst_c, checked_c, tot = phase_control_kernels(dev)
+    print(f"kernels: mr_epoch control bitwise == mr_epoch_plain(control="
+          f"True) on all 15 leaves, {checked_c} closed-loop lanes at "
+          f"T={list(KERNEL_TS)} (+ resume split), max_abs_err {worst_c} | "
+          f"hit tasks {tot[0]}, scale events {tot[1]}, shed {tot[2]}, "
+          f"evictions {tot[3]}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
-    # 4. main path
-    cols = mixed_columns(N_CELLS, seed=12)
-    # pad_tasks=64 caps the buckets at the next power of two above the
-    # 41-task tail-heavy cells, so the grid lands in buckets T = 4 .. 64
-    plan = sweep.product(sweep.Axis(("cell",), tuple(
-        (i,) for i in range(N_CELLS)), cols)).replace(pad_tasks=64)
-    megakernel.mr_epoch.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = plan.run(device="cuda")
-    torch.cuda.synchronize()
-    wall_first = time.perf_counter() - t0
-    launches = megakernel.mr_epoch.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched mr_epoch")
-    t0 = time.perf_counter()
-    again = plan.run(device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    for k in result.metrics:
-        if not np.array_equal(result[k], again[k]):
-            raise AssertionError(f"main path not repeatable: {k}")
-    for k in ("finish_time", "makespan", "utilization"):
-        if not np.isfinite(result[k]).all():
-            raise AssertionError(f"non-finite {k} in the main path")
-    n_ep = result["n_epochs"]
-    if not ((n_ep >= 1) & (n_ep <= 2 * 64 + 2)).all():
-        raise AssertionError("n_epochs outside [1, 2T+2]")
-    compiled, pad_t, pad_v = plan._compiled()
-    buckets = bucket_batches(compiled, pad_t, pad_v, dev)
-    k_ms = p_ms = b_ms = 0.0
-    by_ops = 0.0
-    for idx, gcols, statics, tb, vb, batch, max_pes in buckets:
-        inputs = ops.kernel_inputs(batch)
-        st = megakernel.mr_epoch(*inputs, max_pes=max_pes)
-        k_ms += cuda_ms(lambda: megakernel.mr_epoch(*inputs,
-                                                    max_pes=max_pes),
-                        TIMING_REPS)
-        p_ms += cuda_ms(lambda: megakernel.mr_epoch_plain(
-            *inputs, max_pes=max_pes), 1)
-        bound, by = kernel_bound_ms(batch, st[7][:, 0], max_pes)
-        b_ms += bound
-        by_ops += bound if by == "operations" else 0.0
-    bound_by = "operations" if by_ops >= b_ms / 2 else "bytes"
-    enc_s, step_s, met_s = layer_seconds(buckets, dev)
-    print(f"main: {N_CELLS} cells in {len(buckets)} buckets (T pads "
-          f"{sorted({b[3] for b in buckets})}), wall {wall_first:.3f} s "
-          f"first / {wall:.3f} s again, {N_CELLS / wall:.0f} scenarios/s, "
-          f"mr_epoch launches {launches}, kernel {k_ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({bound_by}), "
-          f"realized_epochs max {int(result['realized_epochs'].max())} | "
-          f"layers over buckets: encode {enc_s:.3f} s, step {step_s:.3f} s, "
-          f"metrics {met_s:.3f} s", flush=True)
+    # 4. main path, open loop.  pad_tasks=64 caps the buckets at the next
+    # power of two above the 41-task tail-heavy cells (T = 4 .. 64)
+    m = phase_main(mixed_columns(N_CELLS, seed=12), dev, pad_tasks=64)
+    if int(m["result"]["n_epochs"].max()) > 2 * 64 + 2:
+        raise AssertionError("n_epochs above 2T+2")
+    enc_s, step_s, met_s = m["layers"]
+    print(f"main: {N_CELLS} cells in {len(m['buckets'])} buckets (T pads "
+          f"{sorted({b[3] for b in m['buckets']})}), wall "
+          f"{m['wall_first']:.3f} s first / {m['wall']:.3f} s again, "
+          f"{N_CELLS / m['wall']:.0f} scenarios/s, mr_epoch launches "
+          f"{m['launches'][0]}, kernel {m['k_ms']:.3f} ms, plain "
+          f"{m['p_ms']:.3f} ms, bound {m['b_ms']:.4f} ms ({m['bound_by']}), "
+          f"realized_epochs max {int(m['result']['realized_epochs'].max())}"
+          f" | layers over buckets: encode {enc_s:.3f} s, step "
+          f"{step_s:.3f} s, metrics {met_s:.3f} s", flush=True)
 
     # 5. the same cells on the CPU
-    rng = np.random.default_rng(5)
     t0 = time.perf_counter()
-    n_checked = 0
-    share = CPU_CELLS / N_CELLS
-    from repro_torch.core.engine import JobMetrics, ScenarioMetrics
-    for i, (idx, gcols, statics, tb, vb, batch, max_pes) in enumerate(
-            buckets):
-        k = max(1, int(round(len(idx) * share)))
-        if i == len(buckets) - 1:
-            k = max(1, min(len(idx), CPU_CELLS - n_checked))
-        pick = np.sort(rng.choice(len(idx), size=min(k, len(idx)),
-                                  replace=False))
-        sub = {c: v[pick] for c, v in gcols.items()}
-        jm, sm, _ = sweep._run_batch(sub, tb, vb, statics, "torch",
-                                     torch.device("cpu"), max_pes)
-        for f in JobMetrics._fields:
-            want = result.metrics[f].reshape(N_CELLS, -1)[idx[pick]]
-            if not np.array_equal(want.view(np.int32),
-                                  jm[f].view(np.int32)):
-                raise AssertionError(f"CPU run differs from the card: {f}")
-        for f in ScenarioMetrics._fields:
-            want = result.metrics[f].reshape(N_CELLS)[idx[pick]]
-            if not np.array_equal(want.view(np.int32),
-                                  sm[f].view(np.int32)):
-                raise AssertionError(f"CPU run differs from the card: {f}")
-        n_checked += len(pick)
-    print(f"cpu: {n_checked} cells from {len(buckets)} buckets re-run on "
-          f"the CPU, integer metrics exact and float metrics bitwise, "
+    n_checked = phase_cpu(m)
+    print(f"cpu: {n_checked} cells from {len(m['buckets'])} buckets re-run "
+          f"on the CPU, integer metrics exact and float metrics bitwise, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 6. main path, closed loop, and 2048 of its cells on the CPU
+    c = phase_main(mixed_control_columns(N_CELLS, seed=13), dev,
+                   control=True)
+    res = c["result"]
+    worst_t = max(b[3] for b in c["buckets"])
+    ep_max = int(res["realized_epochs"].max())
+    if ep_max > 7 * worst_t + 9 + 3:
+        raise AssertionError("realized_epochs above 7T+V+3")
+    mech = {k: float(res[k].sum()) for k in (
+        "failures_injected", "tasks_redispatched", "scale_events",
+        "shed_tasks", "preemptions")}
+    idle = [k for k, v in mech.items() if not v > 0]
+    if idle:
+        raise AssertionError(f"the closed-loop grid never fired {idle}")
+    enc_s, step_s, met_s = c["layers"]
+    print(f"control: {N_CELLS} closed-loop cells in {len(c['buckets'])} "
+          f"buckets (T pads {sorted({b[3] for b in c['buckets']})}), wall "
+          f"{c['wall_first']:.3f} s first / {c['wall']:.3f} s again, "
+          f"{N_CELLS / c['wall']:.0f} scenarios/s, mr_epoch control "
+          f"launches {c['launches'][1]} (open loop {c['launches'][0]}), "
+          f"kernel {c['k_ms']:.3f} ms, plain {c['p_ms']:.3f} ms, bound "
+          f"{c['b_ms']:.4f} ms ({c['bound_by']}), realized_epochs max "
+          f"{ep_max} (7T+V+3 = {7 * worst_t + 12}) | "
+          + ", ".join(f"{k} {int(v)}" for k, v in mech.items())
+          + f" | layers over buckets: encode {enc_s:.3f} s, step "
+          f"{step_s:.3f} s, metrics {met_s:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    n_checked = phase_cpu(c, control=True)
+    print(f"cpu: {n_checked} closed-loop cells from {len(c['buckets'])} "
+          f"buckets re-run on the CPU, integer metrics exact and float "
+          f"metrics bitwise, {time.perf_counter() - t0:.2f} s", flush=True)
+
+    src = "src/repro_torch/kernels/mr_sched/csrc/"
     print(json.dumps({"kernels": [{
-        "name": "mr_epoch", "route": "cuda",
-        "source": "src/repro_torch/kernels/mr_sched/csrc/mr_epoch.cu",
+        "name": "mr_epoch", "route": "cuda", "source": src + "mr_epoch.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
-        "launches": launches, "max_abs_err": worst, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "launches": m["launches"][0], "max_abs_err": worst, "ms": m["k_ms"],
+        "plain_ms": m["p_ms"], "bound_ms": m["b_ms"],
+        "bound_by": m["bound_by"], "library_ms": None}, {
+        "name": "mr_epoch_control", "route": "cuda",
+        "source": src + "mr_epoch_control.cu",
+        "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
+        "launches": c["launches"][1], "max_abs_err": worst_c,
+        "ms": c["k_ms"], "plain_ms": c["p_ms"], "bound_ms": c["b_ms"],
+        "bound_by": c["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """IOTSim on PyTorch and CUDA: the port of the JAX package ``repro``.
 
-The open-loop sweep path runs end to end: ``core.sweep.SweepPlan.run``
-encodes a grid into a ``ScenarioArrays`` batch, steps it through the
-hand-written ``mr_epoch`` CUDA kernel on the card (its plain PyTorch version
-on the CPU) and reduces it into a labelled ``SweepResult``.  Entry points
-take ``device=`` and default to ``"cuda"``.
+The sweep path runs end to end, open loop and closed loop (failures,
+autoscale, deadlines, preemption): ``core.sweep.SweepPlan.run`` encodes a
+grid into a ``ScenarioArrays`` batch, steps it through the hand-written
+``mr_epoch`` CUDA kernels on the card (their plain PyTorch version on the
+CPU) and reduces it into a labelled ``SweepResult``.  Entry points take
+``device=`` and default to ``"cuda"``.
 """
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""The IOTSim simulator core on PyTorch (open-loop sweep path).
+"""The IOTSim simulator core on PyTorch (the sweep path, open and closed
+loop).
 
 * configs — :class:`~repro_torch.core.config.Scenario` and the paper's
   Table I–III presets;

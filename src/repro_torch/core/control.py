@@ -1,12 +1,12 @@
-"""Closed-loop control: what the open-loop path reads of it.
+"""Closed-loop control (DESIGN.md §10–11): the host side of the lowering.
 
 The policy enums ride in ``ScenarioArrays`` as i32 data and the
 ``ControlSpec`` on every :class:`~repro_torch.core.config.Scenario`;
-:func:`failover_targets` gives the second binding slot that
-``SimOutput.task_vm2`` reports in open-loop runs too.  The failure stream
-(:func:`failure_times`) is host numpy, so the encoders stay complete.  The
-closed-loop lowering itself (failures, autoscale, deadlines, preemption)
-is ROADMAP slice A5.
+:func:`failover_targets` gives the second binding slot a killed or evicted
+task moves to (``SimOutput.task_vm2`` reports it in open-loop runs too),
+and :func:`earliest_finish` is the f32 deadline-pressure estimate the SHED
+and BOOST predicates of the ``mr_epoch`` control lowering compare.  The
+failure stream (:func:`failure_times`) is host numpy.
 """
 from __future__ import annotations
 
@@ -57,6 +57,14 @@ def as_deadline_policy(v) -> DeadlinePolicy:
                 f"unknown deadline policy {v!r}; known: "
                 f"{[p.name.lower() for p in DeadlinePolicy]}") from None
     return DeadlinePolicy(v)
+
+
+def earliest_finish(now, rem, mips):
+    """The f32 earliest-finish estimate ``now + rem / max(mips, 1e-30)``:
+    division then add, one rounding each.  ``earliest_finish > deadline``
+    decides SHED and ``earliest_finish + slack >= deadline`` BOOST urgency;
+    the plain ``mr_epoch`` and its CUDA kernel share this op sequence."""
+    return now + rem / torch.clamp(mips, min=1e-30)
 
 
 @dataclass(frozen=True)

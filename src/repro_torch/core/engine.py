@@ -11,9 +11,10 @@ Every float op keeps the JAX package's op sequence, one rounding per op, so
 schedules are bitwise equal to the reference.  Sums run in one fixed order
 (:func:`_sum`, :func:`_fold`), never through a library reduction whose order
 depends on the device, so a run on the card and one on the CPU give the same
-bits.  The JAX engine's own XLA formulation of the epoch body (``_epoch_step``
-with its T×T admission rank) and the closed-loop lowering are ROADMAP slices
-A2 and A5.
+bits.  Batches with closed-loop inputs (failures, autoscale reserves,
+deadline policies, preemption) step through the kernel's control lowering.
+The JAX engine's own XLA formulation of the epoch body (``_epoch_step``
+with its T×T admission rank) is ROADMAP slice A2.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from . import elasticity, storage
 from .config import BindingPolicy, Scenario, base_task_lengths_f32
-from .control import failover_targets, scenario_control
+from .control import DeadlinePolicy, scenario_control
 
 _BIG = 1e30          # stand-in for +inf that survives arithmetic
 _TIME_EPS = 1e-6     # relative tie window for simultaneous events
@@ -81,7 +82,7 @@ class ScenarioArrays(NamedTuple):
     spinup_delay: torch.Tensor    # f32[N]
     bill_gran: torch.Tensor       # f32[N]
     task_prio: torch.Tensor       # f32[N, T] space-shared admission prio
-    # closed-loop control (DESIGN.md §10; read by the A5 slice)
+    # closed-loop control (DESIGN.md §10)
     vm_fail: torch.Tensor         # f32[N, V]; _BIG = never fails
     vm_restore: torch.Tensor      # f32[N, V]
     vm_auto: torch.Tensor         # bool[N, V] autoscale reserve
@@ -89,7 +90,7 @@ class ScenarioArrays(NamedTuple):
     ctl_queue: torch.Tensor       # f32[N]
     ctl_busy: torch.Tensor        # f32[N]
     redispatch_delay: torch.Tensor  # f32[N]
-    # graceful degradation (DESIGN.md §11; read by the A5 slice)
+    # graceful degradation (DESIGN.md §11)
     task_deadline: torch.Tensor   # f32[N, T]; _BIG = none
     deadline_policy: torch.Tensor  # i32[N]
     deadline_slack: torch.Tensor  # f32[N]
@@ -436,50 +437,85 @@ def _control_active(sc: ScenarioArrays) -> bool:
                 or (sc.deadline_policy != 0).any() or (sc.preempt != 0).any())
 
 
+def _bound_terms(T: int, V: int, any_fail, any_shed, preempt_on):
+    """The additive per-lane epoch bound from its three triggers (i32
+    ``[N]``): ``2T + 2``, plus ``2T + V`` for a lane that encodes a VM
+    failure, ``T + 1`` for a SHED lane with a deadline and ``2T`` for a
+    preempting lane."""
+    zero = torch.zeros(any_fail.shape, dtype=I32, device=any_fail.device)
+    return (2 * T + 2
+            + torch.where(any_fail, zero + (2 * T + V), zero)
+            + torch.where(any_shed, zero + (T + 1), zero)
+            + torch.where(preempt_on, zero + 2 * T, zero))
+
+
+def _lane_bound(sc: ScenarioArrays) -> torch.Tensor:
+    """Per-lane epoch bound of the closed loop (i32 ``[N]``).
+
+    Open loop, every live epoch fires a start or a completion: ``2T + 2``.
+    Each mechanism widens it additively, and only for lanes whose data can
+    trigger it, so degenerate lanes keep the open-loop bound: failures
+    (a task restarts at most twice, plus ``V`` failure instants), deadline
+    shedding (epochs that only shed) and preemption (two evictions per
+    task)."""
+    T, V = sc.task_valid.shape[1], sc.vm_valid.shape[1]
+    any_fail = (sc.vm_valid & (sc.vm_fail < _BIG / 2)).any(dim=1)
+    any_shed = (sc.deadline_policy == int(DeadlinePolicy.SHED)) \
+        & (sc.task_valid & (sc.task_deadline < _BIG / 2)).any(dim=1)
+    return _bound_terms(T, V, any_fail, any_shed, sc.preempt != 0)
+
+
 # ---------------------------------------------------------------------------
 # Simulation
 # ---------------------------------------------------------------------------
 
-def _sim_output(sc: ScenarioArrays, start, finish, ready,
-                n_epochs) -> SimOutput:
-    """Shape an open-loop schedule into :class:`SimOutput`: the realized
-    control outputs are the encoded scenario, and ``task_vm2`` is the
-    failover binding the closed loop would use."""
+def _sim_output(sc: ScenarioArrays, start, finish, ready, n_epochs,
+                task_vm2, control=None) -> SimOutput:
+    """Shape a schedule into :class:`SimOutput`.
+
+    ``control`` holds a closed-loop run's seven realized control leaves
+    ``(hit, vm_open, vm_close, n_scale [N], shed, n_evict, work_lost
+    [N])``; without it (open loop) they are the encoded scenario.  Shed
+    tasks never finish and leave the makespan.  ``task_vm2`` is the
+    failover binding, reported by both lowerings."""
     zero = torch.zeros_like(start)
     exec_time = torch.where(sc.task_valid, finish - start, zero)
-    task_vm2 = failover_targets(sc.task_vm, sc.vm_valid, sc.vm_auto,
-                                sc.block_vm)
-    shed = torch.zeros_like(sc.task_valid)
+    N = start.shape[0]
+    if control is None:
+        control = (torch.zeros_like(sc.task_valid), sc.vm_start.to(F32),
+                   sc.vm_stop.to(F32),
+                   torch.zeros(N, dtype=I32, device=start.device),
+                   torch.zeros_like(sc.task_valid),
+                   torch.zeros_like(sc.task_vm),
+                   torch.zeros(N, dtype=F32, device=start.device))
+    hit, vm_open, vm_close, n_scale, shed, n_evict, work_lost = control
     finish_time = torch.where(sc.task_valid & ~shed, finish,
                               zero).amax(dim=1)
-    N = start.shape[0]
     return SimOutput(start=start, finish=finish, ready=ready,
                      exec_time=exec_time, n_epochs=n_epochs,
-                     finish_time=finish_time,
-                     hit=torch.zeros_like(sc.task_valid), task_vm2=task_vm2,
-                     vm_open=sc.vm_start.to(F32), vm_close=sc.vm_stop.to(F32),
-                     n_scale=torch.zeros(N, dtype=I32, device=start.device),
-                     shed=shed, n_evict=torch.zeros_like(sc.task_vm),
-                     work_lost=torch.zeros(N, dtype=F32,
-                                           device=start.device))
+                     finish_time=finish_time, hit=hit, task_vm2=task_vm2,
+                     vm_open=vm_open, vm_close=vm_close, n_scale=n_scale,
+                     shed=shed, n_evict=n_evict, work_lost=work_lost)
 
 
-def simulate_batch_arrays(batch: ScenarioArrays, *, backend: str | None = None,
+def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
+                          backend: str | None = None,
                           max_pes: int | None = None):
     """Step a batch of single-job scenarios to completion.
 
     The epoch loop runs in the ``mr_epoch`` kernel
     (``kernels.mr_sched.epoch_schedule``): ``backend="cuda"`` launches the
     CUDA kernel (tensors on the card), ``"torch"`` runs its plain version;
-    ``None`` picks by the batch's device.  Returns ``(SimOutput,
+    ``None`` picks by the batch's device.  ``control`` picks the
+    closed-loop lowering (default: whether the batch encodes any
+    closed-loop input, :func:`_control_active`).  Returns ``(SimOutput,
     realized_epochs)``, the latter the batch's largest per-lane count.
     """
     from ..kernels.mr_sched import epoch_schedule
-    if _control_active(batch):
-        raise NotImplementedError(
-            "simulate_batch_arrays: the closed-loop lowering (failures, "
-            "autoscale, deadlines, preemption) is ROADMAP slice A5")
-    out = epoch_schedule(batch, backend=backend, max_pes=max_pes)
+    if control is None:
+        control = _control_active(batch)
+    out = epoch_schedule(batch, backend=backend, max_pes=max_pes,
+                         control=control)
     return out, int(out.n_epochs.max()) if out.n_epochs.numel() else 0
 
 
@@ -623,8 +659,10 @@ def scenario_metrics(sc: ScenarioArrays, out: SimOutput) -> ScenarioMetrics:
 
 def simulate(sc: Scenario, *, device="cuda") -> JobMetrics:
     """Convenience single-scenario entry point (returns ``[1, J]``
-    tensors).  The kernel steps single-job scenarios; multi-job scenarios
-    need the engine formulation of ROADMAP slice A2."""
+    tensors); a scenario with a closed-loop model (``sc.control``, reserve
+    VMs, deadlines) runs the control lowering.  The kernel steps
+    single-job scenarios; multi-job scenarios need the engine formulation
+    of ROADMAP slice A2."""
     if len(sc.jobs) != 1:
         raise NotImplementedError(
             "simulate: multi-job scenarios need the engine epoch body "

@@ -211,8 +211,8 @@ _PER_VM = frozenset({"vm_mips", "vm_pes", "vm_cost", "vm_start", "vm_stop",
 _PER_TASK = frozenset({"task_mult", "task_prio", "task_deadline"})
 _STORAGE_KNOBS = frozenset(
     {"block_size_mb", "replication", "placement", "storage_seed"})
-# columns that switch the reference onto the closed-loop control path
-# (DESIGN.md §10) — this port's ROADMAP slice A5
+# columns that switch a run onto the closed-loop control lowering
+# (DESIGN.md §10-11): a plan that names none of them never pays for control
 _CONTROL_PARAMS = frozenset(
     {"vm_fail", "vm_restore", "vm_auto", "control_policy", "ctl_queue",
      "ctl_busy", "redispatch_delay", "task_deadline", "deadline_policy",
@@ -508,8 +508,8 @@ def arrivals(n: int, *, rate, process="poisson", seed: int = 0,
 def failures(n: int, *, rate, n_vms: int, seed: int = 0,
              repair_delay: float = np.inf) -> Axis:
     """A failure-stream dimension (DESIGN.md §10): ``n`` seeded draws of
-    per-VM failure/restore instants.  Running a plan with it needs the
-    closed-loop lowering, ROADMAP slice A5."""
+    per-VM failure/restore instants; a sequence of rates flattens rates ×
+    draws into one labelled dimension."""
     rates = list(rate) if np.ndim(rate) > 0 else [rate]
     if not rates:
         raise ValueError("failures: empty rate list")
@@ -679,9 +679,14 @@ class SweepPlan:
         bucket-split coefficients (default: the JAX package's fallback
         constants, see :mod:`costmodel`).
 
+        A plan that names any closed-loop column (``_CONTROL_PARAMS``:
+        failures, reserves, the control and deadline policies, preemption)
+        runs the kernel's control lowering; the choice follows the columns,
+        not their values, as in the reference.
+
         Not ported yet, each raising ``NotImplementedError``: ``mesh=``
-        (ROADMAP A8), ``compact=`` (A4), ``stream_to=`` (A3), ``report=``
-        (A6) and closed-loop control columns (A5).
+        (ROADMAP A8), ``compact=`` (A4), ``stream_to=`` (A3) and
+        ``report=`` (A6).
         """
         if mesh is not None:
             raise NotImplementedError(
@@ -703,14 +708,10 @@ class SweepPlan:
         dev = torch.device(device)
         backend = resolve_backend(backend, dev)
         cols, pad_tasks, pad_vms = self._compiled()
-        ctl = sorted(_CONTROL_PARAMS & set(cols))
-        if ctl:
-            raise NotImplementedError(
-                f"run: the control columns {ctl} need the closed-loop "
-                "lowering, ROADMAP slice A5")
+        control = bool(_CONTROL_PARAMS & set(cols))
         metrics, n_jobs = _execute_grid(cols, self.size, pad_tasks, pad_vms,
                                         bucket, chunk, backend, cost_model,
-                                        dev)
+                                        dev, control)
         shaped = {
             name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
                    else m.reshape(self.shape + (n_jobs,)))
@@ -721,14 +722,15 @@ class SweepPlan:
 
 
 def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
-                  pad_vms: int, bucket, chunk, backend, cost, device
+                  pad_vms: int, bucket, chunk, backend, cost, device,
+                  control: bool = False
                   ) -> tuple[dict[str, np.ndarray], int]:
     """Bucket + simulate ``N`` flattened cells; returns ``(metrics,
     n_jobs)`` with per-job columns ``[N, n_jobs]`` and per-scenario ones
     ``[N]``."""
     groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost)
     parts = [(idx, *_run_cells(gcols, len(idx), tb, vb, statics, chunk,
-                               backend, device))
+                               backend, device, control))
              for idx, gcols, statics, tb, vb in groups]
     n_jobs = int(parts[0][1]["makespan"].shape[-1])
     metrics: dict[str, np.ndarray] = {}
@@ -846,12 +848,14 @@ def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
     return groups
 
 
-def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes):
+def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes,
+               control=False):
     """Encode, step and reduce one batch of cells; host-side results."""
     from ..kernels.mr_sched.ops import epoch_schedule
     batch = grid_arrays(cols, pad_tasks=pad_tasks, pad_vms=pad_vms,
                         static_params=statics, device=device)
-    out = epoch_schedule(batch, backend=backend, max_pes=max_pes)
+    out = epoch_schedule(batch, backend=backend, max_pes=max_pes,
+                         control=control)
     jm = job_metrics(batch, out)
     sm = scenario_metrics(batch, out)
     host = lambda t: {k: v.cpu().numpy()                       # noqa: E731
@@ -861,13 +865,13 @@ def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes):
 
 def _run_cells(cols: dict[str, np.ndarray], n: int, pad_tasks: int,
                pad_vms: int, statics: dict[str, int] | None, chunk, backend,
-               device):
+               device, control=False):
     """Encode + simulate one bucket's cells; returns host-side
     ``(job metrics, scenario metrics, realized_epochs[n])``."""
     max_pes = max(int(np.ceil(float(np.max(cols["vm_pes"])))), 1)
     if chunk is None:
         jm, sm, rz = _run_batch(cols, pad_tasks, pad_vms, statics, backend,
-                                device, max_pes)
+                                device, max_pes, control)
         return jm, sm, np.full(n, rz, np.int32)
     parts, realized = [], np.empty(n, np.int32)
     for lo in range(0, n, chunk):
@@ -875,7 +879,7 @@ def _run_cells(cols: dict[str, np.ndarray], n: int, pad_tasks: int,
                           min(chunk, n))
         take = min(chunk, n - lo)
         jm, sm, rz = _run_batch(part, pad_tasks, pad_vms, statics, backend,
-                                device, max_pes)
+                                device, max_pes, control)
         parts.append(({k: v[:take] for k, v in jm.items()},
                       {k: v[:take] for k, v in sm.items()}))
         realized[lo:lo + take] = rz

@@ -19,7 +19,10 @@ import subprocess
 import time
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = {"mr_epoch": _HERE / "mr_sched" / "csrc" / "mr_epoch.cu"}
+SOURCES = {
+    "mr_epoch": _HERE / "mr_sched" / "csrc" / "mr_epoch.cu",
+    "mr_epoch_control": _HERE / "mr_sched" / "csrc" / "mr_epoch_control.cu",
+}
 BUILD_DIR = _HERE / "_build"
 # Bitwise parity with the reference needs every float op to round on its
 # own: no FMA contraction, IEEE division and square root, no fast math.

@@ -1,0 +1,626 @@
+// mr_epoch, control lowering: the IOTSim event-epoch loop with the closed
+// loop (VM failures with failover re-dispatch and re-replication, the
+// AUTOSCALE reserve hook, deadline SHED/BOOST admission and priority
+// preemption), written by hand for NVIDIA Hopper (sm_90a).
+//
+// Replaces the control=True lowering of the JAX package's Pallas TPU kernel
+// kernels/mr_sched/megakernel.py:_kernel (called through _mr_epoch_impl).
+// The open-loop lowering is mr_epoch.cu, which carries no control code.
+// The plain PyTorch version, megakernel.py:mr_epoch_plain(control=True),
+// runs the same op sequence; the two agree bit for bit on all 15 carry
+// leaves.
+//
+// What bounds it on this card.  As for the open loop: per lane and epoch
+// about a hundred compare/select operations per task slot on data held in
+// shared memory, a few KB of HBM traffic per lane for a whole history of
+// up to 7T+V+3 epochs, and a chain of dependent steps per epoch.  It is
+// latency bound.  The design is the open loop's: one warp per lane, the
+// lane's whole carry in shared memory for its entire history, several
+// lanes per block; per-VM reductions run one thread per VM.  Each warp
+// stops at its own lane's end (unfinished non-shed work and its epoch
+// bound), which is the per-lane meaning of the reference (ROADMAP C6): the
+// TPU kernel stepped a whole tile to its slowest lane, and under control a
+// finished lane is not a fixed point of the epoch body.
+//
+// Per-VM task lists.  A task runs on its bound VM (task_vm) until its first
+// failure kill or eviction sets `hit`, then on its failover VM (task_vm2).
+// Each VM keeps two lists built once per launch in index order: the tasks
+// bound to it, and the tasks that fail over to it from another VM.  Every
+// per-VM reduction walks both and keeps the tasks whose current slot, taken
+// at the epoch's start as in the reference, is this VM.
+//
+// Rounding: built with -fmad=false and IEEE division, so every op rounds on
+// its own, except where the reference's XLA:CPU lowering fuses a multiply
+// into an add (rem - dt * r, and the tie threshold t + 1e-6 * max(t, 1)):
+// those use fmaf, one rounding, as the reference.  work_lost sums each
+// epoch's lost work in one fixed order (megakernel.py uses the same).
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Params {
+  // lane data
+  const float* task_len;
+  const int* task_vm;
+  const int* is_red;
+  const int* valid;
+  const float* shuffle;
+  const float* vm_mips;
+  const float* vm_pes;
+  const int* sched;
+  const float* spinup;
+  const float* prio;
+  const int* vm_valid;
+  const float* vm_fail;
+  const float* vm_restore;
+  const int* vm_auto;
+  const int* ctl_policy;
+  const float* ctl_queue;
+  const float* ctl_busy;
+  const float* redispatch;
+  const int* task_vm2;
+  const float* refetch;
+  const float* task_deadline;
+  const int* dl_policy;
+  const float* dl_slack;
+  const int* preempt;
+  const int* preempt_resume;
+  // carry in
+  const float* time_in;
+  const float* rem_in;
+  const int* running_in;
+  const float* start_in;
+  const float* finish_in;
+  const float* ready_in;
+  const int* maps_left_in;
+  const int* n_epochs_in;
+  const int* hit_in;
+  const float* vm_open_in;
+  const float* vm_close_in;
+  const int* n_scale_in;
+  const int* shed_in;
+  const int* n_evict_in;
+  const float* work_lost_in;
+  // carry out
+  float* time_out;
+  float* rem_out;
+  int* running_out;
+  float* start_out;
+  float* finish_out;
+  float* ready_out;
+  int* maps_left_out;
+  int* n_epochs_out;
+  int* hit_out;
+  float* vm_open_out;
+  float* vm_close_out;
+  int* n_scale_out;
+  int* shed_out;
+  int* n_evict_out;
+  float* work_lost_out;
+  int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
+  float big, half_big, eps, tiny;
+};
+
+// Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes(control=
+// True) agrees.  Per task: f32 x 13, i32 x 6, 15 flag bytes; per VM: f32 x
+// 10, i32 x 2 (CSR offsets), 2 flag bytes; plus the two closing offsets.
+__host__ __device__ inline int lane_smem_bytes(int T, int V) {
+  return (91 * T + 50 * V + 8 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ float warp_min(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_min_int(int x) {
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+// Sum of x[0..n) in the order of megakernel.py's _sum (XLA:CPU's reduce
+// order): left to right up to 32 terms; longer rows in 32-wide windows, the
+// row centred with its padding split low half first, each window left to
+// right, the window sums reduced the same way.  Overwrites x.
+__device__ float fixed_sum(float* x, int n) {
+  while (n > 32) {
+    const int k = (n + 31) / 32;
+    const int lo = (32 * k - n) / 2;
+    for (int c = 0; c < k; ++c) {
+      const int a = max(32 * c - lo, 0), b = min(32 * c + 32 - lo, n);
+      float s = 0.f;
+      for (int i = a; i < b; ++i) s += x[i];
+      x[c] = s;  // a >= c: this window's terms are read before the write
+    }
+    n = k;
+  }
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) s += x[i];
+  return s;
+}
+
+__global__ void mr_epoch_control_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long n = (long)blockIdx.x * p.lanes_per_block + warp;
+  if (n >= p.N) return;  // the whole warp leaves together
+  const int T = p.T, V = p.V;
+
+  unsigned char* base = smem + (size_t)warp * p.lane_bytes;
+  // per task, f32
+  float* rem = reinterpret_cast<float*>(base);
+  float* start = rem + T;
+  float* finish = start + T;
+  float* ready = finish + T;
+  float* elig = ready + T;
+  float* prio = elig + T;
+  float* rate = prio + T;
+  float* eta = rate + T;
+  float* tlen = eta + T;
+  float* refetch = tlen + T;
+  float* dl = refetch + T;
+  float* lostf = dl + T;
+  float* loste = lostf + T;
+  // per VM, f32
+  float* vmips = loste + T;
+  float* vpes = vmips + V;
+  float* von = vpes + V;     // running tasks at the epoch's start
+  float* vshare = von + V;
+  float* vfail = vshare + V;
+  float* vrest = vfail + V;
+  float* vopen = vrest + V;
+  float* vclose = vopen + V;
+  float* vminev = vclose + V;  // weakest evictable priority
+  float* vunfin = vminev + V;  // unfinished work bound to the VM
+  // per task, i32
+  int* tvm = reinterpret_cast<int*>(vunfin + V);
+  int* tvm2 = tvm + T;
+  int* cvm = tvm2 + T;       // current VM at the epoch's start
+  int* nev = cvm + T;
+  int* vtasks = nev + T;     // tasks bound to each VM
+  int* vtasks2 = vtasks + T; // tasks failing over to each VM from another
+  // per VM, i32 (CSR offsets, V + 1 each)
+  int* voff = vtasks2 + T;
+  int* voff2 = voff + V + 1;
+  // flags
+  unsigned char* f_valid = reinterpret_cast<unsigned char*>(voff2 + V + 1);
+  unsigned char* f_red = f_valid + T;
+  unsigned char* f_run = f_red + T;
+  unsigned char* f_hit = f_run + T;
+  unsigned char* f_shed = f_hit + T;
+  unsigned char* f_ns = f_shed + T;     // not started (epoch start)
+  unsigned char* f_eval = f_ns + T;     // deadline pressure evaluable
+  unsigned char* f_shedc = f_eval + T;  // shed at the arrival candidate
+  unsigned char* f_shedt = f_shedc + T; // shed at the admission instant
+  unsigned char* f_urg = f_shedt + T;   // BOOST urgent
+  unsigned char* f_el = f_urg + T;      // eligible this epoch
+  unsigned char* f_rm = f_el + T;       // still in the admission scan
+  unsigned char* f_ad = f_rm + T;       // admitted by the scan
+  unsigned char* f_done = f_ad + T;     // completed this epoch
+  unsigned char* f_ev = f_done + T;     // evicted this epoch
+  unsigned char* v_valid = f_ev + T;
+  unsigned char* v_auto = v_valid + V;
+
+  const long rT = n * T, rV = n * V;
+  const float spin = p.spinup[n];
+  const float shuffle = p.shuffle[n];
+  const bool is_space = p.sched[n] != 0;
+  const bool pol_on = p.ctl_policy[n] == 1;
+  const float ctl_queue = p.ctl_queue[n];
+  const float ctl_busy = p.ctl_busy[n];
+  const float redisp = p.redispatch[n];
+  const bool dl_shed = p.dl_policy[n] == 1;
+  const bool dl_boost = p.dl_policy[n] == 2;
+  const float dl_slack = p.dl_slack[n];
+  const bool pre_on = p.preempt[n] != 0;
+  const bool pre_onl = pre_on && is_space;
+  const bool res_onl = p.preempt_resume[n] != 0;
+
+  bool any_dl = false;
+  for (int t = lane; t < T; t += 32) {
+    tvm[t] = p.task_vm[rT + t];
+    tvm2[t] = p.task_vm2[rT + t];
+    rem[t] = p.rem_in[rT + t];
+    start[t] = p.start_in[rT + t];
+    finish[t] = p.finish_in[rT + t];
+    ready[t] = p.ready_in[rT + t];
+    prio[t] = p.prio[rT + t];
+    tlen[t] = p.task_len[rT + t];
+    refetch[t] = p.refetch[rT + t];
+    dl[t] = p.task_deadline[rT + t];
+    nev[t] = p.n_evict_in[rT + t];
+    f_valid[t] = p.valid[rT + t] != 0;
+    f_red[t] = p.is_red[rT + t] != 0;
+    f_run[t] = p.running_in[rT + t] != 0;
+    f_hit[t] = p.hit_in[rT + t] != 0;
+    f_shed[t] = p.shed_in[rT + t] != 0;
+    any_dl |= f_valid[t] && dl[t] < p.half_big;
+  }
+  bool any_fail = false;
+  for (int v = lane; v < V; v += 32) {
+    vmips[v] = p.vm_mips[rV + v];
+    vpes[v] = p.vm_pes[rV + v];
+    vfail[v] = p.vm_fail[rV + v];
+    vrest[v] = p.vm_restore[rV + v];
+    vopen[v] = p.vm_open_in[rV + v];
+    vclose[v] = p.vm_close_in[rV + v];
+    v_valid[v] = p.vm_valid[rV + v] != 0;
+    v_auto[v] = p.vm_auto[rV + v] != 0;
+    any_fail |= v_valid[v] && vfail[v] < p.half_big;
+  }
+  // the per-lane epoch bound (engine._lane_bound): additive widenings for
+  // the mechanisms this lane's data can trigger
+  const int bound = 2 * T + 2 + (__any_sync(kFull, any_fail) ? 2 * T + V : 0) +
+                    (dl_shed && __any_sync(kFull, any_dl) ? T + 1 : 0) +
+                    (pre_on ? 2 * T : 0);
+  __syncwarp();
+  // each VM's two task lists, in task-index order
+  for (int v = lane; v < V; v += 32) {
+    int c = 0, c2 = 0;
+    for (int t = 0; t < T; ++t) {
+      c += tvm[t] == v;
+      c2 += tvm2[t] == v && tvm[t] != v;
+    }
+    voff[v + 1] = c;
+    voff2[v + 1] = c2;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    voff[0] = voff2[0] = 0;
+    for (int v = 0; v < V; ++v) {
+      voff[v + 1] += voff[v];
+      voff2[v + 1] += voff2[v];
+    }
+  }
+  __syncwarp();
+  for (int v = lane; v < V; v += 32) {
+    int k = voff[v], k2 = voff2[v];
+    for (int t = 0; t < T; ++t) {
+      if (tvm[t] == v) vtasks[k++] = t;
+      else if (tvm2[t] == v) vtasks2[k2++] = t;
+    }
+  }
+  __syncwarp();
+
+  // visit every task whose current slot is VM v
+  auto for_cur = [&](int v, auto&& f) {
+    for (int k = voff[v]; k < voff[v + 1]; ++k) {
+      const int t = vtasks[k];
+      if (cvm[t] == v) f(t);
+    }
+    for (int k = voff2[v]; k < voff2[v + 1]; ++k) {
+      const int t = vtasks2[k];
+      if (cvm[t] == v) f(t);
+    }
+  };
+
+  float time = p.time_in[n];
+  int maps_left = p.maps_left_in[n];
+  int lane_ep = p.n_epochs_in[n];
+  int n_scale = p.n_scale_in[n];
+  float work_lost = p.work_lost_in[n];
+
+  for (int step = 0; step < p.epoch_limit; ++step) {
+    bool unfinished = false;
+    for (int t = lane; t < T; t += 32) {
+      unfinished |= f_valid[t] && finish[t] >= p.half_big && !f_shed[t];
+      cvm[t] = f_hit[t] ? tvm2[t] : tvm[t];
+    }
+    if (!__any_sync(kFull, unfinished) || lane_ep >= bound) break;
+    __syncwarp();
+
+    // per VM at the epoch's start: running count and share, the weakest
+    // evictable task, unfinished work bound to it, and the control hook's
+    // observables
+    int q = 0, n_open = 0, n_busy = 0, first = V + 1;
+    for (int t = lane; t < T; t += 32)
+      q += f_valid[t] && finish[t] >= p.half_big && !f_shed[t] &&
+           start[t] >= p.half_big && ready[t] <= time;
+    for (int v = lane; v < V; v += 32) {
+      float c = 0.f, u = 0.f, mn = p.big;
+      for_cur(v, [&](int t) {
+        c += f_run[t] ? 1.f : 0.f;
+        u += f_valid[t] && finish[t] >= p.half_big && !f_shed[t] ? 1.f : 0.f;
+        if (f_run[t] && nev[t] < 2) mn = fminf(mn, prio[t]);
+      });
+      von[v] = c;
+      vshare[v] = vmips[v] * fminf(1.f, vpes[v] / fmaxf(c, 1.f));
+      vminev[v] = mn;
+      vunfin[v] = u;
+      const bool open = v_valid[v] && vopen[v] + spin <= time && time < vclose[v];
+      n_open += open;
+      n_busy += open && c > 0.5f;
+      if (v_valid[v] && v_auto[v] && vopen[v] >= p.half_big) first = min(first, v);
+    }
+    q = __reduce_add_sync(kFull, q);
+    n_open = __reduce_add_sync(kFull, n_open);
+    n_busy = __reduce_add_sync(kFull, n_busy);
+    first = warp_min_int(first);
+    const float busy_frac = (float)n_busy / fmaxf((float)n_open, 1.f);
+    const bool trigger = pol_on && (float)q > ctl_queue && busy_frac >= ctl_busy;
+    int scaled = 0;
+    for (int v = lane; v < V; v += 32) {
+      const bool reserve = v_valid[v] && v_auto[v];
+      const bool open_m = trigger && reserve && vopen[v] >= p.half_big && v == first;
+      const bool close_m = pol_on && reserve && vopen[v] < p.half_big &&
+                           time < vclose[v] && vunfin[v] < 0.5f;
+      if (open_m) vopen[v] = time;
+      if (close_m) vclose[v] = time;
+      scaled += open_m + close_m;
+    }
+    n_scale += __reduce_add_sync(kFull, scaled);
+    __syncwarp();
+
+    // next event: completions, gated arrivals (SHED at the arrival
+    // candidate, on the carried rem), pending failure instants
+    float lmin = p.big;
+    for (int t = lane; t < T; t += 32) {
+      const int v = cvm[t];
+      const bool inr = v >= 0 && v < V;
+      const bool run = f_run[t];
+      const float r = run && inr ? vshare[v] : 0.f;
+      rate[t] = r;
+      const float e = run ? time + rem[t] / fmaxf(r, p.tiny) : p.big;
+      eta[t] = e;
+      const bool ns = f_valid[t] && !run && finish[t] >= p.half_big &&
+                      start[t] >= p.half_big;
+      f_ns[t] = ns;
+      const float ft = inr ? vfail[v] : 0.f, rt = inr ? vrest[v] : 0.f;
+      const float close_t = inr ? vclose[v] : 0.f;
+      float el = fmaxf(ready[t], inr ? vopen[v] + spin : 0.f);
+      if (el >= ft && el < rt) el = rt;
+      elig[t] = el;
+      float cand = fmaxf(el, time);
+      if (cand >= ft && cand < rt) cand = rt;
+      const bool evaluable = ns && el < p.half_big;
+      f_eval[t] = evaluable;
+      const float efin = cand + rem[t] / fmaxf(inr ? vmips[v] : 0.f, p.tiny);
+      const bool shedc = f_shed[t] || (dl_shed && evaluable && cand < close_t && efin > dl[t]);
+      f_shedc[t] = shedc;
+      const bool slot = ((inr ? vpes[v] : 0.f) - (inr ? von[v] : 0.f)) > 0.5f;
+      const bool can_pre = pre_onl && prio[t] > (inr ? vminev[v] : 0.f);
+      const float a = ns && !shedc && (!is_space || slot || can_pre) && cand < close_t
+                          ? cand : p.big;
+      lmin = fminf(lmin, fminf(e, a));
+    }
+    for (int v = lane; v < V; v += 32)
+      if (v_valid[v] && vfail[v] > time) lmin = fminf(lmin, vfail[v]);
+    const float t_next = warp_min(lmin);
+    const bool live = t_next < p.half_big;
+    const float thr = fmaf(p.eps, fmaxf(t_next, 1.f), t_next);
+    const float neg_dt = -(t_next - time);
+
+    // SHED at the admission instant and BOOST urgency (carried rem), then
+    // advance the fluid state and fire every completion in the tie window
+    int maps_done = 0;
+    for (int t = lane; t < T; t += 32) {
+      const int v = cvm[t];
+      const bool inr = v >= 0 && v < V;
+      const float close_t = inr ? vclose[v] : 0.f;
+      const float efin = t_next + rem[t] / fmaxf(inr ? vmips[v] : 0.f, p.tiny);
+      f_shedt[t] = f_shedc[t] ||
+                   (dl_shed && f_eval[t] && t_next < close_t && efin > dl[t]);
+      f_urg[t] = dl_boost && f_eval[t] && efin + dl_slack >= dl[t];
+      bool run = f_run[t];
+      float rm = rem[t];
+      if (run) rm = fmaf(neg_dt, rate[t], rm);
+      const bool done = live && run && eta[t] <= thr;
+      if (done) {
+        finish[t] = t_next;
+        run = false;
+        rm = 0.f;
+        maps_done += !f_red[t];
+      }
+      f_done[t] = done;
+      f_run[t] = run;
+      rem[t] = rm;
+    }
+    maps_done = __reduce_add_sync(kFull, maps_done);
+    const int maps_left_new = maps_left - maps_done;
+    const bool phase_done = maps_left_new == 0 && maps_left > 0;
+    const float release = t_next + shuffle;
+
+    // shuffle release, then failure kills (after completions: a task that
+    // finishes at the failure instant completes), then eligibility
+    bool lost_any = false;
+    for (int t = lane; t < T; t += 32) {
+      if (f_red[t] && phase_done) ready[t] = release;
+      const int v = cvm[t];
+      const bool inr = v >= 0 && v < V;
+      const float ft = inr ? vfail[v] : 0.f, rt = inr ? vrest[v] : 0.f;
+      const float close_t = inr ? vclose[v] : 0.f;
+      const bool aff = f_valid[t] && live && ft > time && ft <= t_next &&
+                       finish[t] >= p.half_big && !f_shedc[t];
+      float lost = 0.f;
+      if (aff) {
+        lost = tlen[t] - rem[t];
+        rem[t] = tlen[t];
+        f_run[t] = 0;
+        start[t] = p.big;
+        float rd = fmaxf(ready[t], ft + redisp);
+        if (!f_hit[t]) rd = rd + refetch[t];
+        ready[t] = rd;
+        f_hit[t] = 1;
+      }
+      lostf[t] = lost;
+      lost_any |= lost != 0.f;
+      const bool e = live && f_ns[t] && elig[t] <= thr && t_next < close_t &&
+                     !(t_next >= ft && t_next < rt) && !f_shedt[t];
+      f_el[t] = e;
+      f_rm[t] = e;
+      f_ad[t] = 0;
+      f_ev[t] = 0;
+    }
+    __syncwarp();
+
+    // per VM: preemption of the weakest evictable task on a full VM, free
+    // PEs, and the admission scan by (urgency, priority desc, eligible
+    // time, index), max_pes times; the task taken at step s is admitted
+    // iff s < the VM's free slots
+    for (int v = lane; v < V; v += 32) {
+      float done_c = 0.f;
+      for_cur(v, [&](int t) { done_c += f_done[t] ? 1.f : 0.f; });
+      float ev_c = 0.f;
+      if (pre_onl && (vpes[v] - (von[v] - done_c)) <= 0.5f) {
+        float mx_el = -p.big;
+        for_cur(v, [&](int t) { if (f_el[t]) mx_el = fmaxf(mx_el, prio[t]); });
+        float mn_low = p.big;
+        for_cur(v, [&](int t) {
+          if (f_run[t] && nev[t] < 2 && mx_el > prio[t]) mn_low = fminf(mn_low, prio[t]);
+        });
+        int victim = -1;
+        for_cur(v, [&](int t) {
+          if (f_run[t] && nev[t] < 2 && mx_el > prio[t] && prio[t] == mn_low)
+            victim = max(victim, t);
+        });
+        if (victim >= 0) {
+          f_ev[victim] = 1;
+          ev_c = 1.f;
+        }
+      }
+      const float free_v = vpes[v] - (von[v] - done_c - ev_c);
+      if (!is_space) continue;
+      for (int s = 0; s < p.max_pes; ++s) {
+        float mu = -p.big;
+        for_cur(v, [&](int t) { if (f_rm[t]) mu = fmaxf(mu, f_urg[t] ? 1.f : 0.f); });
+        float mx = -p.big;
+        for_cur(v, [&](int t) {
+          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu) mx = fmaxf(mx, prio[t]);
+        });
+        float mn = p.big;
+        for_cur(v, [&](int t) {
+          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu && prio[t] == mx)
+            mn = fminf(mn, elig[t]);
+        });
+        int pick = T;
+        for_cur(v, [&](int t) {
+          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu && prio[t] == mx && elig[t] == mn)
+            pick = min(pick, t);
+        });
+        if (pick < T) {
+          if ((float)s < free_v) f_ad[pick] = 1;
+          f_rm[pick] = 0;
+        }
+      }
+    }
+    __syncwarp();
+
+    // evictions, starts, and the lane's lost work
+    bool map_shed = false;
+    for (int t = lane; t < T; t += 32) {
+      float lost = 0.f;
+      if (f_ev[t]) {
+        if (!res_onl) {
+          lost = tlen[t] - rem[t];
+          rem[t] = tlen[t];
+        }
+        f_run[t] = 0;
+        start[t] = p.big;
+        float rd = fmaxf(ready[t], t_next + redisp);
+        if (!f_hit[t]) rd = rd + refetch[t];
+        ready[t] = rd;
+        f_hit[t] = 1;
+        nev[t] += 1;
+      }
+      loste[t] = lost;
+      lost_any |= lost != 0.f;
+      if (f_el[t] && (!is_space || f_ad[t])) {
+        start[t] = t_next;
+        f_run[t] = 1;
+      }
+      map_shed |= f_shedt[t] && !f_red[t];
+    }
+    map_shed = __any_sync(kFull, map_shed);
+    if (__any_sync(kFull, lost_any)) {
+      __syncwarp();
+      if (lane == 0) {
+        const float sf = fixed_sum(lostf, T);
+        const float se = fixed_sum(loste, T);
+        work_lost = work_lost + sf + se;
+      }
+      work_lost = __shfl_sync(kFull, work_lost, 0);
+    }
+    // a shed map dooms the lane's reduces (one job per lane): mark them
+    for (int t = lane; t < T; t += 32)
+      f_shed[t] = f_shedt[t] || (f_valid[t] && f_red[t] && map_shed &&
+                                 finish[t] >= p.half_big && !f_run[t]);
+    if (live) time = t_next;
+    maps_left = maps_left_new;
+    ++lane_ep;
+    __syncwarp();
+  }
+
+  for (int t = lane; t < T; t += 32) {
+    p.rem_out[rT + t] = rem[t];
+    p.running_out[rT + t] = f_run[t];
+    p.start_out[rT + t] = start[t];
+    p.finish_out[rT + t] = finish[t];
+    p.ready_out[rT + t] = ready[t];
+    p.hit_out[rT + t] = f_hit[t];
+    p.shed_out[rT + t] = f_shed[t];
+    p.n_evict_out[rT + t] = nev[t];
+  }
+  for (int v = lane; v < V; v += 32) {
+    p.vm_open_out[rV + v] = vopen[v];
+    p.vm_close_out[rV + v] = vclose[v];
+  }
+  if (lane == 0) {
+    p.time_out[n] = time;
+    p.maps_left_out[n] = maps_left;
+    p.n_epochs_out[n] = lane_ep;
+    p.n_scale_out[n] = n_scale;
+    p.work_lost_out[n] = work_lost;
+  }
+}
+
+}  // namespace
+
+extern "C" int mr_epoch_control_launch(
+    const float* task_len, const int* task_vm, const int* is_red,
+    const int* valid, const float* shuffle, const float* vm_mips,
+    const float* vm_pes, const int* sched, const float* spinup,
+    const float* prio, const int* vm_valid, const float* vm_fail,
+    const float* vm_restore, const int* vm_auto, const int* ctl_policy,
+    const float* ctl_queue, const float* ctl_busy, const float* redispatch,
+    const int* task_vm2, const float* refetch, const float* task_deadline,
+    const int* dl_policy, const float* dl_slack, const int* preempt,
+    const int* preempt_resume,
+    const float* time_in, const float* rem_in, const int* running_in,
+    const float* start_in, const float* finish_in, const float* ready_in,
+    const int* maps_left_in, const int* n_epochs_in, const int* hit_in,
+    const float* vm_open_in, const float* vm_close_in, const int* n_scale_in,
+    const int* shed_in, const int* n_evict_in, const float* work_lost_in,
+    float* time_out, float* rem_out, int* running_out, float* start_out,
+    float* finish_out, float* ready_out, int* maps_left_out,
+    int* n_epochs_out, int* hit_out, float* vm_open_out, float* vm_close_out,
+    int* n_scale_out, int* shed_out, int* n_evict_out, float* work_lost_out,
+    int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+    float big, float half_big, float eps, float tiny, void* stream) {
+  Params p{task_len, task_vm, is_red, valid, shuffle, vm_mips, vm_pes, sched,
+           spinup, prio, vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy,
+           ctl_queue, ctl_busy, redispatch, task_vm2, refetch, task_deadline,
+           dl_policy, dl_slack, preempt, preempt_resume,
+           time_in, rem_in, running_in, start_in, finish_in, ready_in,
+           maps_left_in, n_epochs_in, hit_in, vm_open_in, vm_close_in,
+           n_scale_in, shed_in, n_evict_in, work_lost_in,
+           time_out, rem_out, running_out, start_out, finish_out, ready_out,
+           maps_left_out, n_epochs_out, hit_out, vm_open_out, vm_close_out,
+           n_scale_out, shed_out, n_evict_out, work_lost_out,
+           N, T, V, max_pes, epoch_limit, lanes_per_block,
+           lane_smem_bytes(T, V), big, half_big, eps, tiny};
+  const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mr_epoch_control_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(32 * lanes_per_block);
+  const dim3 grid((N + lanes_per_block - 1) / lanes_per_block);
+  mr_epoch_control_kernel<<<grid, block, smem,
+                            static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}

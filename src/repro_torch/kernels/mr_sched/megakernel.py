@@ -1,14 +1,19 @@
 """``mr_epoch``: the fused epoch loop for a batch of scenario lanes.
 
 It replaces the JAX package's Pallas kernel ``kernels/mr_sched/
-megakernel.py:_kernel`` (via ``_mr_epoch_impl``), open-loop lowering
-(``control=False, trace=False``).  One launch advances every lane through
-its whole event history: processor-sharing rates, the next-event min over
+megakernel.py:_kernel`` (via ``_mr_epoch_impl``), open-loop and
+``control=True`` lowerings.  One launch advances every lane through its
+whole event history: processor-sharing rates, the next-event min over
 completions and lease-gated arrivals, completions inside the ``1e-6`` tie
 window, the shuffle release of reduces, and space-shared admission by
 per-VM lexicographic minima of ``(priority desc, eligible time, index)``
-taken ``max_pes`` times.  It is resumable: ``state`` carries the 8-leaf
-carry in and out and ``epoch_limit`` caps the epochs of one call.
+taken ``max_pes`` times.  The control lowering adds, each epoch, the
+AUTOSCALE hook at the opening clock, the ``[fail, restore)`` down-window
+gates, failure kills with failover re-dispatch and re-replication, SHED at
+the arrival candidate and at the admission instant, preemption of the
+weakest evictable task per full VM, and the BOOST urgency tier.  It is
+resumable: ``state`` carries the 8-leaf carry (15 under control) in and
+out and ``epoch_limit`` caps the epochs of one call.
 
 Where the reference multiplies into an add, XLA:CPU fuses the two into one
 FMA (``rem - dt * r`` and the tie threshold ``t + 1e-6 * max(t, 1)``);
@@ -18,15 +23,20 @@ Two forms, one op sequence:
 
 * :func:`mr_epoch_plain` — plain PyTorch on ``[N, ...]`` tensors, any
   device.  The CPU tests hold it against the JAX kernel in interpret mode,
-  bit for bit on all 8 carry leaves.
+  bit for bit on every carry leaf but the control lowering's ``work_lost``
+  (a float sum over tasks, ROADMAP C5).
 * :func:`mr_epoch` — the wrapper: a CUDA tensor launches the hand-written
-  kernel ``csrc/mr_epoch.cu`` (built for ``sm_90a`` at first use), a CPU
-  tensor takes the plain version.  ``mr_epoch.launches`` counts launches.
+  kernel of its instantiation, ``csrc/mr_epoch.cu`` or
+  ``csrc/mr_epoch_control.cu`` (built for ``sm_90a`` at first use), a CPU
+  tensor takes the plain version.  ``mr_epoch.launches`` and
+  ``mr_epoch.control_launches`` count their launches.
 
-Lanes are independent and a finished lane is a fixed point of the epoch
-body, so the TPU kernel's per-tile ``while_loop`` becomes a per-lane loop
-(each lane stops at its own realized epoch count) with the same per-lane
-``n_epochs``.
+Lanes are independent, so the TPU kernel's per-tile ``while_loop`` becomes
+a per-lane loop: each lane stops at its own end, its per-lane ``n_epochs``
+as in the reference.  Under control a finished lane is not a fixed point
+of the reference's epoch body, which therefore moves a lane's clock and
+reserve leases while batch mates run on (ROADMAP C6); stopping per lane is
+the reference's per-lane meaning (``engine.simulate_arrays``).
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ...core.control import earliest_finish
+from ...core.engine import _bound_terms, _sum
 from ...core.util import fma32
 
 _BIG = 1e30
@@ -43,17 +55,27 @@ F32, I32 = torch.float32, torch.int32
 
 STATE_LEAVES = ("time", "rem", "running", "start", "finish", "ready",
                 "maps_left", "n_epochs")
+# the control lowering's carry: the open-loop leaves, then seven more
+STATE_LEAVES_CONTROL = STATE_LEAVES + ("hit", "vm_open", "vm_close",
+                                       "n_scale", "shed", "n_evict",
+                                       "work_lost")
 
 
-def initial_state(task_len, ready0, is_red, valid):
+def initial_state(task_len, ready0, is_red, valid, vm_start=None,
+                  vm_stop=None, vm_auto=None):
     """The t=0 carry: ``(time (N,1) f32, rem (N,T) f32, running (N,T) i32,
     start (N,T) f32, finish (N,T) f32, ready (N,T) f32, maps_left (N,1)
-    i32, n_epochs (N,1) i32)`` — the JAX package's ``initial_state``."""
+    i32, n_epochs (N,1) i32)`` — the JAX package's ``initial_state``.
+
+    Passing ``vm_auto`` (with ``vm_start``/``vm_stop``) appends the seven
+    control leaves: ``hit (N,T) i32, vm_open (N,V) f32, vm_close (N,V)
+    f32, n_scale (N,1) i32, shed (N,T) i32, n_evict (N,T) i32, work_lost
+    (N,1) f32``; reserve VMs start unopened (``vm_open = 1e30``)."""
     N, T = task_len.shape
     dev = task_len.device
     maps = ((valid != 0) & ~(is_red != 0)).sum(dim=1, keepdim=True,
                                                 dtype=I32)
-    return (torch.zeros((N, 1), dtype=F32, device=dev),
+    base = (torch.zeros((N, 1), dtype=F32, device=dev),
             task_len.clone(),
             torch.zeros((N, T), dtype=I32, device=dev),
             torch.full((N, T), _BIG, dtype=F32, device=dev),
@@ -61,25 +83,68 @@ def initial_state(task_len, ready0, is_red, valid):
             ready0.clone(),
             maps,
             torch.zeros((N, 1), dtype=I32, device=dev))
+    if vm_auto is None:
+        return base
+    return base + (
+        torch.zeros((N, T), dtype=I32, device=dev),
+        torch.where(vm_auto != 0, torch.full_like(vm_start, _BIG, dtype=F32),
+                    vm_start.to(F32)),
+        vm_stop.to(F32).clone(),
+        torch.zeros((N, 1), dtype=I32, device=dev),
+        torch.zeros((N, T), dtype=I32, device=dev),
+        torch.zeros((N, T), dtype=I32, device=dev),
+        torch.zeros((N, 1), dtype=F32, device=dev))
+
+
+def default_epoch_limit(T: int, V: int, control: bool) -> int:
+    """Epochs that run every lane to its end: ``2T + 2`` open loop, the
+    additive worst case ``7T + V + 3`` under control."""
+    return 7 * T + V + 3 if control else 2 * T + 2
+
+
+def _check_control(control: bool, ctl) -> None:
+    if control and any(x is None for x in ctl):
+        raise ValueError("mr_epoch: control=True needs all fifteen control "
+                         "lane-data tensors (vm_valid .. preempt_resume)")
+    if not control and any(x is not None for x in ctl):
+        raise ValueError("mr_epoch: control lane data given with "
+                         "control=False")
 
 
 def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
                    vm_mips, vm_pes, sched_policy, vm_start, vm_stop, spinup,
-                   prio, state=None, *, max_pes: int = 8,
-                   epoch_limit: int | None = None):
+                   prio, vm_valid=None, vm_fail=None, vm_restore=None,
+                   vm_auto=None, ctl_policy=None, ctl_queue=None,
+                   ctl_busy=None, redispatch=None, task_vm2=None,
+                   refetch=None, task_deadline=None, dl_policy=None,
+                   dl_slack=None, preempt=None, preempt_resume=None,
+                   state=None, *, max_pes: int = 8,
+                   epoch_limit: int | None = None, control: bool = False):
     """Plain PyTorch ``mr_epoch``; arguments and result as :func:`mr_epoch`.
 
-    A transcription of the TPU kernel's open-loop op sequence on batched
-    tensors: one-hot contractions become gathers (``to_task``) and exact
-    0/1 counts (``per_vm_sum``), the per-VM minima are masked reductions.
+    A transcription of the TPU kernel's op sequence on batched tensors:
+    one-hot contractions become gathers (``to_task``) and exact 0/1 counts
+    (``per_vm_sum``), the per-VM extrema are masked reductions.  Every
+    carry update is gated on its lane still being active, so a lane stops
+    at its own end whatever its batch mates do (ROADMAP C6); on the open
+    loop a finished lane is a fixed point and the gate changes no bit.
     """
+    ctl = (vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy, ctl_queue,
+           ctl_busy, redispatch, task_vm2, refetch, task_deadline,
+           dl_policy, dl_slack, preempt, preempt_resume)
+    _check_control(control, ctl)
     N, T = task_vm.shape
     V = vm_mips.shape[1]
     dev = task_vm.device
     if state is None:
-        state = initial_state(task_len, ready0, is_red, valid)
+        state = initial_state(task_len, ready0, is_red, valid, vm_start,
+                              vm_stop, vm_auto if control else None)
+    n_leaves = len(STATE_LEAVES_CONTROL if control else STATE_LEAVES)
+    if len(state) != n_leaves:
+        raise ValueError(f"mr_epoch: state must have {n_leaves} leaves, got "
+                         f"{len(state)}")
     if epoch_limit is None:
-        epoch_limit = 2 * T + 2
+        epoch_limit = default_epoch_limit(T, V, control)
     time = state[0][:, 0]
     rem, running, start, finish, ready = (state[1], state[2] != 0, state[3],
                                           state[4], state[5])
@@ -88,11 +153,14 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
     valid = valid != 0
     shuffle = shuffle[:, 0]
     is_space = (sched_policy[:, 0] != 0)[:, None]
+    vidx = torch.arange(V, dtype=I32, device=dev)
 
-    in_range = (task_vm >= 0) & (task_vm < V)
-    vm_idx = task_vm.clamp(0, V - 1).long()
-    onehot = (task_vm[:, :, None]
-              == torch.arange(V, dtype=task_vm.dtype, device=dev))
+    def slot(vm):
+        """``(in range, gather index, one-hot)`` of a task→VM binding."""
+        return ((vm >= 0) & (vm < V), vm.clamp(0, V - 1).long(),
+                vm[:, :, None] == vidx)
+
+    in_range, vm_idx, onehot = slot(task_vm)
     onehot_f = onehot.to(F32)
     zt = torch.zeros((N, T), dtype=F32, device=dev)
     idx = torch.arange(T, dtype=I32, device=dev)[None, :]
@@ -109,6 +177,9 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
         return op(torch.where(onehot, x[:, :, None],
                               torch.full_like(x, fill)[:, :, None]), dim=1)
 
+    def count(mask):
+        return mask.sum(dim=1, dtype=I32).to(F32)
+
     task_pes = to_task(vm_pes)
     avail_t = to_task(vm_start + spinup)
     close_t = to_task(vm_stop)
@@ -116,14 +187,70 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
     neg_big_t = torch.full_like(zt, -_BIG)
     one_v = torch.ones_like(vm_mips)
     eps = torch.full((N,), _TIME_EPS, dtype=F32, device=dev)
+    carry = [time, rem, running, start, finish, ready, maps_left]
 
-    def active_lanes():
-        return (valid & (finish >= _BIG / 2)).any(dim=1)
+    if control:
+        vm_valid, vm_auto = vm_valid != 0, vm_auto != 0
+        pol_on = ctl_policy[:, 0] == 1
+        ctl_queue, ctl_busy = ctl_queue[:, 0], ctl_busy[:, 0]
+        dl_shed, dl_boost = dl_policy == 1, dl_policy == 2     # (N, 1)
+        pre_onl = (preempt != 0) & is_space
+        res_onl = preempt_resume != 0
+        reserve = vm_valid & vm_auto
+        big_v = torch.full_like(vm_mips, _BIG)
+        bound = _bound_terms(
+            T, V, (vm_valid & (vm_fail < _BIG / 2)).any(dim=1),
+            dl_shed[:, 0] & (valid & (task_deadline < _BIG / 2)).any(dim=1),
+            preempt[:, 0] != 0)
+        carry += [state[8] != 0, state[9], state[10], state[11][:, 0],
+                  state[12] != 0, state[13], state[14][:, 0]]
 
-    active = active_lanes()
+    def active_lanes(c):
+        unfin = valid & (c[4] >= _BIG / 2)
+        if not control:
+            return unfin.any(dim=1)
+        return (unfin & ~c[11]).any(dim=1) & (lane_ep < bound)
+
+    active = active_lanes(carry)
     n = 0
     while n < epoch_limit and bool(active.any()):
+        time, rem, running, start, finish, ready, maps_left = carry[:7]
         runf = running.to(F32)
+        if control:
+            hit, vm_open, vm_close, n_scale, shed0, n_evict0, work_lost = \
+                carry[7:]
+            # every per-VM quantity reads each task's current slot
+            in_range, vm_idx, onehot = slot(torch.where(hit, task_vm2,
+                                                        task_vm))
+            onehot_f = onehot.to(F32)
+            task_pes = to_task(vm_pes)
+            f_t, r_t, mips_t = (to_task(vm_fail), to_task(vm_restore),
+                                to_task(vm_mips))
+            # the control hook at the epoch's opening clock
+            unfinished = valid & (finish >= _BIG / 2) & ~shed0
+            qdepth = count(unfinished & (start >= _BIG / 2)
+                           & (ready <= time[:, None]))
+            busy_v = per_vm_sum(runf) > 0.5
+            open_v = vm_valid & (vm_open + spinup <= time[:, None]) \
+                & (time[:, None] < vm_close)
+            n_open = count(open_v)
+            busy_frac = count(open_v & busy_v) / torch.clamp(n_open, min=1.0)
+            trigger = pol_on & (qdepth > ctl_queue) & (busy_frac >= ctl_busy)
+            unopened = reserve & (vm_open >= _BIG / 2)
+            first = torch.where(unopened, vidx, V + 1).amin(dim=1)
+            open_mask = trigger[:, None] & unopened \
+                & (vidx == first[:, None])
+            bound_unfin = per_vm_sum(unfinished.to(F32))
+            close_mask = pol_on[:, None] & reserve & (vm_open < _BIG / 2) \
+                & (time[:, None] < vm_close) & (bound_unfin < 0.5)
+            now_v = time[:, None].expand_as(vm_open)
+            vm_open = torch.where(open_mask, now_v, vm_open)
+            vm_close = torch.where(close_mask, now_v, vm_close)
+            n_scale = n_scale + open_mask.sum(dim=1, dtype=I32) \
+                + close_mask.sum(dim=1, dtype=I32)
+            avail_t = to_task(vm_open + spinup)
+            close_t = to_task(vm_close)
+
         n_on_vm = per_vm_sum(runf)
         share = vm_mips * torch.minimum(one_v, vm_pes
                                         / torch.clamp(n_on_vm, min=1.0))
@@ -134,11 +261,41 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
         not_started = valid & ~running & (finish >= _BIG / 2) \
             & (start >= _BIG / 2)
         elig = torch.maximum(ready, avail_t)
-        cand_t = torch.maximum(elig, time[:, None].expand_as(elig))
+        if control:
+            def gate(x):
+                """Slide an instant inside its VM's down window to the
+                restore edge."""
+                return torch.where((x >= f_t) & (x < r_t), r_t, x)
+
+            elig = gate(elig)
+            cand_t = gate(torch.maximum(elig, time[:, None].expand_as(elig)))
+            # SHED at the arrival candidate, on the carried rem
+            rem_c = rem
+            evaluable = not_started & (elig < _BIG / 2)
+            shed_c = shed0 | (dl_shed & evaluable & (cand_t < close_t)
+                              & (earliest_finish(cand_t, rem_c, mips_t)
+                                 > task_deadline))
+        else:
+            cand_t = torch.maximum(elig, time[:, None].expand_as(elig))
         has_slot = (task_pes - to_task(n_on_vm)) > 0.5
-        arr = torch.where(not_started & (~is_space | has_slot)
-                          & (cand_t < close_t), cand_t, big_t)
+        if control:
+            # a pending task beating the weakest evictable running task on
+            # its VM defines an arrival even with no free slot
+            ev_m = torch.where(running & (n_evict0 < 2), prio, big_t)
+            can_pre = pre_onl & (prio > to_task(vm_extreme(ev_m, _BIG,
+                                                           torch.amin)))
+            arr = torch.where(not_started & ~shed_c
+                              & (~is_space | has_slot | can_pre)
+                              & (cand_t < close_t), cand_t, big_t)
+        else:
+            arr = torch.where(not_started & (~is_space | has_slot)
+                              & (cand_t < close_t), cand_t, big_t)
         t_next = torch.minimum(eta.amin(dim=1), arr.amin(dim=1))
+        if control:
+            # pending failure instants of valid VMs are events too
+            fail_ev = torch.where(vm_valid & (vm_fail > time[:, None]),
+                                  vm_fail, big_v)
+            t_next = torch.minimum(t_next, fail_ev.amin(dim=1))
         live = t_next < _BIG / 2
         # the reference's XLA:CPU lowering fuses each multiply that feeds
         # an add into one FMA: ``t_next + eps * max(t_next, 1)`` and
@@ -157,16 +314,84 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
         ready = torch.where(is_red & phase_done[:, None],
                             (t_next + shuffle)[:, None].expand_as(ready),
                             ready)
+        start_base = start
+        if control:
+            # failure kills, after completions: the first hit moves the
+            # task to its failover slot and pays the re-replication fetch
+            fired = live[:, None] & (f_t > time[:, None]) \
+                & (f_t <= t_next[:, None])
+            affected = valid & fired & (finish >= _BIG / 2) & ~shed_c
+            first_hit = affected & ~hit
+            lost_fail = torch.where(affected, task_len - rem, zt)
+            rem = torch.where(affected, task_len, rem)
+            running = running & ~affected
+            start_base = torch.where(affected, big_t, start_base)
+            ready = torch.where(affected,
+                                torch.maximum(ready, f_t + redispatch), ready)
+            ready = torch.where(first_hit, ready + refetch, ready)
+            hit = hit | first_hit
 
         eligible = live[:, None] & not_started & (elig <= thr) \
             & (t_next[:, None] < close_t)
-        free_v = vm_pes - (n_on_vm - per_vm_sum(done_now.to(F32)))
+        if control:
+            eligible = eligible & ~((t_next[:, None] >= f_t)
+                                    & (t_next[:, None] < r_t))
+            # SHED again at the admission instant
+            efin_t = earliest_finish(t_next[:, None].expand_as(rem_c), rem_c,
+                                     mips_t)
+            shed_t = shed_c | (dl_shed & evaluable
+                               & (t_next[:, None] < close_t)
+                               & (efin_t > task_deadline))
+            eligible = eligible & ~shed_t
+            # preemption: on each full space-shared VM the weakest
+            # evictable running task (lowest priority, latest index) loses
+            # its PE to an eligible task that strictly outranks it
+            done_f = done_now.to(F32)
+            full_t = (task_pes - to_task(n_on_vm - per_vm_sum(done_f))) \
+                <= 0.5
+            max_el_v = vm_extreme(torch.where(eligible, prio, neg_big_t),
+                                  -_BIG, torch.amax)
+            cand_e = pre_onl & running & (n_evict0 < 2) & full_t \
+                & (to_task(max_el_v) > prio)
+            min_low_v = vm_extreme(torch.where(cand_e, prio, big_t), _BIG,
+                                   torch.amin)
+            low = cand_e & (prio == to_task(min_low_v))
+            max_idx_v = torch.where(onehot, torch.where(low, idx, -1)[:, :, None],
+                                    -1).amax(dim=1)
+            evicted = low & (idx == to_task(max_idx_v.to(F32)).to(I32))
+            restart = evicted & ~res_onl
+            lost_evict = torch.where(restart, task_len - rem, zt)
+            e_first = evicted & ~hit
+            rem = torch.where(restart, task_len, rem)
+            running = running & ~evicted
+            start_base = torch.where(evicted, big_t, start_base)
+            ready = torch.where(evicted, torch.maximum(
+                ready, (t_next[:, None] + redispatch).expand_as(ready)),
+                ready)
+            ready = torch.where(e_first, ready + refetch, ready)
+            hit = hit | e_first
+            n_evict = n_evict0 + evicted.to(I32)
+            work_lost = work_lost + _sum(lost_fail) + _sum(lost_evict)
+            free_v = vm_pes - (n_on_vm - per_vm_sum(done_f)
+                               - per_vm_sum(evicted.to(F32)))
+            # BOOST: urgent pending tasks outrank every other task
+            urg = (dl_boost & evaluable
+                   & (efin_t + dl_slack >= task_deadline)).to(F32)
+        else:
+            free_v = vm_pes - (n_on_vm
+                               - per_vm_sum(done_now.to(F32)))
         free_after = to_task(free_v)
         admit = torch.zeros_like(eligible)
         remaining = eligible
         for s in range(max_pes):
-            prio_m = torch.where(remaining, prio, neg_big_t)
-            top = remaining & (prio_m == to_task(
+            if control:
+                urg_m = torch.where(remaining, urg, neg_big_t)
+                tier = remaining & (urg_m == to_task(
+                    vm_extreme(urg_m, -_BIG, torch.amax)))
+            else:
+                tier = remaining
+            prio_m = torch.where(tier, prio, neg_big_t)
+            top = tier & (prio_m == to_task(
                 vm_extreme(prio_m, -_BIG, torch.amax)))
             elig_m = torch.where(top, elig, big_t)
             cand = top & (elig_m == to_task(
@@ -180,17 +405,29 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
             remaining = remaining & ~pick
         start_now = eligible & (~is_space | admit)
         start = torch.where(start_now, t_next[:, None].expand_as(start),
-                            start)
+                            start_base)
         running = running | start_now
         time = torch.where(live, t_next, time)
-        maps_left = maps_left_new
+        new = [time, rem, running, start, finish, ready, maps_left_new]
+        if control:
+            # a shed map dooms the lane's reduces (J = 1): mark them shed
+            # so they end the lane
+            map_shed_any = (shed_t & ~is_red).sum(dim=1, dtype=I32) > 0
+            shed = shed_t | (valid & is_red & map_shed_any[:, None]
+                             & (finish >= _BIG / 2) & ~running)
+            new += [hit, vm_open, vm_close, n_scale, shed, n_evict,
+                    work_lost]
+        carry = [torch.where(active if x.dim() == 1 else active[:, None],
+                             x, old) for x, old in zip(new, carry)]
         lane_ep = lane_ep + active.to(I32)
         n += 1
-        active = active_lanes()
-    return (time[:, None].contiguous(), rem.contiguous(),
-            running.to(I32), start.contiguous(), finish.contiguous(),
-            ready.contiguous(), maps_left[:, None].contiguous(),
-            lane_ep[:, None].contiguous())
+        active = active_lanes(carry)
+    out = [carry[0][:, None], carry[1], carry[2].to(I32), carry[3],
+           carry[4], carry[5], carry[6][:, None], lane_ep[:, None]]
+    if control:
+        out += [carry[7].to(I32), carry[8], carry[9], carry[10][:, None],
+                carry[11].to(I32), carry[12], carry[13][:, None]]
+    return tuple(x.contiguous() for x in out)
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +442,28 @@ _LANE_DATA = (("task_vm", I32, _SPEC_T), ("is_red", I32, _SPEC_T),
               ("sched_policy", I32, _SPEC_1), ("vm_start", F32, _SPEC_V),
               ("vm_stop", F32, _SPEC_V), ("spinup", F32, _SPEC_1),
               ("prio", F32, _SPEC_T))
+# the control instantiation reads task_len (kills restart a task from it)
+# and the carried lease windows in place of vm_start/vm_stop
+_LANE_DATA_CONTROL = (
+    ("task_len", F32, _SPEC_T),
+    *(d for d in _LANE_DATA if d[0] not in ("vm_start", "vm_stop")),
+    ("vm_valid", I32, _SPEC_V), ("vm_fail", F32, _SPEC_V),
+    ("vm_restore", F32, _SPEC_V), ("vm_auto", I32, _SPEC_V),
+    ("ctl_policy", I32, _SPEC_1), ("ctl_queue", F32, _SPEC_1),
+    ("ctl_busy", F32, _SPEC_1), ("redispatch", F32, _SPEC_1),
+    ("task_vm2", I32, _SPEC_T), ("refetch", F32, _SPEC_T),
+    ("task_deadline", F32, _SPEC_T), ("dl_policy", I32, _SPEC_1),
+    ("dl_slack", F32, _SPEC_1), ("preempt", I32, _SPEC_1),
+    ("preempt_resume", I32, _SPEC_1))
 _STATE_SPEC = (("time", F32, _SPEC_1), ("rem", F32, _SPEC_T),
                ("running", I32, _SPEC_T), ("start", F32, _SPEC_T),
                ("finish", F32, _SPEC_T), ("ready", F32, _SPEC_T),
                ("maps_left", I32, _SPEC_1), ("n_epochs", I32, _SPEC_1))
+_STATE_SPEC_CONTROL = _STATE_SPEC + (
+    ("hit", I32, _SPEC_T), ("vm_open", F32, _SPEC_V),
+    ("vm_close", F32, _SPEC_V), ("n_scale", I32, _SPEC_1),
+    ("shed", I32, _SPEC_T), ("n_evict", I32, _SPEC_T),
+    ("work_lost", F32, _SPEC_1))
 
 
 def _check(name, x, dtype, shape, device):
@@ -226,106 +481,145 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"mr_epoch: {name} must be contiguous")
 
 
-_LIB = None
+_LIBS: dict[bool, ctypes.CDLL] = {}
 
 
-def _lib():
-    """The built kernel library, with its C signature declared."""
-    global _LIB
-    if _LIB is None:
+def _lib(control: bool):
+    """The built kernel library of one instantiation, its C signature
+    declared."""
+    if control not in _LIBS:
         from .. import _build
-        lib = _build.load("mr_epoch")
+        name = "mr_epoch_control" if control else "mr_epoch"
+        lib = _build.load(name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mr_epoch_launch.argtypes = ([p] * (len(_LANE_DATA) + 16)
-                                        + [i] * 6 + [f] * 4 + [p])
-        lib.mr_epoch_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        n_ptr = len(_LANE_DATA_CONTROL if control else _LANE_DATA) \
+            + 2 * len(_STATE_SPEC_CONTROL if control else _STATE_SPEC)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = [p] * n_ptr + [i] * 6 + [f] * 4 + [p]
+        fn.restype = ctypes.c_int
+        _LIBS[control] = fn
+    return _LIBS[control]
 
 
 def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
              vm_pes, sched_policy, vm_start, vm_stop, spinup, prio,
-             state=None, *, max_pes: int = 8,
-             epoch_limit: int | None = None):
+             vm_valid=None, vm_fail=None, vm_restore=None, vm_auto=None,
+             ctl_policy=None, ctl_queue=None, ctl_busy=None,
+             redispatch=None, task_vm2=None, refetch=None,
+             task_deadline=None, dl_policy=None, dl_slack=None,
+             preempt=None, preempt_resume=None, state=None, *,
+             max_pes: int = 8, epoch_limit: int | None = None,
+             control: bool = False):
     """Advance every lane through its event epochs (the JAX ``mr_epoch``
-    signature, open loop).
+    signature).
 
     Lane data, all led by the lane dim N: ``task_len``/``ready0``/``prio``
     ``(N,T)`` f32; ``task_vm``/``is_red``/``valid`` ``(N,T)`` i32;
     ``shuffle``/``spinup`` ``(N,1)`` f32; ``sched_policy`` ``(N,1)`` i32;
     ``vm_mips``/``vm_pes``/``vm_start``/``vm_stop`` ``(N,V)`` f32.
-    ``state`` is a carry in :func:`initial_state` layout (default: the t=0
-    state, which reads ``task_len``/``ready0``; on resume ``ready0`` may be
-    ``None``).  ``max_pes`` must cover the largest per-VM PE count;
-    ``epoch_limit`` caps this call's epochs (default ``2T + 2``: to the
-    end).  Returns the advanced 8-leaf carry.
+    ``control=True`` takes the fifteen control tensors too, in
+    ``ops.control_lane_data`` order: ``vm_valid``/``vm_auto`` ``(N,V)``
+    i32, ``vm_fail``/``vm_restore`` ``(N,V)`` f32, ``ctl_policy``,
+    ``dl_policy``, ``preempt``, ``preempt_resume`` ``(N,1)`` i32,
+    ``ctl_queue``, ``ctl_busy``, ``redispatch``, ``dl_slack`` ``(N,1)``
+    f32, ``task_vm2`` ``(N,T)`` i32, ``refetch``/``task_deadline``
+    ``(N,T)`` f32.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`mr_epoch_plain`.
+    ``state`` is a carry in :func:`initial_state` layout, 8 leaves or 15
+    under control (default: the t=0 state, which reads ``task_len``/
+    ``ready0``; on resume ``ready0`` may be ``None``).  ``max_pes`` must
+    cover the largest per-VM PE count; ``epoch_limit`` caps this call's
+    epochs (default :func:`default_epoch_limit`: to the end).  Each lane
+    stops at its own end.  Returns the advanced carry.
+
+    CUDA tensors launch the kernel of the instantiation (or raise); CPU
+    tensors take :func:`mr_epoch_plain`.  ``mr_epoch.launches`` and
+    ``mr_epoch.control_launches`` count the two instantiations' launches.
     """
+    ctl = (vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy, ctl_queue,
+           ctl_busy, redispatch, task_vm2, refetch, task_deadline,
+           dl_policy, dl_slack, preempt, preempt_resume)
     if task_vm.device.type == "cpu":
         return mr_epoch_plain(task_len, task_vm, ready0, is_red, valid,
                               shuffle, vm_mips, vm_pes, sched_policy,
-                              vm_start, vm_stop, spinup, prio, state,
-                              max_pes=max_pes, epoch_limit=epoch_limit)
+                              vm_start, vm_stop, spinup, prio, *ctl,
+                              state=state, max_pes=max_pes,
+                              epoch_limit=epoch_limit, control=control)
     if task_vm.device.type != "cuda":
         raise ValueError(f"mr_epoch: no kernel for device {task_vm.device}")
+    _check_control(control, ctl)
     N, T = task_vm.shape
     V = vm_mips.shape[1]
     dev = task_vm.device
     if state is None:
         _check("task_len", task_len, F32, (N, T), dev)
         _check("ready0", ready0, F32, (N, T), dev)
-        state = initial_state(task_len, ready0, is_red, valid)
+        _check("vm_start", vm_start, F32, (N, V), dev)
+        _check("vm_stop", vm_stop, F32, (N, V), dev)
+        state = initial_state(task_len, ready0, is_red, valid, vm_start,
+                              vm_stop, vm_auto if control else None)
     if epoch_limit is None:
-        epoch_limit = 2 * T + 2
-    if len(state) != len(_STATE_SPEC):
-        raise ValueError(f"mr_epoch: state must have {len(_STATE_SPEC)} "
+        epoch_limit = default_epoch_limit(T, V, control)
+    state_spec = _STATE_SPEC_CONTROL if control else _STATE_SPEC
+    if len(state) != len(state_spec):
+        raise ValueError(f"mr_epoch: state must have {len(state_spec)} "
                          f"leaves, got {len(state)}")
     if max_pes < 0 or epoch_limit < 0:
         raise ValueError("mr_epoch: max_pes and epoch_limit must be >= 0")
     width = {_SPEC_T: T, _SPEC_1: 1, _SPEC_V: V}
-    data = (task_vm, is_red, valid, shuffle, vm_mips, vm_pes, sched_policy,
-            vm_start, vm_stop, spinup, prio)
-    for (name, dtype, w), x in zip(_LANE_DATA, data):
+    if control:
+        spec = _LANE_DATA_CONTROL
+        data = (task_len, task_vm, is_red, valid, shuffle, vm_mips, vm_pes,
+                sched_policy, spinup, prio, *ctl)
+    else:
+        spec = _LANE_DATA
+        data = (task_vm, is_red, valid, shuffle, vm_mips, vm_pes,
+                sched_policy, vm_start, vm_stop, spinup, prio)
+    for (name, dtype, w), x in zip(spec, data):
         _check(name, x, dtype, (N, width[w]), dev)
-    for (name, dtype, w), x in zip(_STATE_SPEC, state):
+    for (name, dtype, w), x in zip(state_spec, state):
         _check(f"state.{name}", x, dtype, (N, width[w]), dev)
     out = tuple(torch.empty_like(x) for x in state)
     if N == 0:
         return out
-    lib = _lib()
+    launch = _lib(control)
     f32 = np.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mr_epoch_launch(
+        err = launch(
             *(x.data_ptr() for x in data), *(x.data_ptr() for x in state),
             *(x.data_ptr() for x in out), N, T, V, int(max_pes),
-            int(epoch_limit), _lanes_per_block(T, V),
+            int(epoch_limit), _lanes_per_block(T, V, control),
             float(f32(_BIG)), float(f32(_BIG / 2)), float(f32(_TIME_EPS)),
             float(f32(1e-30)), stream)
     if err != 0:
         raise RuntimeError(f"mr_epoch: kernel launch failed with CUDA error "
                            f"{err}")
-    mr_epoch.launches += 1
+    if control:
+        mr_epoch.control_launches += 1
+    else:
+        mr_epoch.launches += 1
     return out
 
 
 mr_epoch.launches = 0
+mr_epoch.control_launches = 0
 
-# shared memory one lane (one warp) of the kernel holds, per task and per VM
-_LANE_BYTES_T = 11 * 4 + 2 * 4 + 8      # f32 arrays, i32 arrays, flag bytes
-_LANE_BYTES_V = 4 * 4 + 4               # f32 per-VM arrays, CSR offsets
+# shared memory one lane (one warp) of the kernel holds: bytes per task and
+# per VM (f32 arrays, i32 arrays, flag bytes), plus fixed bytes
+_LANE_BYTES = {False: (11 * 4 + 2 * 4 + 8, 4 * 4 + 4, 4),
+               True: (13 * 4 + 6 * 4 + 15, 10 * 4 + 2 * 4 + 2, 8)}
 _SMEM_LIMIT = 200 * 1024
 
 
-def lane_smem_bytes(T: int, V: int) -> int:
-    """Bytes of shared memory the kernel keeps for one lane (16-aligned)."""
-    return (_LANE_BYTES_T * T + _LANE_BYTES_V * V + 4 + 15) // 16 * 16
+def lane_smem_bytes(T: int, V: int, control: bool = False) -> int:
+    """Bytes of shared memory one lane of the kernel keeps (16-aligned)."""
+    per_t, per_v, fixed = _LANE_BYTES[control]
+    return (per_t * T + per_v * V + fixed + 15) // 16 * 16
 
 
-def _lanes_per_block(T: int, V: int) -> int:
-    per_lane = lane_smem_bytes(T, V)
+def _lanes_per_block(T: int, V: int, control: bool = False) -> int:
+    per_lane = lane_smem_bytes(T, V, control)
     if per_lane > _SMEM_LIMIT:
         raise ValueError(f"mr_epoch: T={T}, V={V} needs {per_lane} bytes of "
                          "shared memory per lane, above the kernel's limit")

@@ -1,7 +1,8 @@
 """Wrappers: ScenarioArrays (J=1) -> ``mr_epoch`` inputs -> SimOutput.
 
 The derived per-task quantities (task lengths, stage-in readiness with the
-storage fetch delay, shuffle delays) are plain tensor ops, O(N·T), in the
+storage fetch delay, shuffle delays, and under control each task's failover
+VM with its re-replication fetch) are plain tensor ops, O(N·T), in the
 reference's exact op sequence; the event loop runs in ``mr_epoch``.
 """
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ...core import network, storage
+from ...core.control import failover_targets
 from ...core.engine import ScenarioArrays, SimOutput, _sim_output
 from .megakernel import mr_epoch, mr_epoch_plain
 
@@ -54,6 +56,35 @@ def kernel_inputs(batch: ScenarioArrays):
             c(batch.task_prio.to(F32)))
 
 
+def control_derived(batch: ScenarioArrays):
+    """``(task_vm2, refetch)``: each task's failover VM and the
+    re-replication fetch delay it pays on moving there."""
+    task_vm2 = failover_targets(batch.task_vm, batch.vm_valid, batch.vm_auto,
+                                batch.block_vm)
+    refetch = storage.remote_fetch_delay(
+        batch.block_vm, batch.block_size, task_vm2,
+        batch.kappa_in[:, None], batch.net_bw[:, None],
+        batch.net_enabled[:, None])
+    return task_vm2, refetch
+
+
+def control_lane_data(batch: ScenarioArrays, task_vm2=None, refetch=None):
+    """The 15 control lane-data tensors of a batch, in ``mr_epoch``'s
+    order (``vm_valid`` .. ``preempt_resume``)."""
+    if task_vm2 is None:
+        task_vm2, refetch = control_derived(batch)
+    c = torch.Tensor.contiguous
+    col = lambda x, dt: c(x.to(dt)[:, None])                   # noqa: E731
+    return (c(batch.vm_valid.to(I32)), c(batch.vm_fail.to(F32)),
+            c(batch.vm_restore.to(F32)), c(batch.vm_auto.to(I32)),
+            col(batch.control_policy, I32), col(batch.ctl_queue, F32),
+            col(batch.ctl_busy, F32), col(batch.redispatch_delay, F32),
+            c(task_vm2.to(I32)), c(refetch.to(F32)),
+            c(batch.task_deadline.to(F32)), col(batch.deadline_policy, I32),
+            col(batch.deadline_slack, F32), col(batch.preempt, I32),
+            col(batch.preempt_resume, I32))
+
+
 def batch_max_pes(batch: ScenarioArrays) -> int:
     """The static admission-scan depth a batch needs."""
     if batch.vm_pes.numel() == 0:
@@ -76,7 +107,7 @@ def resolve_backend(backend: str | None, device: torch.device) -> str:
 
 
 def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
-                   max_pes: int | None = None,
+                   max_pes: int | None = None, control: bool = False,
                    device=None) -> SimOutput:
     """Step a stacked J=1 batch to completion through ``mr_epoch``.
 
@@ -84,6 +115,9 @@ def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
     ``backend="cuda"`` launches the CUDA kernel, ``"torch"`` runs the
     plain version on the batch's device.  ``max_pes`` bounds the static
     admission scan (default: the batch's largest PE count).
+    ``control=True`` runs the closed-loop lowering (failures, autoscale,
+    deadlines, preemption); degenerate control data gives the open-loop
+    schedule bit for bit.
     """
     if device is not None:
         batch = ScenarioArrays(*(x.to(device) for x in batch))
@@ -94,5 +128,12 @@ def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
     if max_pes is None:
         max_pes = batch_max_pes(batch)
     step = mr_epoch if backend == "cuda" else mr_epoch_plain
-    st = step(*kernel_inputs(batch), max_pes=max_pes)
-    return _sim_output(batch, st[3], st[4], st[5], st[7][:, 0])
+    task_vm2, refetch = control_derived(batch)
+    ctl = control_lane_data(batch, task_vm2, refetch) if control else ()
+    st = step(*kernel_inputs(batch), *ctl, max_pes=max_pes, control=control)
+    carry = None
+    if control:
+        carry = (st[8] != 0, st[9], st[10], st[11][:, 0], st[12] != 0,
+                 st[13], st[14][:, 0])
+    return _sim_output(batch, st[3], st[4], st[5], st[7][:, 0], task_vm2,
+                       carry)

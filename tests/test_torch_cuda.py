@@ -4,15 +4,16 @@ card and no JAX it runs alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-(``--noconftest``: the suite's conftest imports JAX).  The kernel is held
-against its plain PyTorch version on the card, bit for bit, and the sweep
-path on the card against the same path on the CPU.
+(``--noconftest``: the suite's conftest imports JAX).  Both instantiations
+of the kernel (open loop and control) are held against their plain PyTorch
+version on the card, bit for bit, and the sweep paths on the card against
+the same paths on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import sweep
+from repro_torch.core import control, sweep
 from repro_torch.kernels.mr_sched import megakernel, ops
 
 
@@ -43,6 +44,35 @@ def _cols(n, T, seed):
                          ).astype(np.float32),
         spinup_delay=rng.choice([0.0, 60.0], n).astype(np.float32),
         task_prio=rng.integers(0, 3, (n, T)).astype(np.float32))
+
+
+def _control_cols(n, T, seed):
+    """Closed-loop columns: failures with re-dispatch, AUTOSCALE with a
+    reserve, deadlines with SHED/BOOST, preemption."""
+    rng = np.random.default_rng(seed)
+    cols = _cols(n, T, seed)
+    cols["sched_policy"] = (rng.random(n) < 0.75).astype(np.int32)
+    f, r = control.failure_times(9 * n, rate=0.002, seed=seed,
+                                 repair_delay=600.0)
+    sub = cols["job_submit"][:, None]
+    cols["vm_fail"] = (np.asarray(f).reshape(n, 9) + sub).astype(np.float32)
+    cols["vm_restore"] = (np.asarray(r).reshape(n, 9) + sub
+                          ).astype(np.float32)
+    cols["vm_auto"] = (np.arange(9)[None, :] == (cols["n_vms"] - 1)[:, None]
+                       ) & (cols["n_vms"] > 1)[:, None]
+    cols["vm_auto"] = cols["vm_auto"].astype(np.float32)
+    cols["control_policy"] = rng.integers(0, 2, n).astype(np.int32)
+    cols["ctl_queue"] = rng.choice([2.0, 8.0], n).astype(np.float32)
+    cols["ctl_busy"] = np.full(n, 0.5, np.float32)
+    cols["redispatch_delay"] = rng.choice([0.0, 30.0], n).astype(np.float32)
+    dl = sub + rng.choice([300.0, 1200.0, 4800.0], (n, T))
+    cols["task_deadline"] = np.where(rng.random((n, T)) < 0.5, 1e30, dl
+                                     ).astype(np.float32)
+    cols["deadline_policy"] = rng.integers(0, 3, n).astype(np.int32)
+    cols["deadline_slack"] = rng.choice([0.0, 120.0], n).astype(np.float32)
+    cols["preempt"] = rng.integers(0, 2, n).astype(np.int32)
+    cols["preempt_resume"] = rng.integers(0, 2, n).astype(np.int32)
+    return cols
 
 
 def _bits(x):
@@ -105,3 +135,62 @@ def test_sweep_on_card_matches_cpu():
     for k in cpu.metric_names:
         np.testing.assert_array_equal(card[k].view(np.int32),
                                       cpu[k].view(np.int32), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 32, 64])
+def test_control_kernel_matches_plain_on_card(T):
+    dev = _card()
+    batch = sweep.grid_arrays(_control_cols(512, T, T), pad_tasks=T,
+                              pad_vms=9, device=dev)
+    inputs = ops.kernel_inputs(batch) + ops.control_lane_data(batch)
+    max_pes = ops.batch_max_pes(batch)
+    before = (megakernel.mr_epoch.launches,
+              megakernel.mr_epoch.control_launches)
+    got = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=True)
+    assert (megakernel.mr_epoch.launches,
+            megakernel.mr_epoch.control_launches) == (before[0],
+                                                      before[1] + 1)
+    want = megakernel.mr_epoch_plain(*inputs, max_pes=max_pes, control=True)
+    for name, a, b in zip(megakernel.STATE_LEAVES_CONTROL, want, got):
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert got[8].any() and got[12].any()      # kills and sheds happened
+    split = max(1, int(got[7].max()) // 2)
+    first = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=True,
+                                epoch_limit=split)
+    rest = megakernel.mr_epoch(
+        inputs[0], inputs[1], None, *inputs[3:], state=first,
+        max_pes=max_pes, control=True,
+        epoch_limit=megakernel.default_epoch_limit(T, 9, True) - split)
+    for name, a, b in zip(megakernel.STATE_LEAVES_CONTROL, got, rest):
+        assert torch.equal(_bits(a), _bits(b)), f"resumed {name}"
+
+
+@pytest.mark.cuda
+def test_control_kernel_on_degenerate_data_is_the_open_loop():
+    dev = _card()
+    batch = sweep.grid_arrays(_cols(512, 32, 3), pad_tasks=32, pad_vms=9,
+                              device=dev)
+    inputs = ops.kernel_inputs(batch)
+    max_pes = ops.batch_max_pes(batch)
+    open_ = megakernel.mr_epoch(*inputs, max_pes=max_pes)
+    ctl = megakernel.mr_epoch(*inputs, *ops.control_lane_data(batch),
+                              max_pes=max_pes, control=True)
+    for name, a, b in zip(megakernel.STATE_LEAVES, open_, ctl[:8]):
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.cuda
+def test_control_sweep_on_card_matches_cpu():
+    dev = _card()
+    cols = _control_cols(384, 24, 5)
+    plan = sweep.product(sweep.Axis(("cell",), tuple(
+        (i,) for i in range(384)), cols))
+    before = megakernel.mr_epoch.control_launches
+    card = plan.run(device=dev)
+    assert megakernel.mr_epoch.control_launches > before
+    cpu = plan.run(device="cpu")
+    for k in cpu.metric_names:
+        np.testing.assert_array_equal(card[k].view(np.int32),
+                                      cpu[k].view(np.int32), err_msg=k)
+    assert card["failures_injected"].sum() > 0

@@ -319,10 +319,22 @@ def test_simulate_rejects_what_later_slices_bring():
     multi = tconfig.Scenario(jobs=(tconfig.JOB_SMALL, tconfig.JOB_SMALL))
     with pytest.raises(NotImplementedError, match="A2"):
         tengine.simulate(multi, device="cpu")
-    failing = tconfig.Scenario(control=tcontrol.ControlSpec(
-        failure_rate=1e-3))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tengine.simulate(failing, device="cpu")
+    # a closed-loop scenario (seeded failures, an AUTOSCALE reserve) is no
+    # longer refused: it runs the control lowering, as the reference does
+    vms = (jconfig.VM_SMALL, jconfig.VM_SMALL,
+           dataclasses.replace(jconfig.VM_SMALL, autoscale=True))
+    job = dataclasses.replace(jconfig.JOB_SMALL, n_maps=9, n_reduces=2)
+    sc_j = jconfig.Scenario(
+        vms=vms, jobs=(job,), sched_policy=jconfig.SchedPolicy.SPACE_SHARED,
+        control=jcontrol.ControlSpec(
+            policy=jcontrol.ControlPolicy.AUTOSCALE, failure_rate=1e-3,
+            failure_seed=3, repair_delay=300.0, queue_threshold=2.0,
+            busy_threshold=0.5))
+    jm_want = jengine.simulate(sc_j)
+    jm_got = tengine.simulate(_scenario_pair(sc_j), device="cpu")
+    assert_metrics_match({k: np.asarray(v)[None] for k, v in
+                          jm_want._asdict().items()},
+                         tengine.to_numpy(jm_got), "closed loop")
 
 
 def _round_f32(exact: Fraction) -> np.float32:

@@ -1,6 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (and
 ``chip_smoke.py``) loads neither JAX nor the JAX package, changes no
-process-global state, and builds no kernel; no source names either."""
+process-global state, and builds or loads no kernel; no source names
+either, and every CUDA source is listed in ``_build.SOURCES`` and needs no
+PyTorch header."""
 import os
 import pathlib
 import re
@@ -23,6 +25,7 @@ for name in names:
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from repro_torch.kernels import _build
+from repro_torch.kernels.mr_sched import megakernel
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -30,6 +33,7 @@ assert dict(os.environ) == env0, "an import changed the environment"
 assert torch.get_default_dtype() == dtype0
 assert torch.get_num_threads() == threads0
 assert not _build._loaded, "an import loaded a kernel library"
+assert not megakernel._LIBS, "an import bound a kernel"
 print(len(names))
 """
 
@@ -53,3 +57,21 @@ def test_no_source_imports_jax_or_the_reference():
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_every_kernel_source_is_built_without_torch_headers():
+    # _build.SOURCES lists every CUDA source of the port (so the build
+    # phase of chip_smoke.py compiles each), and each has a plain C
+    # interface
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    sources = sorted((SRC / "repro_torch").rglob("*.cu"))
+    assert len(sources) >= 2
+    assert sorted(_build.SOURCES.values()) == sources
+    inc = re.compile(r"^\s*#\s*include\s*[<\"]([^>\"]+)", re.M)
+    for f in sources:
+        text = f.read_text()
+        heads = inc.findall(text)
+        assert not [h for h in heads if h.startswith(("torch", "ATen",
+                                                      "c10"))], f
+        assert 'extern "C"' in text, f

@@ -143,14 +143,23 @@ def test_unported_run_options_raise(kw, slice_):
 
 
 def test_control_columns_raise():
+    # control columns run the closed-loop lowering now; what raises is a
+    # control column the plan validation refuses, as in the reference
     plan = tsweep.product(tsweep.axis("n_maps", [2, 4]),
                           control_policy="autoscale")
-    with pytest.raises(NotImplementedError, match="A5"):
-        plan.run(device="cpu")
+    got = plan.run(device="cpu")
+    assert got["scale_events"].shape == (2,)
     plan = tsweep.product(tsweep.axis("n_maps", [2, 4])).failures(
         2, rate=1e-3, n_vms=3)
-    with pytest.raises(NotImplementedError, match="A5"):
-        plan.run(device="cpu")
+    got = plan.run(device="cpu")
+    assert (got["failures_injected"] >= 0).all()
+    for sw in (jsweep, tsweep):
+        with pytest.raises(ValueError, match="task_prio"):
+            sw.product(sw.axis("n_maps", [2, 4]), preempt=1).params()
+        with pytest.raises(ValueError, match="control_policy"):
+            sw.grid_arrays({"n_maps": np.array([2], np.int32),
+                            "control_policy": np.array([7], np.int32)},
+                           pad_tasks=4, pad_vms=3)
 
 
 def test_no_silent_cpu_run_for_the_kernel():
