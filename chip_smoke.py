@@ -38,6 +38,26 @@ each printing one line of numbers:
               of failures, re-dispatches, scale events, shed tasks and
               preemptions must each be > 0.  Then 2048 of its cells bitwise
               on the CPU.
+7. trace    — both 65,536-cell grids again, bucket by bucket, through
+              ``engine.simulate_batch_arrays(trace=True)`` (the trace
+              instantiations; their launch counts must rise): ``SimOutput``
+              bitwise the untraced run's, no event dropped, the event counts
+              summed over the grid equal to the counts the schedule and the
+              metrics give, 2048 cells' trace buffers bitwise the port's CPU
+              run, and a closed-loop lane's Chrome trace with one span per
+              start; traced and untraced wall, the trace kernels' time,
+              launches and bound, and the trace's bytes.
+8. report   — ``SweepPlan.run(device="cuda", report=True)`` on the open-loop
+              grid: metrics bitwise phase 4's, the report's cells add up to
+              the grid and its dispatches to the launches counted.
+9. schedule — ``ops.schedule`` (the ``mr_schedule`` kernel) on the open-loop
+              grid's cells it models (a static fleet, no priorities): its
+              makespans against phase 4's at the reference's tolerance
+              (rtol 1e-4, atol 1e-2); its time, launches and bound.
+
+Phase 3 also holds the trace instantiations (every carry and trace leaf,
+the carry against the untraced kernel's, and an undersized event log) and
+``mr_schedule`` against their plain versions, bitwise.
 
 Then one JSON line describing each kernel, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -348,6 +368,98 @@ def phase_control_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
     return worst, checked, totals
 
 
+def vm_valid_lane(batch):
+    """The open-loop trace's one control tensor."""
+    import torch
+    return batch.vm_valid.to(torch.int32).contiguous()
+
+
+def phase_trace_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
+    """Trace instantiations vs their plain versions on the lane sets of
+    the phase-3 checks: all carry and trace leaves bitwise, the carry
+    bitwise the untraced kernel's, and a run with an event log of half the
+    median event count: kernel == plain, carry and time series == the full
+    log's run, the kept rows its first rows, ``ev_n`` its count.  Returns
+    ``(max_abs_err open, max_abs_err control, lanes checked, events,
+    events dropped in the undersized runs)``."""
+    import torch
+    from repro_torch.core import engine, sweep
+    from repro_torch.kernels.mr_sched import megakernel as mk, ops
+    worst, checked, events, dropped = [0.0, 0.0], 0, 0, 0
+    for T in ts:
+        for control in (False, True):
+            cols = (mixed_control_columns(lanes, seed + 100 + T, T) if control
+                    else mixed_columns(lanes, seed + T, T))
+            batch = sweep.grid_arrays(fit_tasks(cols, T), pad_tasks=T,
+                                      pad_vms=9, device=device)
+            inputs = ops.kernel_inputs(batch) + (
+                ops.control_lane_data(batch) if control
+                else (vm_valid_lane(batch),))
+            max_pes = ops.batch_max_pes(batch)
+            names = mk.state_leaves(control, True)
+            what = f"T={T}: {mk.instantiation(control, True)}"
+            kern = mk.mr_epoch(*inputs, max_pes=max_pes, control=control,
+                               trace=True)
+            plain = mk.mr_epoch_plain(*inputs, max_pes=max_pes,
+                                      control=control, trace=True)
+            torch.cuda.synchronize()
+            worst[control] = max(worst[control],
+                                 compare(names, kern, plain, what))
+            n_carry = len(names) - len(mk.TRACE_LEAVES)
+            untraced = mk.mr_epoch(*inputs[:len(inputs) - (not control)],
+                                   max_pes=max_pes, control=control)
+            compare(names, kern[:n_carry], untraced, f"{what} vs untraced")
+            # an undersized event log
+            ev_n = kern[-1][:, 0]
+            E = max(1, int(ev_n.float().median()) // 2)
+            st0 = mk.initial_state(
+                inputs[0], inputs[2], inputs[3], inputs[4], inputs[9],
+                inputs[10], inputs[16] if control else None,
+                *engine._trace_caps(T, 9, control, True, E))
+            small = mk.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                                control=control, trace=True)
+            small_plain = mk.mr_epoch_plain(*inputs, state=st0,
+                                            max_pes=max_pes, control=control,
+                                            trace=True)
+            compare(names, small, small_plain, f"{what}, E={E}")
+            compare(names[:n_carry + 1], small[:n_carry + 1],
+                    kern[:n_carry + 1], f"{what}, E={E} vs full log")
+            compare(names[n_carry + 1:], small[n_carry + 1:-1],
+                    [x[:, :E].contiguous() for x in kern[n_carry + 1:-1]],
+                    f"{what}, E={E}: kept rows")
+            if not torch.equal(small[-1], kern[-1]):
+                raise AssertionError(f"{what}, E={E}: ev_n differs")
+            over = (ev_n - E).clamp(min=0)
+            if not int(over.sum()) > 0:
+                raise AssertionError(f"{what}: the small log never overflowed")
+            events += int(ev_n.sum())
+            dropped += int(over.sum())
+            checked += lanes
+    return worst[0], worst[1], checked, events, dropped
+
+
+def phase_schedule_kernel(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
+    """``mr_schedule`` vs its plain version on the phase-3 open-loop lane
+    sets with both sched policies mixed; returns ``(max_abs_err, lanes)``."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.kernels.mr_sched import kernel, ops
+    worst, checked = 0.0, 0
+    for T in ts:
+        cols = fit_tasks(mixed_columns(lanes, seed + T, T), T)
+        cols["sched_policy"] = np.random.default_rng(seed + 200 + T).integers(
+            0, 2, lanes).astype(np.int32)
+        batch = sweep.grid_arrays(cols, pad_tasks=T, pad_vms=9, device=device)
+        inputs = ops.kernel_inputs(batch)[:9]
+        kern = kernel.mr_schedule(*inputs)
+        plain = kernel.mr_schedule_plain(*inputs)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(("start", "finish"), kern, plain,
+                                   f"T={T}: mr_schedule"))
+        checked += lanes
+    return worst, checked
+
+
 def compare(names, got, want, what):
     """Raise unless every leaf is bitwise equal; the largest absolute
     difference of the float leaves (0.0 when equal)."""
@@ -401,7 +513,7 @@ def layer_seconds(buckets, device, control=False):
     return enc, step, met
 
 
-def kernel_bound_ms(batch, n_epochs, max_pes, control=False):
+def kernel_bound_ms(batch, n_epochs, max_pes, control=False, trace=None):
     """Least time the card could take for one ``mr_epoch`` call on this
     batch: the larger of its bytes over HBM bandwidth and its operations
     over the fp32 rate.  Bytes: each input read once, each output written
@@ -415,7 +527,14 @@ def kernel_bound_ms(batch, n_epochs, max_pes, control=False):
     space-shared lanes; control about 100 per task slot (the same, plus
     the hook's counts, down-window gates, SHED/BOOST predicates, kills and
     the preemption extrema), 20 per VM, and 8 per task slot per admission
-    step (the urgency tier); times this run's realized epochs per lane."""
+    step (the urgency tier); times this run's realized epochs per lane.
+
+    ``trace=(C, E)``: a trace instantiation with C time-series rows and E
+    event rows per lane.  Its bytes add the six trace leaves in and out
+    (``C * 8 + 4 * E + 1`` words each way) and, on the open loop, the
+    ``vm_valid`` input; its operations add the event log's ballot passes,
+    about 4 per slot and pass (2 task passes open loop; 5 task and 2 VM
+    passes under control)."""
     N, T = batch.task_vm.shape
     V = batch.vm_mips.shape[1]
     space = (batch.sched_policy != 0).double().cpu().numpy()
@@ -425,6 +544,10 @@ def kernel_bound_ms(batch, n_epochs, max_pes, control=False):
     else:
         nbytes = N * (4 * (4 * T + 3 + 4 * V) + 2 * 4 * (5 * T + 3))
         per_epoch = 32.0 * T + 6.0 * V + space * 6.0 * T * max_pes
+    if trace is not None:
+        C, E = trace
+        nbytes += N * (2 * 4 * (C * 8 + 4 * E + 1) + (0 if control else 4 * V))
+        per_epoch = per_epoch + (20.0 * T + 8.0 * V if control else 8.0 * T)
     ops = float((n_epochs.double().cpu().numpy() * per_epoch).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
@@ -502,10 +625,270 @@ def phase_main(cols, dev, control=False, pad_tasks=None):
         b_ms += bound_ms
         by_ops += bound_ms if by == "operations" else 0.0
     layers = layer_seconds(buckets, dev, control)
-    return dict(result=result, buckets=buckets, launches=launches,
+    return dict(result=result, buckets=buckets, launches=launches, plan=plan,
                 wall_first=wall_first, wall=wall, k_ms=k_ms, p_ms=p_ms,
                 b_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2
                 else "bytes", layers=layers, n=n)
+
+
+def trace_identities(batch, out, buf, control):
+    """Event counts of one traced bucket, checked against what its schedule
+    says; returns the per-kind totals.  Each realized epoch has its row;
+    the time series' kill/shed/eviction columns sum to those kinds'
+    events; every finish is a FINISH event; open loop every start is a
+    START event, under control there are at least as many STARTs as
+    FINISHes and as tasks holding a start (a task is killed or evicted
+    between its STARTs), and every re-dispatched task was killed or evicted
+    at least once."""
+    import torch
+    from repro_torch.core import telemetry
+    kinds = buf.ev_kind
+    count = {name: int((kinds == k).sum())
+             for k, name in telemetry.EVENT_NAMES.items()}
+    valid = batch.task_valid
+    if not torch.equal((buf.ts[:, :, 4] > 0).sum(dim=1, dtype=torch.int32),
+                       out.n_epochs):
+        raise AssertionError("time-series rows differ from n_epochs")
+    cols = buf.ts.sum(dim=1)
+    for col, name in ((5, "kill"), (6, "shed"), (7, "preempt")):
+        if int(cols[:, col].sum()) != count[name]:
+            raise AssertionError(f"time-series {name} column != events")
+    finished = int((valid & (out.finish < 5e29)).sum())
+    started = int((valid & (out.start < 5e29)).sum())
+    if count["finish"] != finished:
+        raise AssertionError("FINISH events != finished tasks")
+    if not control and count["start"] != started:
+        raise AssertionError("START events != started tasks")
+    if control:
+        hit = int((valid & out.hit).sum())
+        if not (count["start"] >= max(finished, started)
+                and hit <= count["kill"] + count["preempt"]):
+            raise AssertionError("START/kill/preempt counts inconsistent")
+    return count
+
+
+def phase_traced(m, dev, control=False, seed=7):
+    """Drive ``engine.simulate_batch_arrays(trace=True)`` over the main
+    run's buckets (launch counts zeroed just before, read just after),
+    check it, time it against the untraced driver (an untraced pass, then
+    a traced one), time the trace kernel, the untraced kernel the same way
+    (from a prepared carry) and the trace kernel's plain version, and
+    re-run ``CPU_CELLS`` cells on the CPU."""
+    import torch
+    from repro_torch.core import engine, telemetry
+    from repro_torch.kernels.mr_sched import megakernel as mk, ops
+    buckets, result, n = m["buckets"], m["result"], m["n"]
+    for c in mk.LAUNCH_COUNTERS:
+        setattr(mk.mr_epoch, c, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced = [engine.simulate_batch_arrays(b[5], control=control,
+                                           max_pes=b[6], trace=True)
+              for b in buckets]
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    launches = (mk.mr_epoch.trace_launches,
+                mk.mr_epoch.control_trace_launches)
+    if launches[int(control)] != len(buckets) or mk.mr_epoch.launches \
+            or mk.mr_epoch.control_launches:
+        raise AssertionError(f"traced path launches {launches}, "
+                             f"{len(buckets)} buckets")
+    t0 = time.perf_counter()
+    plain_out = [engine.simulate_batch_arrays(b[5], control=control,
+                                              max_pes=b[6])[0]
+                 for b in buckets]
+    torch.cuda.synchronize()
+    wall_untraced = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in buckets:
+        engine.simulate_batch_arrays(b[5], control=control, max_pes=b[6],
+                                     trace=True)
+    torch.cuda.synchronize()
+    wall_traced = time.perf_counter() - t0
+    totals = dict.fromkeys(telemetry.EVENT_NAMES.values(), 0)
+    nbytes = 0
+    k_ms = u_ms = p_ms = b_ms = by_ops = 0.0
+    chrome = None
+    rng = np.random.default_rng(seed)
+    n_cpu = 0
+    for i, ((idx, gcols, statics, tb, vb, batch, max_pes), (out, _, buf),
+            want) in enumerate(zip(buckets, traced, plain_out)):
+        for f, a, b in zip(out._fields, out, want):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"traced SimOutput.{f} differs at T={tb}")
+        if int(torch.as_tensor(buf.dropped_events).sum()):
+            raise AssertionError(f"events dropped at T={tb}")
+        for k, v in trace_identities(batch, out, buf, control).items():
+            totals[k] += v
+        nbytes += sum(x.numel() * x.element_size() for x in buf)
+        if control and chrome is None:
+            kills = (buf.ev_kind == telemetry.EV_KILL).sum(dim=1)
+            if int(kills.max()) > 0:
+                lane = int(kills.argmax())
+                tr = telemetry.TraceResult(telemetry.to_numpy(
+                    telemetry.TraceBuffers(*(x[lane] for x in buf))))
+                doc = tr.to_chrome_trace()
+                spans = sum(e["ph"] == "X" for e in doc["traceEvents"])
+                if spans != tr.counts_by_kind(0)["start"]:
+                    raise AssertionError("Chrome trace: spans != STARTs")
+                chrome = (spans, tr.counts_by_kind(0)["kill"])
+        # the trace kernel alone, its plain version and its bound
+        inputs = ops.kernel_inputs(batch) + (
+            ops.control_lane_data(batch) if control
+            else (vm_valid_lane(batch),))
+        caps = (buf.ts.shape[1], buf.ev_t.shape[1])
+        st0 = mk.initial_state(inputs[0], inputs[2], inputs[3], inputs[4],
+                               inputs[9], inputs[10],
+                               inputs[16] if control else None, *caps)
+        k_ms += cuda_ms(lambda: mk.mr_epoch(
+            *inputs, state=st0, max_pes=max_pes, control=control,
+            trace=True), TIMING_REPS)
+        n_carry = len(st0) - len(mk.TRACE_LEAVES)
+        u_ms += cuda_ms(lambda: mk.mr_epoch(
+            *inputs[:len(inputs) - (not control)], state=st0[:n_carry],
+            max_pes=max_pes, control=control), TIMING_REPS)
+        p_ms += cuda_ms(lambda: mk.mr_epoch_plain(
+            *inputs, state=st0, max_pes=max_pes, control=control,
+            trace=True), 1)
+        bound_ms, by = kernel_bound_ms(batch, out.n_epochs, max_pes, control,
+                                       caps)
+        b_ms += bound_ms
+        by_ops += bound_ms if by == "operations" else 0.0
+        # CPU_CELLS cells of every bucket's share on the CPU
+        k = max(1, int(round(len(idx) * CPU_CELLS / n)))
+        if i == len(buckets) - 1:
+            k = max(1, min(len(idx), CPU_CELLS - n_cpu))
+        pick = torch.as_tensor(np.sort(rng.choice(len(idx), min(k, len(idx)),
+                                                  replace=False)))
+        sub = engine.ScenarioArrays(*(x[pick.to(x.device)].cpu()
+                                      for x in batch))
+        c_out, _, c_buf = engine.simulate_batch_arrays(
+            sub, control=control, max_pes=max_pes, trace=True)
+        for f, a, b in zip(c_buf._fields, c_buf, buf):
+            if not torch.equal(bits(a), bits(b[pick.to(b.device)].cpu())):
+                raise AssertionError(f"CPU trace differs from the card: {f}")
+        for f, a, b in zip(c_out._fields, c_out, out):
+            if not torch.equal(bits(a), bits(b[pick.to(b.device)].cpu())):
+                raise AssertionError(f"CPU traced {f} differs from the card")
+        n_cpu += len(pick)
+    # the event counts against the grid's metrics
+    if control:
+        for kind, metric in (("shed", "shed_tasks"),
+                             ("preempt", "preemptions")):
+            if totals[kind] != int(result[metric].sum()):
+                raise AssertionError(f"{kind} events != {metric}")
+        if totals["scale_open"] + totals["scale_close"] \
+                != int(result["scale_events"].sum()):
+            raise AssertionError("scale events != scale_events")
+        if chrome is None:
+            raise AssertionError("no closed-loop lane was killed")
+    return dict(launches=launches, wall_first=wall_first,
+                wall_traced=wall_traced, wall_untraced=wall_untraced,
+                totals=totals, nbytes=nbytes, k_ms=k_ms, u_ms=u_ms,
+                p_ms=p_ms, b_ms=b_ms,
+                bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
+                chrome=chrome, n_cpu=n_cpu)
+
+
+def phase_report(m, dev):
+    """``SweepPlan.run(report=True)`` on a main grid: metrics bitwise the
+    main run's, the report's cells add up, its dispatches are the launches
+    counted."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    result, n = m["result"], m["n"]
+    plan = m["plan"]
+    before = mk.total_launches()
+    torch.cuda.synchronize()
+    res, rep = plan.run(device=dev, report=True)
+    torch.cuda.synchronize()
+    for k in result.metrics:
+        if not np.array_equal(result[k], res[k]):
+            raise AssertionError(f"run(report=True) changed {k}")
+    if sum(b.cells for b in rep.buckets) != n or rep.n_cells != n:
+        raise AssertionError("report cells do not add up to the grid")
+    if rep.dispatches != mk.total_launches() - before \
+            or rep.dispatches != sum(b.dispatches for b in rep.buckets):
+        raise AssertionError("report dispatches != launches counted")
+    return rep
+
+
+def phase_schedule(m, dev):
+    """``ops.schedule`` over the main grid's cells ``mr_schedule`` models
+    (a static fleet: lease windows ``[0, 1e30)``, no spin-up, zero
+    priorities), bucket by bucket; their makespans against the main run's
+    at the reference's tolerance, and the kernel's time and bound."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.kernels.mr_sched import kernel, ops
+    compiled, pad_t, pad_v = m["plan"]._compiled()
+    static = ((compiled["vm_start"] == 0).all(axis=1)
+              & (compiled["vm_stop"] >= 1e30).all(axis=1)
+              & (compiled["spinup_delay"] == 0)
+              & (compiled["task_prio"] == 0).all(axis=1))
+    cells = np.nonzero(static)[0]
+    cols = {k: v[cells] for k, v in compiled.items()}
+    buckets = bucket_batches(cols, pad_t, pad_v, dev)
+    kernel.mr_schedule.launches = 0
+    torch.cuda.synchronize()
+    outs = [ops.schedule(b[5]) for b in buckets]
+    torch.cuda.synchronize()
+    launches = kernel.mr_schedule.launches
+    if launches != len(buckets):
+        raise AssertionError("ops.schedule did not launch mr_schedule")
+    want = m["result"]["makespan"].reshape(-1)[cells]
+    k_ms = p_ms = b_ms = by_ops = 0.0
+    for (idx, gcols, statics, tb, vb, batch, _), (start, finish) in zip(
+            buckets, outs):
+        valid = batch.task_valid
+        last = torch.where(valid, finish, torch.zeros_like(finish)).amax(1)
+        span = (last - batch.job_submit[:, 0]).cpu().numpy()
+        if not np.isfinite(span).all():
+            raise AssertionError("non-finite mr_schedule makespan")
+        np.testing.assert_allclose(span, want[idx], rtol=1e-4, atol=1e-2)
+        inputs = ops.kernel_inputs(batch)[:9]
+        k_ms += cuda_ms(lambda: kernel.mr_schedule(*inputs), TIMING_REPS)
+        p_ms += cuda_ms(lambda: kernel.mr_schedule_plain(*inputs), 1)
+        bound_ms, by = schedule_bound_ms(batch, start, finish)
+        b_ms += bound_ms
+        by_ops += bound_ms if by == "operations" else 0.0
+    return dict(n=len(cells), buckets=len(buckets), launches=launches,
+                k_ms=k_ms, p_ms=p_ms, b_ms=b_ms,
+                bound_by="operations" if by_ops >= b_ms / 2 else "bytes")
+
+
+def schedule_bound_ms(batch, start, finish):
+    """Least time the card could take for one ``mr_schedule`` call: the
+    larger of its bytes over HBM bandwidth and its operations over the
+    fp32 rate.  Bytes, per lane: 5 T-wide + 2 scalar + 2 V-wide inputs,
+    2 T-wide outputs, 4 bytes each.  Operations per realized epoch of a
+    lane: about 30 per task slot (rates, event times, the min,
+    completions, eligibility, starts), 6 per VM, and on space-shared lanes
+    4 per ordered pair of tasks on one VM (the admission rank).  A lane
+    realizes at least one epoch per distinct instant among its tasks'
+    starts and finishes, and that count is used."""
+    import torch
+    N, T = batch.task_vm.shape
+    V = batch.vm_mips.shape[1]
+    nbytes = N * 4 * (5 * T + 2 + 2 * V + 2 * T)
+    valid = batch.task_valid
+    never = torch.full_like(start, 1e30)
+    inst = torch.cat([torch.where(valid, start, never),
+                      torch.where(valid, finish, never)], dim=1
+                     ).sort(dim=1).values
+    new = torch.ones_like(inst, dtype=torch.bool)
+    new[:, 1:] = inst[:, 1:] != inst[:, :-1]
+    epochs = (new & (inst < 5e29)).sum(dim=1).double()
+    onehot = (batch.task_vm[:, :, None] == torch.arange(V, device=start.device)
+              ) & valid[:, :, None]
+    pairs = (onehot.sum(dim=1).double() ** 2).sum(dim=1)
+    space = (batch.sched_policy != 0).double()
+    ops_n = float((epochs * (30.0 * T + 6.0 * V + space * 4.0 * pairs)).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops_n / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_cpu(m, control=False, seed=5):
@@ -549,6 +932,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.mr_sched import megakernel as mk
     dev = torch.device("cuda")
     smi = nvidia_smi()
 
@@ -562,9 +946,13 @@ def main() -> int:
     built = _build.build()
     ptxas = [f"{name}: {ln.strip()}" for name in built for ln in
              _build.build_log(name).splitlines() if "Used" in ln]
-    print(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
+    print(f"build: {time.perf_counter() - t0:.2f} s wall, per library "
           f"{json.dumps({k: round(v, 2) for k, v in built.items()})} | "
           + " | ".join(ptxas), flush=True)
+    spills = [ln for ln in ptxas if "spill" in ln
+              and not ln.endswith("0 bytes spill stores, 0 bytes spill loads")]
+    if spills:
+        raise AssertionError(f"a kernel spills registers: {spills}")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -580,6 +968,22 @@ def main() -> int:
           f"T={list(KERNEL_TS)} (+ resume split), max_abs_err {worst_c} | "
           f"hit tasks {tot[0]}, scale events {tot[1]}, shed {tot[2]}, "
           f"evictions {tot[3]}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    worst_to, worst_tc, checked_t, n_ev, n_drop = phase_trace_kernels(dev)
+    print(f"kernels: mr_epoch_trace and mr_epoch_control_trace bitwise == "
+          f"mr_epoch_plain(trace=True) on every carry and trace leaf, "
+          f"{checked_t} lanes (open loop and closed loop at T="
+          f"{list(KERNEL_TS)}), carry == the untraced kernels'; undersized "
+          f"event logs (half the median count) bitwise plain, kept rows == "
+          f"the full log's first rows, {n_drop} of {n_ev} events dropped and "
+          f"counted; max_abs_err {worst_to} / {worst_tc}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    worst_s, checked_s = phase_schedule_kernel(dev)
+    print(f"kernels: mr_schedule bitwise == mr_schedule_plain on {checked_s} "
+          f"lanes at T={list(KERNEL_TS)}, both sched policies mixed, "
+          f"max_abs_err {worst_s}, {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # 4. main path, open loop.  pad_tasks=64 caps the buckets at the next
@@ -637,7 +1041,48 @@ def main() -> int:
           f"buckets re-run on the CPU, integer metrics exact and float "
           f"metrics bitwise, {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # 7. the traced path on both grids
+    traced = {}
+    for name, grid, control in (("open", m, False), ("closed", c, True)):
+        t = traced[name] = phase_traced(grid, dev, control)
+        print(f"trace: {name}-loop grid, {grid['n']} cells in "
+              f"{len(grid['buckets'])} buckets through "
+              f"engine.simulate_batch_arrays(trace=True): wall "
+              f"{t['wall_traced']:.3f} s traced (first {t['wall_first']:.3f}"
+              f" s) / {t['wall_untraced']:.3f} s untraced, "
+              f"{mk.instantiation(control, True)} launches "
+              f"{t['launches'][int(control)]}, "
+              f"kernel {t['k_ms']:.3f} ms (untraced kernel from the same "
+              f"carry {t['u_ms']:.3f} ms), plain {t['p_ms']:.3f} ms, bound "
+              f"{t['b_ms']:.4f} ms "
+              f"({t['bound_by']}), trace bytes {t['nbytes']} | SimOutput "
+              f"bitwise untraced, 0 dropped, events "
+              f"{json.dumps(t['totals'])} match the schedule"
+              + (" and the metrics' shed/preempt/scale counts; Chrome trace "
+                 f"of a killed lane: {t['chrome'][0]} spans == STARTs"
+                 if control else "")
+              + f" | {t['n_cpu']} cells' trace buffers bitwise on the CPU",
+              flush=True)
+
+    # 8. run(report=True) on the open-loop grid
+    rep = phase_report(m, dev)
+    print(f"report: run(report=True) on {rep.n_cells} open-loop cells, "
+          f"metrics bitwise phase 4's; {rep.n_buckets} buckets, cells add up, "
+          f"dispatches {rep.dispatches} == launches counted, library binds "
+          f"{rep.compile_cache_misses} / hits {rep.compile_cache_hits}, "
+          f"wall {rep.wall_s:.3f} s, device {rep.device}", flush=True)
+
+    # 9. mr_schedule on the cells it models
+    s = phase_schedule(m, dev)
+    print(f"schedule: ops.schedule on the {s['n']} open-loop cells with a "
+          f"static fleet and no priorities, {s['buckets']} buckets: makespan "
+          f"== phase 4's at rtol 1e-4, atol 1e-2; mr_schedule launches "
+          f"{s['launches']}, kernel {s['k_ms']:.3f} ms, plain "
+          f"{s['p_ms']:.3f} ms, bound {s['b_ms']:.4f} ms ({s['bound_by']})",
+          flush=True)
+
     src = "src/repro_torch/kernels/mr_sched/csrc/"
+    to, tc = traced["open"], traced["closed"]
     print(json.dumps({"kernels": [{
         "name": "mr_epoch", "route": "cuda", "source": src + "mr_epoch.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
@@ -649,7 +1094,25 @@ def main() -> int:
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
         "launches": c["launches"][1], "max_abs_err": worst_c,
         "ms": c["k_ms"], "plain_ms": c["p_ms"], "bound_ms": c["b_ms"],
-        "bound_by": c["bound_by"], "library_ms": None}]}))
+        "bound_by": c["bound_by"], "library_ms": None}, {
+        "name": "mr_epoch_trace", "route": "cuda",
+        "source": src + "mr_epoch.cu",
+        "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
+        "launches": to["launches"][0], "max_abs_err": worst_to,
+        "ms": to["k_ms"], "plain_ms": to["p_ms"], "bound_ms": to["b_ms"],
+        "bound_by": to["bound_by"], "library_ms": None}, {
+        "name": "mr_epoch_control_trace", "route": "cuda",
+        "source": src + "mr_epoch_control.cu",
+        "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
+        "launches": tc["launches"][1], "max_abs_err": worst_tc,
+        "ms": tc["k_ms"], "plain_ms": tc["p_ms"], "bound_ms": tc["b_ms"],
+        "bound_by": tc["bound_by"], "library_ms": None}, {
+        "name": "mr_schedule", "route": "cuda",
+        "source": src + "mr_schedule.cu",
+        "replaces": "src/repro/kernels/mr_sched/kernel.py:30",
+        "launches": s["launches"], "max_abs_err": worst_s, "ms": s["k_ms"],
+        "plain_ms": s["p_ms"], "bound_ms": s["b_ms"],
+        "bound_by": s["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,3 +46,14 @@ class CostModel:
 def fallback_cost_model() -> CostModel:
     return CostModel(dispatch_us=_FALLBACK_DISPATCH_US,
                      epoch_lane_us=_FALLBACK_EPOCH_LANE_US)
+
+
+def device_key(device=None) -> str:
+    """``cuda:<card name>`` for a CUDA device (default: the current card
+    when there is one), else ``cpu``."""
+    import torch
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(dev)}"
+    return dev.type

@@ -26,6 +26,8 @@ import torch
 from . import elasticity, storage
 from .config import BindingPolicy, Scenario, base_task_lengths_f32
 from .control import DeadlinePolicy, scenario_control
+from .telemetry import (N_TS_COLS, TraceBuffers, event_capacity,
+                        timeseries_capacity)
 
 _BIG = 1e30          # stand-in for +inf that survives arithmetic
 _TIME_EPS = 1e-6     # relative tie window for simultaneous events
@@ -498,9 +500,31 @@ def _sim_output(sc: ScenarioArrays, start, finish, ready, n_epochs,
                      shed=shed, n_evict=n_evict, work_lost=work_lost)
 
 
+def _trace_caps(T: int, V: int, control: bool, trace: bool,
+                trace_events: int | None) -> tuple[int, int] | None:
+    """Trace capacities ``(time-series rows, event-log rows)``, or ``None``
+    when off: the per-lane epoch bound, and the worst-case event count
+    unless ``trace_events`` sets it."""
+    if not trace:
+        return None
+    ev = (int(trace_events) if trace_events is not None
+          else event_capacity(T, V, control))
+    return (timeseries_capacity(T, V, control), ev)
+
+
+def _trace_of(leaves) -> TraceBuffers:
+    """The six trace leaves of an ``mr_epoch`` carry as lane-stacked
+    :class:`TraceBuffers` (``ts [N, C, 8]``, ``ev_n [N]``)."""
+    ts, ev_t, ev_kind, ev_task, ev_vm, ev_n = leaves
+    return TraceBuffers(ts=ts.reshape(ts.shape[0], -1, N_TS_COLS),
+                        ev_t=ev_t, ev_kind=ev_kind, ev_task=ev_task,
+                        ev_vm=ev_vm, ev_n=ev_n[:, 0])
+
+
 def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
                           backend: str | None = None,
-                          max_pes: int | None = None):
+                          max_pes: int | None = None, trace: bool = False,
+                          trace_events: int | None = None):
     """Step a batch of single-job scenarios to completion.
 
     The epoch loop runs in the ``mr_epoch`` kernel
@@ -510,13 +534,25 @@ def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
     closed-loop lowering (default: whether the batch encodes any
     closed-loop input, :func:`_control_active`).  Returns ``(SimOutput,
     realized_epochs)``, the latter the batch's largest per-lane count.
+
+    ``trace=True`` runs the trace instantiation and returns ``(SimOutput,
+    realized_epochs, TraceBuffers)``: the per-epoch time series and the
+    event log of every lane, ``trace_events`` rows each (default: the
+    worst case, so none is dropped).  The schedule is bitwise the untraced
+    one.
     """
-    from ..kernels.mr_sched import epoch_schedule
+    from ..kernels.mr_sched.ops import epoch_trace, epoch_schedule
     if control is None:
         control = _control_active(batch)
-    out = epoch_schedule(batch, backend=backend, max_pes=max_pes,
-                         control=control)
-    return out, int(out.n_epochs.max()) if out.n_epochs.numel() else 0
+    if trace:
+        out, buffers = epoch_trace(batch, backend=backend, max_pes=max_pes,
+                                   control=control,
+                                   trace_events=trace_events)
+    else:
+        out = epoch_schedule(batch, backend=backend, max_pes=max_pes,
+                             control=control)
+    realized = int(out.n_epochs.max()) if out.n_epochs.numel() else 0
+    return (out, realized, buffers) if trace else (out, realized)
 
 
 def job_metrics(sc: ScenarioArrays, out: SimOutput) -> JobMetrics:

@@ -6,7 +6,10 @@
 * :func:`zip_` / :func:`product` — compose axes into a :class:`SweepPlan`;
 * :meth:`SweepPlan.run` — encode the plan into :class:`ScenarioArrays`
   batches (one per shape bucket), step them through the ``mr_epoch``
-  kernel and return a labelled :class:`SweepResult`.
+  kernel and return a labelled :class:`SweepResult` (with a
+  :class:`~repro_torch.core.telemetry.RunReport` under ``report=True``);
+* :func:`stack_scenarios` — encode and stack ``Scenario`` objects into one
+  batch.
 
 :func:`encode_cell` is written batch-native: every parameter is a Python
 scalar shared by the batch or a tensor led by the cell dimension, in place
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import inspect
+import time
 from functools import partial
 from typing import Any, Mapping, Sequence
 
@@ -27,6 +31,7 @@ import torch
 from . import costmodel as costmodel_mod
 from . import elasticity as elasticity_mod
 from . import storage as storage_mod
+from . import telemetry
 from .config import (JOB_SMALL, VM_SMALL, BindingPolicy, SchedPolicy,
                      as_job_spec, as_vm_spec, base_task_lengths_f32)
 from .control import (ControlPolicy, DeadlinePolicy, as_control_policy,
@@ -34,13 +39,31 @@ from .control import (ControlPolicy, DeadlinePolicy, as_control_policy,
 from .control import failure_times as _failure_times
 from .elasticity import ElasticitySpec, as_arrival_process
 from .engine import (_BIG, JobMetrics, ScenarioArrays, ScenarioMetrics,
-                     bind_tasks, job_metrics, scenario_metrics)
+                     bind_tasks, from_scenario, job_metrics,
+                     scenario_arrays_from_numpy, scenario_metrics)
 from .storage import Placement, StorageSpec, as_placement
 from .util import pow2_pad, pow2_pads
 
 _DEFAULT_STORAGE = StorageSpec()
 _DEFAULT_ELASTICITY = ElasticitySpec()
 F32, I32 = torch.float32, torch.int32
+
+
+# ---------------------------------------------------------------------------
+# Host-side batch builder
+# ---------------------------------------------------------------------------
+
+def stack_scenarios(scenarios: Sequence, device="cuda") -> ScenarioArrays:
+    """Encode and stack :class:`~repro_torch.core.config.Scenario` objects
+    with shared padding into one batch (leading lane dimension)."""
+    T = max(s.total_tasks() for s in scenarios)
+    J = max(len(s.jobs) for s in scenarios)
+    V = max(len(s.vms) for s in scenarios)
+    encoded = [from_scenario(s, pad_tasks=T, pad_jobs=J, pad_vms=V)
+               for s in scenarios]
+    return scenario_arrays_from_numpy(
+        {f: np.stack([np.asarray(e[f]) for e in encoded])
+         for f in ScenarioArrays._fields}, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -664,7 +687,7 @@ class SweepPlan:
             bucket: object = "auto", backend: str | None = None,
             stream_to=None, compact: object = None,
             cost_model: costmodel_mod.CostModel | None = None,
-            report: bool = False, device="cuda") -> "SweepResult":
+            report: bool = False, device="cuda"):
         """Execute the plan and return a labelled :class:`SweepResult`.
 
         ``bucket="auto"`` groups cells into power-of-two padded-shape
@@ -684,9 +707,13 @@ class SweepPlan:
         runs the kernel's control lowering; the choice follows the columns,
         not their values, as in the reference.
 
+        ``report=True`` returns ``(SweepResult, RunReport)``: one
+        :class:`~repro_torch.core.telemetry.BucketReport` per dispatched
+        bucket (per chunk under ``chunk=``) with its ``mr_epoch`` launches
+        and wall time, and the run's totals.  It changes no metric.
+
         Not ported yet, each raising ``NotImplementedError``: ``mesh=``
-        (ROADMAP A8), ``compact=`` (A4), ``stream_to=`` (A3) and
-        ``report=`` (A6).
+        (ROADMAP A8), ``compact=`` (A4) and ``stream_to=`` (A3).
         """
         if mesh is not None:
             raise NotImplementedError(
@@ -699,39 +726,91 @@ class SweepPlan:
             raise NotImplementedError(
                 "run(stream_to=...): the streamed parquet export is the "
                 "rest of ROADMAP slice A3")
-        if report:
-            raise NotImplementedError(
-                "run(report=True): the RunReport is ROADMAP slice A6")
         if chunk is not None and chunk < 1:
             raise ValueError(f"run: chunk must be >= 1, got {chunk}")
         from ..kernels.mr_sched.ops import resolve_backend
         dev = torch.device(device)
         backend = resolve_backend(backend, dev)
+        buckets = None
+        if report:
+            t0, libs0 = time.perf_counter(), _library_loads()
+            buckets = []
         cols, pad_tasks, pad_vms = self._compiled()
         control = bool(_CONTROL_PARAMS & set(cols))
         metrics, n_jobs = _execute_grid(cols, self.size, pad_tasks, pad_vms,
                                         bucket, chunk, backend, cost_model,
-                                        dev, control)
+                                        dev, control, report=buckets)
         shaped = {
             name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
                    else m.reshape(self.shape + (n_jobs,)))
             for name, m in metrics.items()}
-        return SweepResult(axis_names=tuple(d.names for d in self.dims),
-                           axis_labels=tuple(d.labels for d in self.dims),
-                           metrics=shaped, n_jobs=n_jobs)
+        result = SweepResult(axis_names=tuple(d.names for d in self.dims),
+                             axis_labels=tuple(d.labels for d in self.dims),
+                             metrics=shaped, n_jobs=n_jobs)
+        if buckets is None:
+            return result
+        return result, _finish_report(buckets, self.size, backend,
+                                      cost_model, dev, libs0, t0)
+
+
+def _library_loads() -> tuple[int, int]:
+    """``(hits, misses)`` of ``mr_epoch``'s kernel-library cache: launches
+    that found their instantiation bound, and bindings (each loading its
+    library, built with ``nvcc`` first if missing) — the port's
+    counterpart of the reference's compile cache."""
+    from ..kernels.mr_sched.megakernel import _LIB_CACHE
+    return _LIB_CACHE["hits"], _LIB_CACHE["misses"]
+
+
+def _finish_report(buckets, n_cells: int, backend: str, cost, device,
+                   libs0, t0) -> "telemetry.RunReport":
+    """Assemble the :class:`telemetry.RunReport` of one ``run()``."""
+    hits, misses = (a - b for a, b in zip(_library_loads(), libs0))
+    model = cost or costmodel_mod.fallback_cost_model()
+    return telemetry.RunReport(
+        n_cells=n_cells, n_buckets=len(buckets), backend=backend,
+        compact=None, buckets=buckets,
+        compile_cache_hits=hits, compile_cache_misses=misses,
+        # no encoder cache (grid_arrays encodes batch-native every call) and
+        # no compaction (ROADMAP A4): these read 0
+        encoder_cache_hits=0, encoder_cache_misses=0,
+        compaction_syncs=0, scalar_syncs=0,
+        dispatches=sum(b.dispatches for b in buckets),
+        cost_model={"dispatch_us": model.dispatch_us,
+                    "epoch_lane_us": model.epoch_lane_us,
+                    "source": "fallback" if cost is None else "caller"},
+        device=costmodel_mod.device_key(device),
+        provenance=dict(telemetry.provenance()),
+        wall_s=time.perf_counter() - t0)
 
 
 def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
                   pad_vms: int, bucket, chunk, backend, cost, device,
-                  control: bool = False
+                  control: bool = False, report: list | None = None
                   ) -> tuple[dict[str, np.ndarray], int]:
     """Bucket + simulate ``N`` flattened cells; returns ``(metrics,
     n_jobs)`` with per-job columns ``[N, n_jobs]`` and per-scenario ones
-    ``[N]``."""
+    ``[N]``.  ``report`` (a list, appended in place) collects one
+    :class:`telemetry.BucketReport` per dispatched bucket."""
+    from ..kernels.mr_sched.megakernel import total_launches
     groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost)
-    parts = [(idx, *_run_cells(gcols, len(idx), tb, vb, statics, chunk,
-                               backend, device, control))
-             for idx, gcols, statics, tb, vb in groups]
+    parts = []
+    for idx, gcols, statics, tb, vb in groups:
+        w0, l0 = time.perf_counter(), total_launches()
+        parts.append((idx, *_run_cells(gcols, len(idx), tb, vb, statics,
+                                       chunk, backend, device, control)))
+        if report is not None:
+            model = cost or costmodel_mod.fallback_cost_model()
+            report.append(telemetry.BucketReport(
+                cells=len(idx), pad_tasks=tb, pad_vms=vb, backend=backend,
+                control=control, statics=dict(statics or {}),
+                # the modelled lane-epoch saving vs running these cells at
+                # the grid cap, which _bucket_groups weighed against
+                # dispatch_us (None: the bucket is at the cap)
+                split_gain_us=(model.split_gain_us(len(idx), tb, pad_tasks)
+                               if tb < pad_tasks else None),
+                dispatches=total_launches() - l0,
+                wall_s=time.perf_counter() - w0))
     n_jobs = int(parts[0][1]["makespan"].shape[-1])
     metrics: dict[str, np.ndarray] = {}
     for f in JobMetrics._fields:
@@ -1020,6 +1099,24 @@ class SweepResult:
                            else arr.reshape(N))
         return _long_form_columns(self.axis_names, self.axis_labels, shape,
                                   flat, nj, 0, N)
+
+    def to_parquet(self, path) -> None:
+        """Write :meth:`to_table` to a parquet file with the run provenance
+        (port and torch/CUDA versions, device, git sha) in the schema
+        metadata.  Needs the optional ``pyarrow``."""
+        try:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+        except ImportError as e:
+            raise ImportError(
+                "SweepResult.to_parquet needs the optional pyarrow "
+                "dependency; to_table() returns the same columns as plain "
+                "numpy") from e
+        table = pa.table(dict(self.to_table()))
+        table = table.replace_schema_metadata(
+            {**(table.schema.metadata or {}),
+             **telemetry.parquet_metadata()})
+        pq.write_table(table, path)
 
     def __repr__(self) -> str:
         ax = ", ".join(f"{'×'.join(ns)}[{len(labs)}]"

@@ -3,10 +3,13 @@ with ctypes.
 
 Each source under ``*/csrc/`` is compiled on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) for
-``sm_90a``.  Libraries land in ``_build/`` beside this file, named by a hash
-of the source and flags, so an edited source rebuilds and an unchanged one
-loads at once.  ``build()`` starts one ``nvcc`` per missing library, all at
-once, and waits for them.
+``sm_90a``.  A source may give more than one library: ``LIBRARIES`` names
+each library with its source and the macros it is built with (the trace
+instantiations of ``mr_epoch`` are their source built with ``-DMR_TRACE``,
+so the untraced kernels keep their code).  Libraries land in ``_build/``
+beside this file, named by a hash of the source, macros and flags, so an
+edited source rebuilds and an unchanged one loads at once.  ``build()``
+starts one ``nvcc`` per missing library, all at once, and waits for them.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = {
     "mr_epoch": _HERE / "mr_sched" / "csrc" / "mr_epoch.cu",
     "mr_epoch_control": _HERE / "mr_sched" / "csrc" / "mr_epoch_control.cu",
+    "mr_schedule": _HERE / "mr_sched" / "csrc" / "mr_schedule.cu",
+}
+# library -> (source, macros)
+LIBRARIES = {
+    "mr_epoch": ("mr_epoch", ()),
+    "mr_epoch_control": ("mr_epoch_control", ()),
+    "mr_epoch_trace": ("mr_epoch", ("-DMR_TRACE",)),
+    "mr_epoch_control_trace": ("mr_epoch_control", ("-DMR_TRACE",)),
+    "mr_schedule": ("mr_schedule", ()),
 }
 BUILD_DIR = _HERE / "_build"
 # Bitwise parity with the reference needs every float op to round on its
@@ -47,8 +59,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    src, macros = LIBRARIES[name]
+    h = hashlib.sha256(SOURCES[src].read_bytes()
+                       + " ".join(FLAGS + macros).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -60,10 +73,10 @@ def build_log(name: str) -> str:
 
 def build(names=None) -> dict[str, float]:
     """Compile every missing library among ``names`` (default: all), one
-    ``nvcc`` process per source, started together.  Returns the seconds
+    ``nvcc`` process per library, started together.  Returns the seconds
     each build took (0.0 for a library already built).  Raises with the
     compiler's output if a build fails."""
-    names = list(SOURCES) if names is None else list(names)
+    names = list(LIBRARIES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, seconds = {}, {}
     for name in names:
@@ -72,8 +85,9 @@ def build(names=None) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        src, macros = LIBRARIES[name]
         procs[name] = (subprocess.Popen(
-            [nvcc(), *FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [nvcc(), *FLAGS, *macros, "-o", str(tmp), str(SOURCES[src])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())
     for name, (proc, tmp, out, t0) in procs.items():
@@ -89,7 +103,8 @@ def build(names=None) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from source ``name``, built first if missing."""
+    """The library ``name`` (a key of ``LIBRARIES``), built first if
+    missing."""
     if name not in _loaded:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

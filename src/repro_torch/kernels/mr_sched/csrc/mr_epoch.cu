@@ -29,7 +29,27 @@
 // its own, except the two places where the reference's XLA:CPU lowering
 // fuses a multiply into an add (rem - dt * r, and the tie threshold
 // t + 1e-6 * max(t, 1)): those use fmaf, one rounding, as the reference.
+//
+// Built with -DMR_TRACE this source gives the trace instantiation (the
+// trace=True lowering of the same Pallas kernel, megakernel.py:211-213,
+// 236-239, 534-591, plus the event log of the JAX engine's recorder,
+// engine.py:974-1074); without it the code below is the untraced kernel
+// and nothing of the trace is compiled.  Each active epoch writes one
+// 32-byte time-series row (clock, queue depth, busy fraction and open VMs
+// taken on the epoch's opening carry, activity; no failures, sheds or
+// preemptions on the open loop) at the lane's epoch index, and appends its
+// completions, then its starts, in task order, at the lane's cursor: a warp
+// ballot gives each event its slot, a row lands where the slot is below the
+// log's capacity E, and the cursor counts every event.  Rows go straight to
+// global memory; each lane first copies its incoming trace leaves to the
+// outputs, so a resumed call appends to them.
 #include <cuda_runtime.h>
+
+#ifdef MR_TRACE
+#define MR_LAUNCH mr_epoch_trace_launch
+#else
+#define MR_LAUNCH mr_epoch_launch
+#endif
 
 namespace {
 
@@ -68,6 +88,22 @@ struct Params {
   int* n_epochs_out;
   int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
   float big, half_big, eps, tiny;
+#ifdef MR_TRACE
+  const int* vm_valid;
+  const float* ts_in;
+  const float* ev_t_in;
+  const int* ev_kind_in;
+  const int* ev_task_in;
+  const int* ev_vm_in;
+  const int* ev_n_in;
+  float* ts_out;
+  float* ev_t_out;
+  int* ev_kind_out;
+  int* ev_task_out;
+  int* ev_vm_out;
+  int* ev_n_out;
+  int C, E;
+#endif
 };
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes agrees.
@@ -79,6 +115,30 @@ __device__ __forceinline__ float warp_min(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
+
+#ifdef MR_TRACE
+constexpr int kEvStart = 0, kEvFinish = 1;  // telemetry.EV_*
+
+// Append the events of items [0, count) for which on(i) holds, in index
+// order, at the warp-uniform cursor; put(slot, i) writes one row, called
+// only for slots below E.  Returns the advanced cursor.
+template <class On, class Put>
+__device__ __forceinline__ int log_events(int cursor, int count, int E,
+                                          On on, Put put) {
+  const int lane = threadIdx.x & 31;
+  for (int b = 0; b < count; b += 32) {
+    const int i = b + lane;
+    const bool hit = i < count && on(i);
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (hit) {
+      const int slot = cursor + __popc(m & ((1u << lane) - 1u));
+      if (slot < E) put(slot, i);
+    }
+    cursor += __popc(m);
+  }
+  return cursor;
+}
+#endif
 
 __global__ void mr_epoch_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -165,6 +225,18 @@ __global__ void mr_epoch_kernel(const Params p) {
   int lane_ep = p.n_epochs_in[n];
   const float shuffle = p.shuffle[n];
   const bool is_space = p.sched[n] != 0;
+#ifdef MR_TRACE
+  const long rC = n * (long)p.C * 8, rE = n * (long)p.E;
+  for (int i = lane; i < p.C * 8; i += 32) p.ts_out[rC + i] = p.ts_in[rC + i];
+  for (int i = lane; i < p.E; i += 32) {
+    p.ev_t_out[rE + i] = p.ev_t_in[rE + i];
+    p.ev_kind_out[rE + i] = p.ev_kind_in[rE + i];
+    p.ev_task_out[rE + i] = p.ev_task_in[rE + i];
+    p.ev_vm_out[rE + i] = p.ev_vm_in[rE + i];
+  }
+  int ev_n = p.ev_n_in[n];
+  __syncwarp();
+#endif
 
   for (int step = 0; step < p.epoch_limit; ++step) {
     bool unfinished = false;
@@ -180,6 +252,23 @@ __global__ void mr_epoch_kernel(const Params p) {
       vshare[v] = vmips[v] * fminf(1.f, vpes[v] / fmaxf(c, 1.f));
     }
     __syncwarp();
+#ifdef MR_TRACE
+    // the control hook's observables on the opening carry, over the
+    // static lease windows: queue depth, open VMs, busy open VMs
+    int tq = 0, topen = 0, tbusy = 0;
+    for (int t = lane; t < T; t += 32)
+      tq += f_valid[t] && finish[t] >= p.half_big && start[t] >= p.half_big &&
+            ready[t] <= time;
+    for (int v = lane; v < V; v += 32) {
+      const bool open = p.vm_valid[rV + v] != 0 &&
+                        p.vm_start[rV + v] + spin <= time && time < p.vm_stop[rV + v];
+      topen += open;
+      tbusy += open && von[v] > 0.5f;
+    }
+    const float q_d = (float)__reduce_add_sync(kFull, tq);
+    const float n_o = (float)__reduce_add_sync(kFull, topen);
+    const float b_f = (float)__reduce_add_sync(kFull, tbusy) / fmaxf(n_o, 1.f);
+#endif
 
     // next event: completions and lease-gated arrivals
     float lmin = p.big;
@@ -277,6 +366,27 @@ __global__ void mr_epoch_kernel(const Params p) {
         f_run[t] = 1;
       }
     }
+#ifdef MR_TRACE
+    {
+      const float t_new = live ? t_next : time;
+      if (lane == 0 && lane_ep < p.C) {
+        float4* row = reinterpret_cast<float4*>(p.ts_out + rC + (long)lane_ep * 8);
+        row[0] = make_float4(t_new, q_d, b_f, n_o);
+        row[1] = make_float4(1.f, 0.f, 0.f, 0.f);
+      }
+      auto put = [&](int slot, int t, int kind) {
+        p.ev_t_out[rE + slot] = t_next;
+        p.ev_kind_out[rE + slot] = kind;
+        p.ev_task_out[rE + slot] = t;
+        p.ev_vm_out[rE + slot] = tvm[t];
+      };
+      ev_n = log_events(ev_n, T, p.E, [&](int t) { return f_done[t] != 0; },
+                        [&](int s, int t) { put(s, t, kEvFinish); });
+      ev_n = log_events(ev_n, T, p.E,
+                        [&](int t) { return f_el[t] && (!is_space || f_ad[t]); },
+                        [&](int s, int t) { put(s, t, kEvStart); });
+    }
+#endif
     if (live) time = t_next;
     maps_left = maps_left_new;
     ++lane_ep;
@@ -294,23 +404,43 @@ __global__ void mr_epoch_kernel(const Params p) {
     p.time_out[n] = time;
     p.maps_left_out[n] = maps_left;
     p.n_epochs_out[n] = lane_ep;
+#ifdef MR_TRACE
+    p.ev_n_out[n] = ev_n;
+#endif
   }
 }
 
 }  // namespace
 
-extern "C" int mr_epoch_launch(
+// The trace instantiation takes vm_valid after prio, the six trace leaves
+// after each carry, and the capacities C (time-series rows) and E (event
+// rows) after lanes_per_block.
+extern "C" int MR_LAUNCH(
     const int* task_vm, const int* is_red, const int* valid,
     const float* shuffle, const float* vm_mips, const float* vm_pes,
     const int* sched, const float* vm_start, const float* vm_stop,
     const float* spinup, const float* prio,
+#ifdef MR_TRACE
+    const int* vm_valid,
+#endif
     const float* time_in, const float* rem_in, const int* running_in,
     const float* start_in, const float* finish_in, const float* ready_in,
     const int* maps_left_in, const int* n_epochs_in,
+#ifdef MR_TRACE
+    const float* ts_in, const float* ev_t_in, const int* ev_kind_in,
+    const int* ev_task_in, const int* ev_vm_in, const int* ev_n_in,
+#endif
     float* time_out, float* rem_out, int* running_out, float* start_out,
     float* finish_out, float* ready_out, int* maps_left_out,
     int* n_epochs_out,
+#ifdef MR_TRACE
+    float* ts_out, float* ev_t_out, int* ev_kind_out, int* ev_task_out,
+    int* ev_vm_out, int* ev_n_out,
+#endif
     int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+#ifdef MR_TRACE
+    int C, int E,
+#endif
     float big, float half_big, float eps, float tiny, void* stream) {
   Params p{task_vm, is_red, valid, shuffle, vm_mips, vm_pes, sched,
            vm_start, vm_stop, spinup, prio,
@@ -320,6 +450,23 @@ extern "C" int mr_epoch_launch(
            maps_left_out, n_epochs_out,
            N, T, V, max_pes, epoch_limit, lanes_per_block,
            lane_smem_bytes(T, V), big, half_big, eps, tiny};
+#ifdef MR_TRACE
+  p.vm_valid = vm_valid;
+  p.ts_in = ts_in;
+  p.ev_t_in = ev_t_in;
+  p.ev_kind_in = ev_kind_in;
+  p.ev_task_in = ev_task_in;
+  p.ev_vm_in = ev_vm_in;
+  p.ev_n_in = ev_n_in;
+  p.ts_out = ts_out;
+  p.ev_t_out = ev_t_out;
+  p.ev_kind_out = ev_kind_out;
+  p.ev_task_out = ev_task_out;
+  p.ev_vm_out = ev_vm_out;
+  p.ev_n_out = ev_n_out;
+  p.C = C;
+  p.E = E;
+#endif
   const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -34,7 +34,29 @@
 // into an add (rem - dt * r, and the tie threshold t + 1e-6 * max(t, 1)):
 // those use fmaf, one rounding, as the reference.  work_lost sums each
 // epoch's lost work in one fixed order (megakernel.py uses the same).
+//
+// Built with -DMR_TRACE this source gives the control trace instantiation
+// (the trace=True lowering, megakernel.py:534-591, plus the event log of the
+// JAX engine's recorder, engine.py:974-1074); without it nothing of the
+// trace is compiled.  Each active epoch writes one 32-byte time-series row
+// (the new clock; the hook's queue depth, busy fraction and open VMs at the
+// opening clock; activity; this epoch's kills, new sheds and evictions) at
+// the lane's epoch index, and appends its events at the lane's cursor in
+// the reference's order: scale opens and closes per VM at the opening
+// clock, then per task, in index order, completions, kills (at the failure
+// instant), evictions and starts at the epoch's event time, and new sheds at
+// its new clock; a task's VM is its slot at the epoch's start.  A warp
+// ballot gives each event its slot, a row lands where the slot is below the
+// capacity E, and the cursor counts every event.  The flags the log reads
+// after the epoch (killed, newly shed, opened, closed) take 2T + 2V more
+// bytes of shared memory.
 #include <cuda_runtime.h>
+
+#ifdef MR_TRACE
+#define MR_LAUNCH mr_epoch_control_trace_launch
+#else
+#define MR_LAUNCH mr_epoch_control_launch
+#endif
 
 namespace {
 
@@ -101,13 +123,33 @@ struct Params {
   float* work_lost_out;
   int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
   float big, half_big, eps, tiny;
+#ifdef MR_TRACE
+  const float* ts_in;
+  const float* ev_t_in;
+  const int* ev_kind_in;
+  const int* ev_task_in;
+  const int* ev_vm_in;
+  const int* ev_n_in;
+  float* ts_out;
+  float* ev_t_out;
+  int* ev_kind_out;
+  int* ev_task_out;
+  int* ev_vm_out;
+  int* ev_n_out;
+  int C, E;
+#endif
 };
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes(control=
 // True) agrees.  Per task: f32 x 13, i32 x 6, 15 flag bytes; per VM: f32 x
 // 10, i32 x 2 (CSR offsets), 2 flag bytes; plus the two closing offsets.
+// The trace instantiation keeps two more flag bytes per task and per VM.
 __host__ __device__ inline int lane_smem_bytes(int T, int V) {
+#ifdef MR_TRACE
+  return (93 * T + 52 * V + 8 + 15) / 16 * 16;
+#else
   return (91 * T + 50 * V + 8 + 15) / 16 * 16;
+#endif
 }
 
 __device__ __forceinline__ float warp_min(float x) {
@@ -119,6 +161,32 @@ __device__ __forceinline__ int warp_min_int(int x) {
   for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
+
+#ifdef MR_TRACE
+// telemetry.EV_*
+constexpr int kEvStart = 0, kEvFinish = 1, kEvKill = 2, kEvPreempt = 3,
+              kEvShed = 4, kEvScaleOpen = 5, kEvScaleClose = 6;
+
+// Append the events of items [0, count) for which on(i) holds, in index
+// order, at the warp-uniform cursor; put(slot, i) writes one row, called
+// only for slots below E.  Returns the advanced cursor.
+template <class On, class Put>
+__device__ __forceinline__ int log_events(int cursor, int count, int E,
+                                          On on, Put put) {
+  const int lane = threadIdx.x & 31;
+  for (int b = 0; b < count; b += 32) {
+    const int i = b + lane;
+    const bool hit = i < count && on(i);
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (hit) {
+      const int slot = cursor + __popc(m & ((1u << lane) - 1u));
+      if (slot < E) put(slot, i);
+    }
+    cursor += __popc(m);
+  }
+  return cursor;
+}
+#endif
 
 // Sum of x[0..n) in the order of megakernel.py's _sum (XLA:CPU's reduce
 // order): left to right up to 32 terms; longer rows in 32-wide windows, the
@@ -203,6 +271,12 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   unsigned char* f_ev = f_done + T;     // evicted this epoch
   unsigned char* v_valid = f_ev + T;
   unsigned char* v_auto = v_valid + V;
+#ifdef MR_TRACE
+  unsigned char* f_kill = v_auto + V;   // killed by a failure this epoch
+  unsigned char* f_nshed = f_kill + T;  // newly shed this epoch
+  unsigned char* v_opm = f_nshed + T;   // reserve opened this epoch
+  unsigned char* v_clm = v_opm + V;     // reserve closed this epoch
+#endif
 
   const long rT = n * T, rV = n * V;
   const float spin = p.spinup[n];
@@ -302,6 +376,18 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   int lane_ep = p.n_epochs_in[n];
   int n_scale = p.n_scale_in[n];
   float work_lost = p.work_lost_in[n];
+#ifdef MR_TRACE
+  const long rC = n * (long)p.C * 8, rE = n * (long)p.E;
+  for (int i = lane; i < p.C * 8; i += 32) p.ts_out[rC + i] = p.ts_in[rC + i];
+  for (int i = lane; i < p.E; i += 32) {
+    p.ev_t_out[rE + i] = p.ev_t_in[rE + i];
+    p.ev_kind_out[rE + i] = p.ev_kind_in[rE + i];
+    p.ev_task_out[rE + i] = p.ev_task_in[rE + i];
+    p.ev_vm_out[rE + i] = p.ev_vm_in[rE + i];
+  }
+  int ev_n = p.ev_n_in[n];
+  __syncwarp();
+#endif
 
   for (int step = 0; step < p.epoch_limit; ++step) {
     bool unfinished = false;
@@ -349,6 +435,10 @@ __global__ void mr_epoch_control_kernel(const Params p) {
                            time < vclose[v] && vunfin[v] < 0.5f;
       if (open_m) vopen[v] = time;
       if (close_m) vclose[v] = time;
+#ifdef MR_TRACE
+      v_opm[v] = open_m;
+      v_clm[v] = close_m;
+#endif
       scaled += open_m + close_m;
     }
     n_scale += __reduce_add_sync(kFull, scaled);
@@ -447,6 +537,9 @@ __global__ void mr_epoch_control_kernel(const Params p) {
       }
       lostf[t] = lost;
       lost_any |= lost != 0.f;
+#ifdef MR_TRACE
+      f_kill[t] = aff;
+#endif
       const bool e = live && f_ns[t] && elig[t] <= thr && t_next < close_t &&
                      !(t_next >= ft && t_next < rt) && !f_shedt[t];
       f_el[t] = e;
@@ -544,9 +637,54 @@ __global__ void mr_epoch_control_kernel(const Params p) {
       work_lost = __shfl_sync(kFull, work_lost, 0);
     }
     // a shed map dooms the lane's reduces (one job per lane): mark them
-    for (int t = lane; t < T; t += 32)
-      f_shed[t] = f_shedt[t] || (f_valid[t] && f_red[t] && map_shed &&
-                                 finish[t] >= p.half_big && !f_run[t]);
+    for (int t = lane; t < T; t += 32) {
+      const bool shed = f_shedt[t] || (f_valid[t] && f_red[t] && map_shed &&
+                                       finish[t] >= p.half_big && !f_run[t]);
+#ifdef MR_TRACE
+      f_nshed[t] = shed && !f_shed[t];
+#endif
+      f_shed[t] = shed;
+    }
+#ifdef MR_TRACE
+    {
+      const float t_new = live ? t_next : time;
+      auto put = [&](int slot, float at, int kind, int task, int vm) {
+        p.ev_t_out[rE + slot] = at;
+        p.ev_kind_out[rE + slot] = kind;
+        p.ev_task_out[rE + slot] = task;
+        p.ev_vm_out[rE + slot] = vm;
+      };
+      int c = log_events(ev_n, V, p.E, [&](int v) { return v_opm[v] != 0; },
+                         [&](int s, int v) { put(s, time, kEvScaleOpen, -1, v); });
+      c = log_events(c, V, p.E, [&](int v) { return v_clm[v] != 0; },
+                     [&](int s, int v) { put(s, time, kEvScaleClose, -1, v); });
+      c = log_events(c, T, p.E, [&](int t) { return f_done[t] != 0; },
+                     [&](int s, int t) { put(s, t_next, kEvFinish, t, cvm[t]); });
+      const int c_kill = c;
+      c = log_events(c, T, p.E, [&](int t) { return f_kill[t] != 0; },
+                     [&](int s, int t) {
+                       const int v = cvm[t];
+                       put(s, v >= 0 && v < V ? vfail[v] : 0.f, kEvKill, t, v);
+                     });
+      const int n_kill = c - c_kill;
+      c = log_events(c, T, p.E, [&](int t) { return f_ev[t] != 0; },
+                     [&](int s, int t) { put(s, t_next, kEvPreempt, t, cvm[t]); });
+      const int n_evict = c - c_kill - n_kill;
+      c = log_events(c, T, p.E,
+                     [&](int t) { return f_el[t] && (!is_space || f_ad[t]); },
+                     [&](int s, int t) { put(s, t_next, kEvStart, t, cvm[t]); });
+      const int c_shed = c;
+      c = log_events(c, T, p.E, [&](int t) { return f_nshed[t] != 0; },
+                     [&](int s, int t) { put(s, t_new, kEvShed, t, cvm[t]); });
+      const int n_shed = c - c_shed;
+      ev_n = c;
+      if (lane == 0 && lane_ep < p.C) {
+        float4* row = reinterpret_cast<float4*>(p.ts_out + rC + (long)lane_ep * 8);
+        row[0] = make_float4(t_new, (float)q, busy_frac, (float)n_open);
+        row[1] = make_float4(1.f, (float)n_kill, (float)n_shed, (float)n_evict);
+      }
+    }
+#endif
     if (live) time = t_next;
     maps_left = maps_left_new;
     ++lane_ep;
@@ -573,12 +711,18 @@ __global__ void mr_epoch_control_kernel(const Params p) {
     p.n_epochs_out[n] = lane_ep;
     p.n_scale_out[n] = n_scale;
     p.work_lost_out[n] = work_lost;
+#ifdef MR_TRACE
+    p.ev_n_out[n] = ev_n;
+#endif
   }
 }
 
 }  // namespace
 
-extern "C" int mr_epoch_control_launch(
+// The trace instantiation takes the six trace leaves after each carry and
+// the capacities C (time-series rows) and E (event rows) after
+// lanes_per_block.
+extern "C" int MR_LAUNCH(
     const float* task_len, const int* task_vm, const int* is_red,
     const int* valid, const float* shuffle, const float* vm_mips,
     const float* vm_pes, const int* sched, const float* spinup,
@@ -593,11 +737,22 @@ extern "C" int mr_epoch_control_launch(
     const int* maps_left_in, const int* n_epochs_in, const int* hit_in,
     const float* vm_open_in, const float* vm_close_in, const int* n_scale_in,
     const int* shed_in, const int* n_evict_in, const float* work_lost_in,
+#ifdef MR_TRACE
+    const float* ts_in, const float* ev_t_in, const int* ev_kind_in,
+    const int* ev_task_in, const int* ev_vm_in, const int* ev_n_in,
+#endif
     float* time_out, float* rem_out, int* running_out, float* start_out,
     float* finish_out, float* ready_out, int* maps_left_out,
     int* n_epochs_out, int* hit_out, float* vm_open_out, float* vm_close_out,
     int* n_scale_out, int* shed_out, int* n_evict_out, float* work_lost_out,
+#ifdef MR_TRACE
+    float* ts_out, float* ev_t_out, int* ev_kind_out, int* ev_task_out,
+    int* ev_vm_out, int* ev_n_out,
+#endif
     int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+#ifdef MR_TRACE
+    int C, int E,
+#endif
     float big, float half_big, float eps, float tiny, void* stream) {
   Params p{task_len, task_vm, is_red, valid, shuffle, vm_mips, vm_pes, sched,
            spinup, prio, vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy,
@@ -611,6 +766,22 @@ extern "C" int mr_epoch_control_launch(
            n_scale_out, shed_out, n_evict_out, work_lost_out,
            N, T, V, max_pes, epoch_limit, lanes_per_block,
            lane_smem_bytes(T, V), big, half_big, eps, tiny};
+#ifdef MR_TRACE
+  p.ts_in = ts_in;
+  p.ev_t_in = ev_t_in;
+  p.ev_kind_in = ev_kind_in;
+  p.ev_task_in = ev_task_in;
+  p.ev_vm_in = ev_vm_in;
+  p.ev_n_in = ev_n_in;
+  p.ts_out = ts_out;
+  p.ev_t_out = ev_t_out;
+  p.ev_kind_out = ev_kind_out;
+  p.ev_task_out = ev_task_out;
+  p.ev_vm_out = ev_vm_out;
+  p.ev_n_out = ev_n_out;
+  p.C = C;
+  p.E = E;
+#endif
   const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

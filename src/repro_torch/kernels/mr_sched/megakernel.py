@@ -27,9 +27,11 @@ Two forms, one op sequence:
   (a float sum over tasks, ROADMAP C5).
 * :func:`mr_epoch` — the wrapper: a CUDA tensor launches the hand-written
   kernel of its instantiation, ``csrc/mr_epoch.cu`` or
-  ``csrc/mr_epoch_control.cu`` (built for ``sm_90a`` at first use), a CPU
-  tensor takes the plain version.  ``mr_epoch.launches`` and
-  ``mr_epoch.control_launches`` count their launches.
+  ``csrc/mr_epoch_control.cu``, each built for ``sm_90a`` at first use and
+  again with ``-DMR_TRACE`` for its trace instantiation; a CPU tensor takes
+  the plain version.  ``mr_epoch.launches``, ``control_launches``,
+  ``trace_launches`` and ``control_trace_launches`` count the four
+  instantiations' launches.
 
 Lanes are independent, so the TPU kernel's per-tile ``while_loop`` becomes
 a per-lane loop: each lane stops at its own end, its per-lane ``n_epochs``
@@ -46,7 +48,10 @@ import numpy as np
 import torch
 
 from ...core.control import earliest_finish
-from ...core.engine import _bound_terms, _sum
+from ...core.engine import _bound_terms, _sum, _trace_caps
+from ...core.telemetry import (EV_FINISH, EV_KILL, EV_PREEMPT,
+                               EV_SCALE_CLOSE, EV_SCALE_OPEN, EV_SHED,
+                               EV_START, N_TS_COLS)
 from ...core.util import fma32
 
 _BIG = 1e30
@@ -59,10 +64,19 @@ STATE_LEAVES = ("time", "rem", "running", "start", "finish", "ready",
 STATE_LEAVES_CONTROL = STATE_LEAVES + ("hit", "vm_open", "vm_close",
                                        "n_scale", "shed", "n_evict",
                                        "work_lost")
+# the trace lowering's leaves, appended after either carry
+TRACE_LEAVES = ("ts", "ev_t", "ev_kind", "ev_task", "ev_vm", "ev_n")
+
+
+def state_leaves(control: bool = False, trace: bool = False) -> tuple:
+    """The carry's leaf names of one instantiation."""
+    return ((STATE_LEAVES_CONTROL if control else STATE_LEAVES)
+            + (TRACE_LEAVES if trace else ()))
 
 
 def initial_state(task_len, ready0, is_red, valid, vm_start=None,
-                  vm_stop=None, vm_auto=None):
+                  vm_stop=None, vm_auto=None, trace_capacity=None,
+                  event_capacity=None):
     """The t=0 carry: ``(time (N,1) f32, rem (N,T) f32, running (N,T) i32,
     start (N,T) f32, finish (N,T) f32, ready (N,T) f32, maps_left (N,1)
     i32, n_epochs (N,1) i32)`` — the JAX package's ``initial_state``.
@@ -70,7 +84,13 @@ def initial_state(task_len, ready0, is_red, valid, vm_start=None,
     Passing ``vm_auto`` (with ``vm_start``/``vm_stop``) appends the seven
     control leaves: ``hit (N,T) i32, vm_open (N,V) f32, vm_close (N,V)
     f32, n_scale (N,1) i32, shed (N,T) i32, n_evict (N,T) i32, work_lost
-    (N,1) f32``; reserve VMs start unopened (``vm_open = 1e30``)."""
+    (N,1) f32``; reserve VMs start unopened (``vm_open = 1e30``).
+
+    ``trace_capacity`` ``C`` and ``event_capacity`` ``E`` (both or
+    neither) append the six trace leaves: ``ts (N,C*8) f32`` zeros,
+    ``ev_t (N,E) f32`` zeros, ``ev_kind``/``ev_task``/``ev_vm (N,E) i32``
+    filled with -1 and ``ev_n (N,1) i32`` zero — the JAX engine's initial
+    recorder leaves."""
     N, T = task_len.shape
     dev = task_len.device
     maps = ((valid != 0) & ~(is_red != 0)).sum(dim=1, keepdim=True,
@@ -83,17 +103,29 @@ def initial_state(task_len, ready0, is_red, valid, vm_start=None,
             ready0.clone(),
             maps,
             torch.zeros((N, 1), dtype=I32, device=dev))
-    if vm_auto is None:
-        return base
-    return base + (
-        torch.zeros((N, T), dtype=I32, device=dev),
-        torch.where(vm_auto != 0, torch.full_like(vm_start, _BIG, dtype=F32),
-                    vm_start.to(F32)),
-        vm_stop.to(F32).clone(),
-        torch.zeros((N, 1), dtype=I32, device=dev),
-        torch.zeros((N, T), dtype=I32, device=dev),
-        torch.zeros((N, T), dtype=I32, device=dev),
-        torch.zeros((N, 1), dtype=F32, device=dev))
+    if vm_auto is not None:
+        base = base + (
+            torch.zeros((N, T), dtype=I32, device=dev),
+            torch.where(vm_auto != 0,
+                        torch.full_like(vm_start, _BIG, dtype=F32),
+                        vm_start.to(F32)),
+            vm_stop.to(F32).clone(),
+            torch.zeros((N, 1), dtype=I32, device=dev),
+            torch.zeros((N, T), dtype=I32, device=dev),
+            torch.zeros((N, T), dtype=I32, device=dev),
+            torch.zeros((N, 1), dtype=F32, device=dev))
+    if (trace_capacity is None) != (event_capacity is None):
+        raise ValueError("initial_state: give trace_capacity and "
+                         "event_capacity together")
+    if trace_capacity is not None:
+        C, E = int(trace_capacity), int(event_capacity)
+        base = base + (
+            torch.zeros((N, C * N_TS_COLS), dtype=F32, device=dev),
+            torch.zeros((N, E), dtype=F32, device=dev),
+            *(torch.full((N, E), -1, dtype=I32, device=dev)
+              for _ in range(3)),
+            torch.zeros((N, 1), dtype=I32, device=dev))
+    return base
 
 
 def default_epoch_limit(T: int, V: int, control: bool) -> int:
@@ -102,11 +134,14 @@ def default_epoch_limit(T: int, V: int, control: bool) -> int:
     return 7 * T + V + 3 if control else 2 * T + 2
 
 
-def _check_control(control: bool, ctl) -> None:
+def _check_control(control: bool, ctl, trace: bool = False) -> None:
     if control and any(x is None for x in ctl):
         raise ValueError("mr_epoch: control=True needs all fifteen control "
                          "lane-data tensors (vm_valid .. preempt_resume)")
-    if not control and any(x is not None for x in ctl):
+    if not control and trace and ctl[0] is None:
+        raise ValueError("mr_epoch: an open-loop trace needs vm_valid (the "
+                         "open-VM observable)")
+    if not control and any(x is not None for x in ctl[int(trace):]):
         raise ValueError("mr_epoch: control lane data given with "
                          "control=False")
 
@@ -119,7 +154,8 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
                    refetch=None, task_deadline=None, dl_policy=None,
                    dl_slack=None, preempt=None, preempt_resume=None,
                    state=None, *, max_pes: int = 8,
-                   epoch_limit: int | None = None, control: bool = False):
+                   epoch_limit: int | None = None, control: bool = False,
+                   trace: bool = False):
     """Plain PyTorch ``mr_epoch``; arguments and result as :func:`mr_epoch`.
 
     A transcription of the TPU kernel's op sequence on batched tensors:
@@ -128,18 +164,29 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
     carry update is gated on its lane still being active, so a lane stops
     at its own end whatever its batch mates do (ROADMAP C6); on the open
     loop a finished lane is a fixed point and the gate changes no bit.
+
+    Under ``trace`` each active epoch writes its time-series row at the
+    lane's epoch index (the Pallas trace lowering's rows) and appends its
+    events at the lane's cursor in the JAX engine recorder's order: scale
+    opens and closes (per VM), then completions, kills, evictions, starts
+    and new sheds (per task, in index order).  A row lands only where the
+    cursor is below the log's capacity; ``ev_n`` counts every event.  The
+    reference adds each row through a one-hot product; a direct store is
+    the same bits because every slot is written at most once with a
+    finite value that is never ``-0.0``.
     """
     ctl = (vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy, ctl_queue,
            ctl_busy, redispatch, task_vm2, refetch, task_deadline,
            dl_policy, dl_slack, preempt, preempt_resume)
-    _check_control(control, ctl)
+    _check_control(control, ctl, trace)
     N, T = task_vm.shape
     V = vm_mips.shape[1]
     dev = task_vm.device
     if state is None:
+        caps = _trace_caps(T, V, control, trace, None) or (None, None)
         state = initial_state(task_len, ready0, is_red, valid, vm_start,
-                              vm_stop, vm_auto if control else None)
-    n_leaves = len(STATE_LEAVES_CONTROL if control else STATE_LEAVES)
+                              vm_stop, vm_auto if control else None, *caps)
+    n_leaves = len(state_leaves(control, trace))
     if len(state) != n_leaves:
         raise ValueError(f"mr_epoch: state must have {n_leaves} leaves, got "
                          f"{len(state)}")
@@ -211,17 +258,36 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
             return unfin.any(dim=1)
         return (unfin & ~c[11]).any(dim=1) & (lane_ep < bound)
 
+    if trace:
+        nb = n_leaves - len(TRACE_LEAVES)
+        ts = state[nb].reshape(N, -1, N_TS_COLS).clone()
+        ev = [x.clone() for x in state[nb + 1:nb + 5]]
+        ev_n = state[nb + 5][:, 0].clone()
+        if not control:
+            open_at = vm_start + spinup       # each VM's admission opening
+            vm_on = vm_valid != 0
+
     active = active_lanes(carry)
     n = 0
     while n < epoch_limit and bool(active.any()):
         time, rem, running, start, finish, ready, maps_left = carry[:7]
         runf = running.to(F32)
+        if trace and not control:
+            # the observables of the control hook on the opening carry,
+            # over the static lease windows
+            q_d = count(valid & (finish >= _BIG / 2) & (start >= _BIG / 2)
+                        & (ready <= time[:, None]))
+            open_v = vm_on & (open_at <= time[:, None]) \
+                & (time[:, None] < vm_stop)
+            n_o = count(open_v)
+            b_f = count(open_v & (per_vm_sum(runf) > 0.5)) \
+                / torch.clamp(n_o, min=1.0)
         if control:
             hit, vm_open, vm_close, n_scale, shed0, n_evict0, work_lost = \
                 carry[7:]
             # every per-VM quantity reads each task's current slot
-            in_range, vm_idx, onehot = slot(torch.where(hit, task_vm2,
-                                                        task_vm))
+            cur_vm = torch.where(hit, task_vm2, task_vm)
+            in_range, vm_idx, onehot = slot(cur_vm)
             onehot_f = onehot.to(F32)
             task_pes = to_task(vm_pes)
             f_t, r_t, mips_t = (to_task(vm_fail), to_task(vm_restore),
@@ -417,6 +483,30 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
                              & (finish >= _BIG / 2) & ~running)
             new += [hit, vm_open, vm_close, n_scale, shed, n_evict,
                     work_lost]
+        if trace:
+            t_open, t_new = carry[0], new[0]
+            if control:
+                new_shed = shed & ~shed0
+                vals = (qdepth, busy_frac, n_open, count(affected),
+                        count(new_shed), count(evicted))
+                tv = lambda x: x[:, None].expand(N, V)         # noqa: E731
+                tt = lambda x: x[:, None].expand(N, T)         # noqa: E731
+                log = ((open_mask, tv(t_open), EV_SCALE_OPEN, None),
+                       (close_mask, tv(t_open), EV_SCALE_CLOSE, None),
+                       (done_now, tt(t_next), EV_FINISH, cur_vm),
+                       (affected, f_t, EV_KILL, cur_vm),
+                       (evicted, tt(t_next), EV_PREEMPT, cur_vm),
+                       (start_now, tt(t_next), EV_START, cur_vm),
+                       (new_shed, tt(t_new), EV_SHED, cur_vm))
+            else:
+                zero = torch.zeros_like(q_d)
+                vals = (q_d, b_f, n_o, zero, zero, zero)
+                log = ((done_now, t_next[:, None].expand(N, T), EV_FINISH,
+                        task_vm),
+                       (start_now, t_next[:, None].expand(N, T), EV_START,
+                        task_vm))
+            ev_n = _record(ts, ev, ev_n, active, lane_ep, t_new, vals, log,
+                           vidx, idx)
         carry = [torch.where(active if x.dim() == 1 else active[:, None],
                              x, old) for x, old in zip(new, carry)]
         lane_ep = lane_ep + active.to(I32)
@@ -427,7 +517,39 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
     if control:
         out += [carry[7].to(I32), carry[8], carry[9], carry[10][:, None],
                 carry[11].to(I32), carry[12], carry[13][:, None]]
+    if trace:
+        out += [ts.reshape(N, -1), *ev, ev_n[:, None]]
     return tuple(x.contiguous() for x in out)
+
+
+def _record(ts, ev, ev_n, active, lane_ep, t_new, vals, log, vidx, idx):
+    """Write one epoch's trace in place: the time-series row of each
+    active lane at its epoch index (below the capacity), and each active
+    lane's events at its cursor in ``log`` order, ``(mask, t, kind, vm)``
+    per group (``vm=None``: a per-VM group, whose task is -1).  Returns the
+    advanced cursor, which counts the events that did not fit too."""
+    N, C, _ = ts.shape
+    E = ev[0].shape[1]
+    one = torch.ones_like(t_new)
+    rows = (active & (lane_ep < C)).nonzero()[:, 0]
+    row = torch.stack((t_new, *vals[:3], one, *vals[3:]), dim=1)
+    ts[rows, lane_ep[rows].long()] = row[rows]
+    mask = torch.cat([m for m, *_ in log], dim=1) & active[:, None]
+    t_all = torch.cat([t for _, t, _, _ in log], dim=1)
+    kind = torch.cat([torch.full_like(m, k, dtype=I32) for m, _, k, _ in log],
+                     dim=1)
+    task = torch.cat([(torch.full_like(m, -1, dtype=I32) if vm is None
+                       else idx.expand_as(m).to(I32)) for m, _, _, vm in log],
+                     dim=1)
+    vm = torch.cat([(vidx.expand_as(m) if v is None else v).to(I32)
+                    for m, _, _, v in log], dim=1)
+    mi = mask.long()
+    pos = ev_n[:, None].long() + torch.cumsum(mi, dim=1) - mi
+    lane, k = (mask & (pos < E)).nonzero(as_tuple=True)
+    slot = pos[lane, k]
+    for buf, src in zip(ev, (t_all, kind, task, vm)):
+        buf[lane, slot] = src[lane, k]
+    return ev_n + mask.sum(dim=1, dtype=I32)
 
 
 # ---------------------------------------------------------------------------
@@ -464,41 +586,69 @@ _STATE_SPEC_CONTROL = _STATE_SPEC + (
     ("vm_close", F32, _SPEC_V), ("n_scale", I32, _SPEC_1),
     ("shed", I32, _SPEC_T), ("n_evict", I32, _SPEC_T),
     ("work_lost", F32, _SPEC_1))
+# an open-loop trace reads vm_valid (the open-VM observable) as one more
+# lane input, as the Pallas kernel does; under control it is lane data
+_SPEC_TS, _SPEC_E = "C8", "E"
+_TRACE_SPEC = (("ts", F32, _SPEC_TS), ("ev_t", F32, _SPEC_E),
+               ("ev_kind", I32, _SPEC_E), ("ev_task", I32, _SPEC_E),
+               ("ev_vm", I32, _SPEC_E), ("ev_n", I32, _SPEC_1))
 
 
-def _check(name, x, dtype, shape, device):
+def _check(name, x, dtype, shape, device, kernel="mr_epoch"):
+    """Raise unless ``x`` is a contiguous tensor of this dtype and shape on
+    the batch's device (a kernel reads raw pointers)."""
     if not isinstance(x, torch.Tensor):
-        raise TypeError(f"mr_epoch: {name} must be a tensor")
+        raise TypeError(f"{kernel}: {name} must be a tensor")
     if x.device != device:
-        raise ValueError(f"mr_epoch: {name} is on {x.device}, the batch on "
+        raise ValueError(f"{kernel}: {name} is on {x.device}, the batch on "
                          f"{device}")
     if x.dtype != dtype:
-        raise TypeError(f"mr_epoch: {name} must be {dtype}, got {x.dtype}")
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
-        raise ValueError(f"mr_epoch: {name} must have shape {shape}, got "
+        raise ValueError(f"{kernel}: {name} must have shape {shape}, got "
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"mr_epoch: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-_LIBS: dict[bool, ctypes.CDLL] = {}
+_LIBS: dict[tuple[bool, bool], ctypes.CDLL] = {}
+# launches that found their instantiation's library bound, and bindings
+# (each loading the library, built with nvcc first if missing)
+_LIB_CACHE = {"hits": 0, "misses": 0}
 
 
-def _lib(control: bool):
+def instantiation(control: bool, trace: bool) -> str:
+    """The kernel library (``_build.LIBRARIES`` key) of an instantiation."""
+    return "mr_epoch" + ("_control" if control else "") \
+        + ("_trace" if trace else "")
+
+
+def _specs(control: bool, trace: bool):
+    """``(lane-data spec, state spec)`` of an instantiation, C order."""
+    lane = _LANE_DATA_CONTROL if control else _LANE_DATA
+    if trace and not control:
+        lane = lane + (("vm_valid", I32, _SPEC_V),)
+    state = _STATE_SPEC_CONTROL if control else _STATE_SPEC
+    return lane, state + (_TRACE_SPEC if trace else ())
+
+
+def _lib(control: bool, trace: bool = False):
     """The built kernel library of one instantiation, its C signature
     declared."""
-    if control not in _LIBS:
+    key = (control, trace)
+    _LIB_CACHE["hits" if key in _LIBS else "misses"] += 1
+    if key not in _LIBS:
         from .. import _build
-        name = "mr_epoch_control" if control else "mr_epoch"
+        name = instantiation(control, trace)
         lib = _build.load(name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        n_ptr = len(_LANE_DATA_CONTROL if control else _LANE_DATA) \
-            + 2 * len(_STATE_SPEC_CONTROL if control else _STATE_SPEC)
+        lane, state = _specs(control, trace)
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [p] * n_ptr + [i] * 6 + [f] * 4 + [p]
+        fn.argtypes = [p] * (len(lane) + 2 * len(state)) \
+            + [i] * (8 if trace else 6) + [f] * 4 + [p]
         fn.restype = ctypes.c_int
-        _LIBS[control] = fn
-    return _LIBS[control]
+        _LIBS[key] = fn
+    return _LIBS[key]
 
 
 def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
@@ -509,7 +659,7 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
              task_deadline=None, dl_policy=None, dl_slack=None,
              preempt=None, preempt_resume=None, state=None, *,
              max_pes: int = 8, epoch_limit: int | None = None,
-             control: bool = False):
+             control: bool = False, trace: bool = False):
     """Advance every lane through its event epochs (the JAX ``mr_epoch``
     signature).
 
@@ -525,16 +675,22 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
     f32, ``task_vm2`` ``(N,T)`` i32, ``refetch``/``task_deadline``
     ``(N,T)`` f32.
 
+    ``trace=True`` appends the six trace leaves to the carry (see
+    :func:`initial_state`); an open-loop trace takes ``vm_valid`` ``(N,V)``
+    i32 as its one control tensor.
+
     ``state`` is a carry in :func:`initial_state` layout, 8 leaves or 15
-    under control (default: the t=0 state, which reads ``task_len``/
-    ``ready0``; on resume ``ready0`` may be ``None``).  ``max_pes`` must
-    cover the largest per-VM PE count; ``epoch_limit`` caps this call's
-    epochs (default :func:`default_epoch_limit`: to the end).  Each lane
-    stops at its own end.  Returns the advanced carry.
+    under control, 6 more under trace (default: the t=0 state with the
+    default capacities, which reads ``task_len``/``ready0``; on resume
+    ``ready0`` may be ``None``).  ``max_pes`` must cover the largest per-VM
+    PE count; ``epoch_limit`` caps this call's epochs (default
+    :func:`default_epoch_limit`: to the end).  Each lane stops at its own
+    end.  Returns the advanced carry.
 
     CUDA tensors launch the kernel of the instantiation (or raise); CPU
-    tensors take :func:`mr_epoch_plain`.  ``mr_epoch.launches`` and
-    ``mr_epoch.control_launches`` count the two instantiations' launches.
+    tensors take :func:`mr_epoch_plain`.  ``mr_epoch.launches``,
+    ``control_launches``, ``trace_launches`` and ``control_trace_launches``
+    count the four instantiations' launches.
     """
     ctl = (vm_valid, vm_fail, vm_restore, vm_auto, ctl_policy, ctl_queue,
            ctl_busy, redispatch, task_vm2, refetch, task_deadline,
@@ -544,10 +700,11 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
                               shuffle, vm_mips, vm_pes, sched_policy,
                               vm_start, vm_stop, spinup, prio, *ctl,
                               state=state, max_pes=max_pes,
-                              epoch_limit=epoch_limit, control=control)
+                              epoch_limit=epoch_limit, control=control,
+                              trace=trace)
     if task_vm.device.type != "cuda":
         raise ValueError(f"mr_epoch: no kernel for device {task_vm.device}")
-    _check_control(control, ctl)
+    _check_control(control, ctl, trace)
     N, T = task_vm.shape
     V = vm_mips.shape[1]
     dev = task_vm.device
@@ -556,25 +713,31 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
         _check("ready0", ready0, F32, (N, T), dev)
         _check("vm_start", vm_start, F32, (N, V), dev)
         _check("vm_stop", vm_stop, F32, (N, V), dev)
+        caps = _trace_caps(T, V, control, trace, None) or (None, None)
         state = initial_state(task_len, ready0, is_red, valid, vm_start,
-                              vm_stop, vm_auto if control else None)
+                              vm_stop, vm_auto if control else None, *caps)
     if epoch_limit is None:
         epoch_limit = default_epoch_limit(T, V, control)
-    state_spec = _STATE_SPEC_CONTROL if control else _STATE_SPEC
+    spec, state_spec = _specs(control, trace)
     if len(state) != len(state_spec):
         raise ValueError(f"mr_epoch: state must have {len(state_spec)} "
                          f"leaves, got {len(state)}")
     if max_pes < 0 or epoch_limit < 0:
         raise ValueError("mr_epoch: max_pes and epoch_limit must be >= 0")
     width = {_SPEC_T: T, _SPEC_1: 1, _SPEC_V: V}
+    caps = ()
+    if trace:
+        ts, ev_t = state[-len(_TRACE_SPEC)], state[-len(_TRACE_SPEC) + 1]
+        C, E = ts.shape[-1] // N_TS_COLS, ev_t.shape[-1]
+        width.update({_SPEC_TS: C * N_TS_COLS, _SPEC_E: E})
+        caps = (C, E)
     if control:
-        spec = _LANE_DATA_CONTROL
         data = (task_len, task_vm, is_red, valid, shuffle, vm_mips, vm_pes,
                 sched_policy, spinup, prio, *ctl)
     else:
-        spec = _LANE_DATA
         data = (task_vm, is_red, valid, shuffle, vm_mips, vm_pes,
-                sched_policy, vm_start, vm_stop, spinup, prio)
+                sched_policy, vm_start, vm_stop, spinup, prio,
+                *ctl[:int(trace)])
     for (name, dtype, w), x in zip(spec, data):
         _check(name, x, dtype, (N, width[w]), dev)
     for (name, dtype, w), x in zip(state_spec, state):
@@ -582,44 +745,58 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
     out = tuple(torch.empty_like(x) for x in state)
     if N == 0:
         return out
-    launch = _lib(control)
+    launch = _lib(control, trace)
     f32 = np.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             *(x.data_ptr() for x in data), *(x.data_ptr() for x in state),
             *(x.data_ptr() for x in out), N, T, V, int(max_pes),
-            int(epoch_limit), _lanes_per_block(T, V, control),
+            int(epoch_limit), _lanes_per_block(T, V, control, trace), *caps,
             float(f32(_BIG)), float(f32(_BIG / 2)), float(f32(_TIME_EPS)),
             float(f32(1e-30)), stream)
     if err != 0:
         raise RuntimeError(f"mr_epoch: kernel launch failed with CUDA error "
                            f"{err}")
-    if control:
-        mr_epoch.control_launches += 1
-    else:
-        mr_epoch.launches += 1
+    counter = ("control_" if control else "") \
+        + ("trace_" if trace else "") + "launches"
+    setattr(mr_epoch, counter, getattr(mr_epoch, counter) + 1)
     return out
 
 
 mr_epoch.launches = 0
 mr_epoch.control_launches = 0
+mr_epoch.trace_launches = 0
+mr_epoch.control_trace_launches = 0
+LAUNCH_COUNTERS = ("launches", "control_launches", "trace_launches",
+                   "control_trace_launches")
+
+
+def total_launches() -> int:
+    """Launches of every ``mr_epoch`` instantiation so far."""
+    return sum(getattr(mr_epoch, c) for c in LAUNCH_COUNTERS)
 
 # shared memory one lane (one warp) of the kernel holds: bytes per task and
-# per VM (f32 arrays, i32 arrays, flag bytes), plus fixed bytes
-_LANE_BYTES = {False: (11 * 4 + 2 * 4 + 8, 4 * 4 + 4, 4),
-               True: (13 * 4 + 6 * 4 + 15, 10 * 4 + 2 * 4 + 2, 8)}
+# per VM (f32 arrays, i32 arrays, flag bytes), plus fixed bytes; the control
+# trace instantiation keeps two more flags per task (killed, newly shed) and
+# per VM (opened, closed)
+_LANE_BYTES = {(False, False): (11 * 4 + 2 * 4 + 8, 4 * 4 + 4, 4),
+               (True, False): (13 * 4 + 6 * 4 + 15, 10 * 4 + 2 * 4 + 2, 8)}
+_LANE_BYTES[(False, True)] = _LANE_BYTES[(False, False)]
+_LANE_BYTES[(True, True)] = (13 * 4 + 6 * 4 + 17, 10 * 4 + 2 * 4 + 4, 8)
 _SMEM_LIMIT = 200 * 1024
 
 
-def lane_smem_bytes(T: int, V: int, control: bool = False) -> int:
+def lane_smem_bytes(T: int, V: int, control: bool = False,
+                    trace: bool = False) -> int:
     """Bytes of shared memory one lane of the kernel keeps (16-aligned)."""
-    per_t, per_v, fixed = _LANE_BYTES[control]
+    per_t, per_v, fixed = _LANE_BYTES[(control, trace)]
     return (per_t * T + per_v * V + fixed + 15) // 16 * 16
 
 
-def _lanes_per_block(T: int, V: int, control: bool = False) -> int:
-    per_lane = lane_smem_bytes(T, V, control)
+def _lanes_per_block(T: int, V: int, control: bool = False,
+                     trace: bool = False) -> int:
+    per_lane = lane_smem_bytes(T, V, control, trace)
     if per_lane > _SMEM_LIMIT:
         raise ValueError(f"mr_epoch: T={T}, V={V} needs {per_lane} bytes of "
                          "shared memory per lane, above the kernel's limit")

@@ -1,9 +1,15 @@
-"""Wrappers: ScenarioArrays (J=1) -> ``mr_epoch`` inputs -> SimOutput.
+"""Wrappers: ScenarioArrays (J=1) -> kernel inputs -> schedules.
 
 The derived per-task quantities (task lengths, stage-in readiness with the
 storage fetch delay, shuffle delays, and under control each task's failover
 VM with its re-replication fetch) are plain tensor ops, O(N·T), in the
-reference's exact op sequence; the event loop runs in ``mr_epoch``.
+reference's exact op sequence; the event loop runs in a kernel:
+
+* :func:`schedule` — ``mr_schedule`` (fixed ``2T + 2`` epochs, no lease
+  windows, no priorities), returns ``(start, finish)``;
+* :func:`epoch_schedule` / :func:`epoch_trace` — ``mr_epoch``, returns a
+  :class:`~repro_torch.core.engine.SimOutput` (and under trace the time
+  series, or the whole :class:`~repro_torch.core.telemetry.TraceBuffers`).
 """
 from __future__ import annotations
 
@@ -11,8 +17,11 @@ import torch
 
 from ...core import network, storage
 from ...core.control import failover_targets
-from ...core.engine import ScenarioArrays, SimOutput, _sim_output
-from .megakernel import mr_epoch, mr_epoch_plain
+from ...core.engine import (ScenarioArrays, SimOutput, _sim_output,
+                            _trace_caps, _trace_of)
+from ...core.telemetry import TraceBuffers
+from .kernel import mr_schedule, mr_schedule_plain
+from .megakernel import TRACE_LEAVES, initial_state, mr_epoch, mr_epoch_plain
 
 F32, I32 = torch.float32, torch.int32
 BACKENDS = ("cuda", "torch")
@@ -54,6 +63,28 @@ def kernel_inputs(batch: ScenarioArrays):
             c(batch.vm_start.to(F32)), c(batch.vm_stop.to(F32)),
             c(batch.spinup_delay.to(F32)[:, None]),
             c(batch.task_prio.to(F32)))
+
+
+def schedule(batch: ScenarioArrays, *, backend: str | None = None,
+             device=None):
+    """Schedule a stacked J=1 batch through ``mr_schedule``; returns
+    ``(start, finish)`` ``(N, T)`` f32.
+
+    The kernel models neither lease windows nor admission priorities, so
+    it gives the scenario's schedule only for lanes with the static fleet
+    (``vm_start`` 0, ``vm_stop`` ``1e30``, no spin-up) and zero
+    priorities, as the reference's.  ``backend``/``device`` as in
+    :func:`epoch_schedule`.
+    """
+    if device is not None:
+        batch = ScenarioArrays(*(x.to(device) for x in batch))
+    backend = resolve_backend(backend, batch.task_vm.device)
+    if batch.job_length.shape[1] != 1:
+        raise ValueError("schedule: the kernel steps one job per lane "
+                         f"(J=1), got J={batch.job_length.shape[1]}")
+    lanes = kernel_inputs(batch)
+    step = mr_schedule if backend == "cuda" else mr_schedule_plain
+    return step(*lanes[:9])
 
 
 def control_derived(batch: ScenarioArrays):
@@ -106,19 +137,9 @@ def resolve_backend(backend: str | None, device: torch.device) -> str:
     return backend
 
 
-def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
-                   max_pes: int | None = None, control: bool = False,
-                   device=None) -> SimOutput:
-    """Step a stacked J=1 batch to completion through ``mr_epoch``.
-
-    ``device`` moves the batch first (``None`` keeps it where it is);
-    ``backend="cuda"`` launches the CUDA kernel, ``"torch"`` runs the
-    plain version on the batch's device.  ``max_pes`` bounds the static
-    admission scan (default: the batch's largest PE count).
-    ``control=True`` runs the closed-loop lowering (failures, autoscale,
-    deadlines, preemption); degenerate control data gives the open-loop
-    schedule bit for bit.
-    """
+def _step(batch: ScenarioArrays, backend, max_pes, control: bool,
+          trace: bool, trace_events, device):
+    """Run ``mr_epoch`` over a batch: ``(SimOutput, final carry)``."""
     if device is not None:
         batch = ScenarioArrays(*(x.to(device) for x in batch))
     backend = resolve_backend(backend, batch.task_vm.device)
@@ -129,11 +150,64 @@ def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
         max_pes = batch_max_pes(batch)
     step = mr_epoch if backend == "cuda" else mr_epoch_plain
     task_vm2, refetch = control_derived(batch)
-    ctl = control_lane_data(batch, task_vm2, refetch) if control else ()
-    st = step(*kernel_inputs(batch), *ctl, max_pes=max_pes, control=control)
+    lanes = kernel_inputs(batch)
+    ctl = ()
+    if control:
+        ctl = control_lane_data(batch, task_vm2, refetch)
+    elif trace:
+        ctl = (batch.vm_valid.to(I32).contiguous(),)
+    state = None
+    if trace:
+        N, T = batch.task_vm.shape
+        V = batch.vm_mips.shape[1]
+        state = initial_state(lanes[0], lanes[2], lanes[3], lanes[4],
+                              lanes[9], lanes[10],
+                              ctl[3] if control else None,
+                              *_trace_caps(T, V, control, True, trace_events))
+    st = step(*lanes, *ctl, state=state, max_pes=max_pes, control=control,
+              trace=trace)
     carry = None
     if control:
         carry = (st[8] != 0, st[9], st[10], st[11][:, 0], st[12] != 0,
                  st[13], st[14][:, 0])
-    return _sim_output(batch, st[3], st[4], st[5], st[7][:, 0], task_vm2,
-                       carry)
+    out = _sim_output(batch, st[3], st[4], st[5], st[7][:, 0], task_vm2,
+                      carry)
+    return out, st
+
+
+def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
+                   max_pes: int | None = None, control: bool = False,
+                   trace: bool = False, trace_events: int | None = None,
+                   device=None):
+    """Step a stacked J=1 batch to completion through ``mr_epoch``.
+
+    ``device`` moves the batch first (``None`` keeps it where it is);
+    ``backend="cuda"`` launches the CUDA kernel, ``"torch"`` runs the
+    plain version on the batch's device.  ``max_pes`` bounds the static
+    admission scan (default: the batch's largest PE count).
+    ``control=True`` runs the closed-loop lowering (failures, autoscale,
+    deadlines, preemption); degenerate control data gives the open-loop
+    schedule bit for bit.
+
+    ``trace=True`` runs the trace instantiation and returns ``(SimOutput,
+    ts)`` with the per-epoch time series ``ts [N, C, 8]`` in
+    ``telemetry.TS_COLUMNS`` layout, as the reference does;
+    :func:`epoch_trace` returns the event log too.
+    """
+    out, st = _step(batch, backend, max_pes, control, trace, trace_events,
+                    device)
+    if trace:
+        return out, _trace_of(st[-len(TRACE_LEAVES):]).ts
+    return out
+
+
+def epoch_trace(batch: ScenarioArrays, *, backend: str | None = None,
+                max_pes: int | None = None, control: bool = False,
+                trace_events: int | None = None, device=None
+                ) -> tuple[SimOutput, TraceBuffers]:
+    """:func:`epoch_schedule` under ``trace=True``, returning the whole
+    :class:`~repro_torch.core.telemetry.TraceBuffers` (time series and
+    event log, ``trace_events`` rows per lane; default: the worst case)."""
+    out, st = _step(batch, backend, max_pes, control, True, trace_events,
+                    device)
+    return out, _trace_of(st[-len(TRACE_LEAVES):])

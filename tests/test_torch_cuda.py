@@ -4,17 +4,18 @@ card and no JAX it runs alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-(``--noconftest``: the suite's conftest imports JAX).  Both instantiations
-of the kernel (open loop and control) are held against their plain PyTorch
-version on the card, bit for bit, and the sweep paths on the card against
-the same paths on the CPU.
+(``--noconftest``: the suite's conftest imports JAX).  The four
+instantiations of ``mr_epoch`` (open loop and control, untraced and traced)
+and ``mr_schedule`` are held against their plain PyTorch versions on the
+card, bit for bit, and the sweep and traced paths on the card against the
+same paths on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import control, sweep
-from repro_torch.kernels.mr_sched import megakernel, ops
+from repro_torch.core import control, engine, sweep
+from repro_torch.kernels.mr_sched import kernel, megakernel, ops
 
 
 def _card():
@@ -194,3 +195,90 @@ def test_control_sweep_on_card_matches_cpu():
         np.testing.assert_array_equal(card[k].view(np.int32),
                                       cpu[k].view(np.int32), err_msg=k)
     assert card["failures_injected"].sum() > 0
+
+
+def _trace_inputs(batch, control_):
+    """Lane data of a trace instantiation: the control tensors, or the
+    open loop's vm_valid."""
+    return ops.kernel_inputs(batch) + (
+        ops.control_lane_data(batch) if control_
+        else (batch.vm_valid.to(torch.int32).contiguous(),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control_", [False, True])
+@pytest.mark.parametrize("T", [8, 32])
+def test_trace_kernel_matches_plain_on_card(T, control_):
+    dev = _card()
+    cols = _control_cols(512, T, T + 50) if control_ else _cols(512, T, T)
+    batch = sweep.grid_arrays(cols, pad_tasks=T, pad_vms=9, device=dev)
+    inputs = _trace_inputs(batch, control_)
+    max_pes = ops.batch_max_pes(batch)
+    name = "control_trace_launches" if control_ else "trace_launches"
+    before = getattr(megakernel.mr_epoch, name)
+    got = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=control_,
+                              trace=True)
+    assert getattr(megakernel.mr_epoch, name) == before + 1
+    want = megakernel.mr_epoch_plain(*inputs, max_pes=max_pes,
+                                     control=control_, trace=True)
+    names = megakernel.state_leaves(control_, True)
+    for leaf, a, b in zip(names, want, got):
+        assert torch.equal(_bits(a), _bits(b)), leaf
+    n_carry = len(names) - len(megakernel.TRACE_LEAVES)
+    untraced = megakernel.mr_epoch(*inputs[:len(inputs) - (not control_)],
+                                   max_pes=max_pes, control=control_)
+    for leaf, a, b in zip(names, untraced, got[:n_carry]):
+        assert torch.equal(_bits(a), _bits(b)), f"untraced {leaf}"
+    # an undersized event log keeps the first rows and counts the rest
+    E = 3
+    st0 = megakernel.initial_state(
+        inputs[0], inputs[2], inputs[3], inputs[4], inputs[9], inputs[10],
+        inputs[16] if control_ else None,
+        *engine._trace_caps(T, 9, control_, True, E))
+    small = megakernel.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                                control=control_, trace=True)
+    small_plain = megakernel.mr_epoch_plain(*inputs, state=st0,
+                                            max_pes=max_pes,
+                                            control=control_, trace=True)
+    for leaf, a, b in zip(names, small_plain, small):
+        assert torch.equal(_bits(a), _bits(b)), f"E={E} {leaf}"
+    for leaf, a, b in zip(names[n_carry + 1:], got[n_carry + 1:-1],
+                          small[n_carry + 1:-1]):
+        assert torch.equal(_bits(a[:, :E]), _bits(b)), f"kept {leaf}"
+    assert torch.equal(got[-1], small[-1]) and int(got[-1].max()) > E
+
+
+@pytest.mark.cuda
+def test_traced_driver_on_card_matches_cpu():
+    dev = _card()
+    cols = _control_cols(256, 16, 9)
+    card = sweep.grid_arrays(cols, pad_tasks=16, pad_vms=9, device=dev)
+    cpu = sweep.grid_arrays(cols, pad_tasks=16, pad_vms=9, device="cpu")
+    out, _, buf = engine.simulate_batch_arrays(card, control=True,
+                                               trace=True)
+    c_out, _, c_buf = engine.simulate_batch_arrays(cpu, control=True,
+                                                   trace=True)
+    for f, a, b in zip(buf._fields, buf, c_buf):
+        assert torch.equal(_bits(a.cpu()), _bits(b)), f
+    for f, a, b in zip(out._fields, out, c_out):
+        assert torch.equal(_bits(a.cpu()), _bits(b)), f
+    assert int((buf.ev_kind == 2).sum()) > 0          # kills were logged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 32, 64])
+def test_schedule_kernel_matches_plain_on_card(T):
+    dev = _card()
+    batch = sweep.grid_arrays(_cols(512, T, T + 30), pad_tasks=T, pad_vms=9,
+                              device=dev)
+    inputs = ops.kernel_inputs(batch)[:9]
+    before = kernel.mr_schedule.launches
+    got = kernel.mr_schedule(*inputs)
+    assert kernel.mr_schedule.launches == before + 1
+    want = kernel.mr_schedule_plain(*inputs)
+    for name, a, b in zip(("start", "finish"), want, got):
+        assert torch.equal(_bits(a), _bits(b)), name
+    got = ops.schedule(batch)
+    assert kernel.mr_schedule.launches == before + 2
+    for name, a, b in zip(("start", "finish"), want, got):
+        assert torch.equal(_bits(a), _bits(b)), f"ops.schedule {name}"

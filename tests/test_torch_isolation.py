@@ -25,7 +25,8 @@ for name in names:
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from repro_torch.kernels import _build
-from repro_torch.kernels.mr_sched import megakernel
+from repro_torch.kernels.mr_sched import kernel, megakernel
+from repro_torch.core import telemetry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -34,6 +35,8 @@ assert torch.get_default_dtype() == dtype0
 assert torch.get_num_threads() == threads0
 assert not _build._loaded, "an import loaded a kernel library"
 assert not megakernel._LIBS, "an import bound a kernel"
+assert not kernel._LIB, "an import bound mr_schedule"
+assert telemetry.provenance.cache_info().currsize == 0
 print(len(names))
 """
 
@@ -75,3 +78,14 @@ def test_every_kernel_source_is_built_without_torch_headers():
         assert not [h for h in heads if h.startswith(("torch", "ATen",
                                                       "c10"))], f
         assert 'extern "C"' in text, f
+    # every library names a registered source, and its launch symbol is
+    # defined there (the trace instantiations through the MR_TRACE macro)
+    assert set(_build.LIBRARIES) == {
+        "mr_epoch", "mr_epoch_control", "mr_epoch_trace",
+        "mr_epoch_control_trace", "mr_schedule"}
+    for name, (src, macros) in _build.LIBRARIES.items():
+        text = _build.SOURCES[src].read_text()
+        assert f"{name}_launch" in text, name
+        assert all(m.startswith("-D") for m in macros), name
+        if macros:
+            assert "#ifdef MR_TRACE" in text, name
