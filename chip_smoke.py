@@ -45,7 +45,8 @@ each printing one line of numbers:
               summed over the grid equal to the counts the schedule and the
               metrics give, 2048 cells' trace buffers bitwise the port's CPU
               run, and a closed-loop lane's Chrome trace with one span per
-              start; traced and untraced wall, the trace kernels' time,
+              start; traced and untraced wall (median and spread of
+              alternating passes), the trace kernels' time,
               launches and bound, and the trace's bytes.
 8. report   — ``SweepPlan.run(device="cuda", report=True)`` on the open-loop
               grid: metrics bitwise phase 4's, the report's cells add up to
@@ -53,7 +54,8 @@ each printing one line of numbers:
 9. schedule — ``ops.schedule`` (the ``mr_schedule`` kernel) on the open-loop
               grid's cells it models (a static fleet, no priorities): its
               makespans against phase 4's at the reference's tolerance
-              (rtol 1e-4, atol 1e-2); its time, launches and bound.
+              (rtol 1e-4, atol 1e-2), each bucket's schedule bitwise the
+              plain version's; its time, launches and bound.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -82,6 +84,7 @@ KERNEL_LANES = 2048      # lanes per kernel-check grid
 KERNEL_TS = (8, 32, 64)  # padded task counts of the kernel-check grids
 CPU_CELLS = 2048         # cells re-run on the CPU
 TIMING_REPS = 5
+TRACE_PASSES = 11        # alternating untraced/traced passes of phase 7
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores (same)
 KINDS = ("mixed_policies", "locality", "elastic", "tailheavy")
@@ -517,17 +520,19 @@ def kernel_bound_ms(batch, n_epochs, max_pes, control=False, trace=None):
     """Least time the card could take for one ``mr_epoch`` call on this
     batch: the larger of its bytes over HBM bandwidth and its operations
     over the fp32 rate.  Bytes: each input read once, each output written
-    once, 4 bytes each.  Open loop, per lane: 4 T-wide + 3 scalar + 4
-    V-wide inputs, 5 T-wide + 3 scalar carry leaves in and out.  Control:
-    8 T-wide + 11 scalar + 6 V-wide inputs, 8 T-wide + 2 V-wide + 5 scalar
-    carry leaves in and out.  Operations, counted from the op sequence per
-    realized epoch of a lane: open loop about 32 per task slot (rates,
-    event times, the next-event min, completions, release, eligibility,
-    starts), 6 per VM, and 6 per task slot per admission step on
-    space-shared lanes; control about 100 per task slot (the same, plus
-    the hook's counts, down-window gates, SHED/BOOST predicates, kills and
-    the preemption extrema), 20 per VM, and 8 per task slot per admission
-    step (the urgency tier); times this run's realized epochs per lane.
+    once, 4 bytes each, at the padded widths the call is given.  Open
+    loop, per lane: 4 T-wide + 3 scalar + 4 V-wide inputs, 5 T-wide + 3
+    scalar carry leaves in and out.  Control: 8 T-wide + 11 scalar + 6
+    V-wide inputs, 8 T-wide + 2 V-wide + 5 scalar carry leaves in and out.
+    Operations, counted from the op sequence per realized epoch of a lane
+    over its valid tasks and real VMs only (padding needs no work): open
+    loop about 32 per task (rates, event times, the next-event min,
+    completions, release, eligibility, starts), 6 per VM, and 6 per task
+    per admission step on space-shared lanes; control about 100 per task
+    (the same, plus the hook's counts, down-window gates, SHED/BOOST
+    predicates, kills and the preemption extrema), 20 per VM, and 8 per
+    task per admission step (the urgency tier); times this run's realized
+    epochs per lane.
 
     ``trace=(C, E)``: a trace instantiation with C time-series rows and E
     event rows per lane.  Its bytes add the six trace leaves in and out
@@ -538,21 +543,29 @@ def kernel_bound_ms(batch, n_epochs, max_pes, control=False, trace=None):
     N, T = batch.task_vm.shape
     V = batch.vm_mips.shape[1]
     space = (batch.sched_policy != 0).double().cpu().numpy()
+    nt = batch.task_valid.sum(dim=1).double().cpu().numpy()
+    nv = batch.vm_valid.sum(dim=1).double().cpu().numpy()
     if control:
         nbytes = N * (4 * (8 * T + 11 + 6 * V) + 2 * 4 * (8 * T + 2 * V + 5))
-        per_epoch = 100.0 * T + 20.0 * V + space * 8.0 * T * max_pes
+        per_epoch = 100.0 * nt + 20.0 * nv + space * 8.0 * nt * max_pes
     else:
         nbytes = N * (4 * (4 * T + 3 + 4 * V) + 2 * 4 * (5 * T + 3))
-        per_epoch = 32.0 * T + 6.0 * V + space * 6.0 * T * max_pes
+        per_epoch = 32.0 * nt + 6.0 * nv + space * 6.0 * nt * max_pes
     if trace is not None:
         C, E = trace
         nbytes += N * (2 * 4 * (C * 8 + 4 * E + 1) + (0 if control else 4 * V))
-        per_epoch = per_epoch + (20.0 * T + 8.0 * V if control else 8.0 * T)
+        per_epoch = per_epoch + (20.0 * nt + 8.0 * nv if control
+                                 else 8.0 * nt)
     ops = float((n_epochs.double().cpu().numpy() * per_epoch).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def spread(xs):
+    """``median (min, max)`` of a list of readings, unrounded."""
+    return f"{float(np.median(xs))!r} ({min(xs)!r}, {max(xs)!r})"
 
 
 def cuda_ms(fn, reps):
@@ -670,10 +683,10 @@ def trace_identities(batch, out, buf, control):
 def phase_traced(m, dev, control=False, seed=7):
     """Drive ``engine.simulate_batch_arrays(trace=True)`` over the main
     run's buckets (launch counts zeroed just before, read just after),
-    check it, time it against the untraced driver (an untraced pass, then
-    a traced one), time the trace kernel, the untraced kernel the same way
-    (from a prepared carry) and the trace kernel's plain version, and
-    re-run ``CPU_CELLS`` cells on the CPU."""
+    check it, time it against the untraced driver (``TRACE_PASSES``
+    alternating untraced and traced passes), time the trace kernel, the
+    untraced kernel the same way (from a prepared carry) and the trace
+    kernel's plain version, and re-run ``CPU_CELLS`` cells on the CPU."""
     import torch
     from repro_torch.core import engine, telemetry
     from repro_torch.kernels.mr_sched import megakernel as mk, ops
@@ -693,18 +706,19 @@ def phase_traced(m, dev, control=False, seed=7):
             or mk.mr_epoch.control_launches:
         raise AssertionError(f"traced path launches {launches}, "
                              f"{len(buckets)} buckets")
-    t0 = time.perf_counter()
-    plain_out = [engine.simulate_batch_arrays(b[5], control=control,
-                                              max_pes=b[6])[0]
-                 for b in buckets]
-    torch.cuda.synchronize()
-    wall_untraced = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for b in buckets:
-        engine.simulate_batch_arrays(b[5], control=control, max_pes=b[6],
-                                     trace=True)
-    torch.cuda.synchronize()
-    wall_traced = time.perf_counter() - t0
+    walls = ([], [])                      # untraced, traced
+    plain_out = None
+    for _ in range(TRACE_PASSES):
+        for tr in (False, True):
+            t0 = time.perf_counter()
+            outs = [engine.simulate_batch_arrays(
+                b[5], control=control, max_pes=b[6], trace=tr)[0]
+                for b in buckets]
+            torch.cuda.synchronize()
+            walls[tr].append(time.perf_counter() - t0)
+            plain_out = plain_out or outs
+        del outs
+    ratios = [t / u for u, t in zip(*walls)]
     totals = dict.fromkeys(telemetry.EVENT_NAMES.values(), 0)
     nbytes = 0
     k_ms = u_ms = p_ms = b_ms = by_ops = 0.0
@@ -783,7 +797,7 @@ def phase_traced(m, dev, control=False, seed=7):
         if chrome is None:
             raise AssertionError("no closed-loop lane was killed")
     return dict(launches=launches, wall_first=wall_first,
-                wall_traced=wall_traced, wall_untraced=wall_untraced,
+                wall_untraced=walls[0], wall_traced=walls[1], ratios=ratios,
                 totals=totals, nbytes=nbytes, k_ms=k_ms, u_ms=u_ms,
                 p_ms=p_ms, b_ms=b_ms,
                 bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
@@ -818,7 +832,8 @@ def phase_schedule(m, dev):
     """``ops.schedule`` over the main grid's cells ``mr_schedule`` models
     (a static fleet: lease windows ``[0, 1e30)``, no spin-up, zero
     priorities), bucket by bucket; their makespans against the main run's
-    at the reference's tolerance, and the kernel's time and bound."""
+    at the reference's tolerance, each bucket's ``(start, finish)``
+    bitwise the plain version's, and the kernel's time and bound."""
     import torch
     from repro_torch.core import sweep
     from repro_torch.kernels.mr_sched import kernel, ops
@@ -838,7 +853,8 @@ def phase_schedule(m, dev):
     if launches != len(buckets):
         raise AssertionError("ops.schedule did not launch mr_schedule")
     want = m["result"]["makespan"].reshape(-1)[cells]
-    k_ms = p_ms = b_ms = by_ops = 0.0
+    k_ms = p_ms = b_ms = by_ops = worst = 0.0
+    parts = np.zeros(2)                     # bytes, operations (ms)
     for (idx, gcols, statics, tb, vb, batch, _), (start, finish) in zip(
             buckets, outs):
         valid = batch.task_valid
@@ -848,13 +864,17 @@ def phase_schedule(m, dev):
             raise AssertionError("non-finite mr_schedule makespan")
         np.testing.assert_allclose(span, want[idx], rtol=1e-4, atol=1e-2)
         inputs = ops.kernel_inputs(batch)[:9]
+        worst = max(worst, compare(("start", "finish"), (start, finish),
+                                   kernel.mr_schedule_plain(*inputs),
+                                   f"T={tb}: mr_schedule on the main path"))
         k_ms += cuda_ms(lambda: kernel.mr_schedule(*inputs), TIMING_REPS)
         p_ms += cuda_ms(lambda: kernel.mr_schedule_plain(*inputs), 1)
-        bound_ms, by = schedule_bound_ms(batch, start, finish)
+        bound_ms, by, part = schedule_bound_ms(batch, start, finish)
+        parts += part
         b_ms += bound_ms
         by_ops += bound_ms if by == "operations" else 0.0
     return dict(n=len(cells), buckets=len(buckets), launches=launches,
-                k_ms=k_ms, p_ms=p_ms, b_ms=b_ms,
+                k_ms=k_ms, p_ms=p_ms, b_ms=b_ms, worst=worst, parts=parts,
                 bound_by="operations" if by_ops >= b_ms / 2 else "bytes")
 
 
@@ -862,12 +882,14 @@ def schedule_bound_ms(batch, start, finish):
     """Least time the card could take for one ``mr_schedule`` call: the
     larger of its bytes over HBM bandwidth and its operations over the
     fp32 rate.  Bytes, per lane: 5 T-wide + 2 scalar + 2 V-wide inputs,
-    2 T-wide outputs, 4 bytes each.  Operations per realized epoch of a
-    lane: about 30 per task slot (rates, event times, the min,
-    completions, eligibility, starts), 6 per VM, and on space-shared lanes
-    4 per ordered pair of tasks on one VM (the admission rank).  A lane
+    2 T-wide outputs, 4 bytes each, at the padded widths.  Operations per
+    realized epoch of a lane, over its valid tasks and real VMs only:
+    about 30 per task (rates, event times, the min, completions,
+    eligibility, starts), 6 per VM, and on space-shared lanes 4 per
+    ordered pair of tasks on one VM (the admission rank).  A lane
     realizes at least one epoch per distinct instant among its tasks'
-    starts and finishes, and that count is used."""
+    starts and finishes, and that count is used.  Returns the bound, what
+    bounds it, and both times ``(bytes ms, operations ms)``."""
     import torch
     N, T = batch.task_vm.shape
     V = batch.vm_mips.shape[1]
@@ -884,11 +906,15 @@ def schedule_bound_ms(batch, start, finish):
               ) & valid[:, :, None]
     pairs = (onehot.sum(dim=1).double() ** 2).sum(dim=1)
     space = (batch.sched_policy != 0).double()
-    ops_n = float((epochs * (30.0 * T + 6.0 * V + space * 4.0 * pairs)).sum())
+    nt = valid.sum(dim=1).double()
+    nv = batch.vm_valid.sum(dim=1).double()
+    ops_n = float((epochs * (30.0 * nt + 6.0 * nv + space * 4.0 * pairs)
+                   ).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops_n / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), \
+        1e3 * np.array([t_bytes, t_ops])
 
 
 def phase_cpu(m, control=False, seed=5):
@@ -1047,9 +1073,13 @@ def main() -> int:
         t = traced[name] = phase_traced(grid, dev, control)
         print(f"trace: {name}-loop grid, {grid['n']} cells in "
               f"{len(grid['buckets'])} buckets through "
-              f"engine.simulate_batch_arrays(trace=True): wall "
-              f"{t['wall_traced']:.3f} s traced (first {t['wall_first']:.3f}"
-              f" s) / {t['wall_untraced']:.3f} s untraced, "
+              f"engine.simulate_batch_arrays(trace=True): first traced pass "
+              f"{t['wall_first']:.4f} s; {TRACE_PASSES} alternating passes, "
+              f"median (min, max): traced {spread(t['wall_traced'])} s, "
+              f"untraced {spread(t['wall_untraced'])} s, traced/untraced "
+              f"{spread(t['ratios'])}, trace kernel share of the median "
+              f"traced wall "
+              f"{t['k_ms'] / 1e3 / np.median(t['wall_traced']):.4f}, "
               f"{mk.instantiation(control, True)} launches "
               f"{t['launches'][int(control)]}, "
               f"kernel {t['k_ms']:.3f} ms (untraced kernel from the same "
@@ -1076,9 +1106,12 @@ def main() -> int:
     s = phase_schedule(m, dev)
     print(f"schedule: ops.schedule on the {s['n']} open-loop cells with a "
           f"static fleet and no priorities, {s['buckets']} buckets: makespan "
-          f"== phase 4's at rtol 1e-4, atol 1e-2; mr_schedule launches "
+          f"== phase 4's at rtol 1e-4, atol 1e-2, every bucket bitwise "
+          f"mr_schedule_plain; mr_schedule launches "
           f"{s['launches']}, kernel {s['k_ms']:.3f} ms, plain "
-          f"{s['p_ms']:.3f} ms, bound {s['b_ms']:.4f} ms ({s['bound_by']})",
+          f"{s['p_ms']:.3f} ms, bound {s['b_ms']:.4f} ms ({s['bound_by']}; "
+          f"summed over the buckets, bytes {s['parts'][0]:.4f} ms, "
+          f"operations {s['parts'][1]:.4f} ms)",
           flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
@@ -1110,7 +1143,8 @@ def main() -> int:
         "name": "mr_schedule", "route": "cuda",
         "source": src + "mr_schedule.cu",
         "replaces": "src/repro/kernels/mr_sched/kernel.py:30",
-        "launches": s["launches"], "max_abs_err": worst_s, "ms": s["k_ms"],
+        "launches": s["launches"], "max_abs_err": max(worst_s, s["worst"]),
+        "ms": s["k_ms"],
         "plain_ms": s["p_ms"], "bound_ms": s["b_ms"],
         "bound_by": s["bound_by"], "library_ms": None}]}))
     print(smi)

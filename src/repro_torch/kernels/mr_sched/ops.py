@@ -177,8 +177,7 @@ def _step(batch: ScenarioArrays, backend, max_pes, control: bool,
 
 def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
                    max_pes: int | None = None, control: bool = False,
-                   trace: bool = False, trace_events: int | None = None,
-                   device=None):
+                   trace: bool = False, device=None):
     """Step a stacked J=1 batch to completion through ``mr_epoch``.
 
     ``device`` moves the batch first (``None`` keeps it where it is);
@@ -191,11 +190,11 @@ def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
 
     ``trace=True`` runs the trace instantiation and returns ``(SimOutput,
     ts)`` with the per-epoch time series ``ts [N, C, 8]`` in
-    ``telemetry.TS_COLUMNS`` layout, as the reference does;
-    :func:`epoch_trace` returns the event log too.
+    ``telemetry.TS_COLUMNS`` layout, as the reference does; its event log
+    has no rows (the kernel only counts events), :func:`epoch_trace`
+    returns it.
     """
-    out, st = _step(batch, backend, max_pes, control, trace, trace_events,
-                    device)
+    out, st = _step(batch, backend, max_pes, control, trace, 0, device)
     if trace:
         return out, _trace_of(st[-len(TRACE_LEAVES):]).ts
     return out

@@ -14,6 +14,9 @@
   trace=True)`` (the per-lane meaning, ROADMAP C6) on single-job failure,
   autoscale, stranded and deadline SHED + preemption lanes: all six trace
   leaves bitwise, and the traced ``SimOutput`` bitwise the untraced one.
+* The ops entry point: the port's ``ops.epoch_schedule(trace=True)``
+  time series against the JAX ``ops.epoch_schedule(trace=True)`` in
+  interpret mode at ``tile=1``, bitwise, open loop and control.
 * Overflow: an undersized event log keeps the first rows bitwise and
   counts the rest in ``dropped_events``.
 * The refsim oracle: per-kind event counts exact, event times at rtol 2e-4
@@ -41,6 +44,7 @@ from repro.core.control import ControlPolicy as JControlPolicy
 from repro.core.control import ControlSpec as JControlSpec
 from repro.core.elasticity import ElasticitySpec as JElasticitySpec
 from repro.kernels.mr_sched import megakernel as jmk
+from repro.kernels.mr_sched import ops as jops
 from repro_torch.core import config as tconfig
 from repro_torch.core import control as tcontrol
 from repro_torch.core import elasticity as telasticity
@@ -48,6 +52,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import sweep as tsweep
 from repro_torch.core import telemetry as ttel
 from repro_torch.kernels.mr_sched import megakernel as tmk
+from repro_torch.kernels.mr_sched import ops as tops
 
 import test_torch_control as tcc
 import test_torch_mr_epoch as tme
@@ -275,6 +280,27 @@ def test_traced_driver_matches_reference_open_loop():
     cols = chip_smoke.fit_tasks(chip_smoke.mixed_columns(32, 4, 12), 12)
     jb, tb = _both_batches(cols, 12)
     _check_traced_driver(jb, tb, False, "open loop")
+
+
+@pytest.mark.parametrize("control", [False, True])
+def test_epoch_schedule_trace_matches_pallas(control):
+    """``ops.epoch_schedule(trace=True)``: ``(SimOutput, ts)`` with ``ts``
+    bitwise the Pallas trace lowering's, its ``SimOutput`` the untraced
+    one's."""
+    if control:
+        jsc, tsc = _scenarios()
+        jb = jsweep.stack_scenarios(jsc)
+        tb = tsweep.stack_scenarios(tsc, device="cpu")
+    else:
+        cols = chip_smoke.fit_tasks(chip_smoke.mixed_columns(8, 6, 12), 12)
+        jb, tb = _both_batches(cols, 12)
+    _, want = jops.epoch_schedule(jb, tile=1, interpret=True,
+                                  control=control, trace=True)
+    out, ts = tops.epoch_schedule(tb, control=control, trace=True)
+    _assert_bitwise(want, ts.numpy(), f"control={control}: ts")
+    plain = tops.epoch_schedule(tb, control=control)
+    for f, a, b in zip(tengine.SimOutput._fields, plain, out):
+        assert torch.equal(a, b), f"traced {f} differs"
 
 
 def test_event_overflow_drops_only_the_newest_rows():
