@@ -57,9 +57,33 @@ each printing one line of numbers:
               (rtol 1e-4, atol 1e-2), each bucket's schedule bitwise the
               plain version's; its time, launches and bound.
 
+10. lm kernels — ``flash_attention`` and ``wkv6`` against their plain
+              versions on the card at stated tolerances (summation order):
+              flash on the kernel tests' five shapes in f32 and bf16, yi-6b's
+              prefill shape (B 4, S = T = 2048, 32/4 heads, head_dim 128)
+              f32 and bf16, causal and with a 512 window; wkv6 on the kernel
+              tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
+              non-zero initial state, y and the final state.
+11. serve dense — yi-6b at full width (random f32 weights from a seeded
+              generator on the card), 4 prompts of 2048 seeded tokens
+              through ``prefill(attn_impl="flash")`` and 32 greedy
+              ``decode_step``s in bf16: flash's launch count must rise by 32
+              per prefill; prefill and decode tokens/s, the kernel's time,
+              plain version's, ``F.scaled_dot_product_attention``'s on the
+              same tensors (timed only, never on the path) and its bound;
+              a profiled prefill and decode step (device time by kind of
+              kernel).  In f32 activations the prefill logits match
+              ``attn_impl="dense"`` and each decode step's logits match
+              ``forward`` over prompt + generated tokens.
+12. serve rwkv — rwkv6-3b the same way: wkv6's count must rise by 32 per
+              prefill and 32 per decode step; in f32 the prefill logits
+              match the plain ``_wkv_scan`` path on the card, decode matches
+              ``forward``.
+
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
-``mr_schedule`` against their plain versions, bitwise.
+``mr_schedule`` against their plain versions, bitwise.  float32 products run
+in full float32 (TF32 off for matmuls and cuDNN).
 
 Then one JSON line describing each kernel, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -952,6 +976,391 @@ def phase_cpu(m, control=False, seed=5):
     return n_checked
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the LM serving path (flash_attention, wkv6)
+# ---------------------------------------------------------------------------
+
+LM_BATCH = 4             # requests served at once
+LM_PROMPT = 2048         # prompt tokens per request
+LM_DECODE = 32           # greedy decode steps after the prefill
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM, dense bf16 tensor cores (same)
+FA_CHECK_SHAPES = [
+    # (B, S, T, Hq, Hkv, Dh, causal, window, dtypes)
+    # the five FA_SHAPES of tests/test_kernels.py, float32 and bfloat16
+    (2, 128, 128, 4, 2, 32, True, None, ("float32", "bfloat16")),
+    (1, 256, 256, 8, 8, 16, True, 64, ("float32", "bfloat16")),
+    (2, 64, 64, 4, 1, 32, False, None, ("float32", "bfloat16")),
+    (1, 128, 128, 2, 2, 64, True, None, ("float32", "bfloat16")),
+    (1, 96, 96, 2, 1, 8, True, 32, ("float32", "bfloat16")),
+    # yi-6b's prefill, and a sliding window at head_dim 128
+    # in float32 too, where the 2e-6 tolerance would catch a dropped or
+    # mis-scaled kv tile that bf16's 2e-2 could miss (|o| ~ 0.03-0.06 here)
+    (4, 2048, 2048, 32, 4, 128, True, None, ("float32", "bfloat16")),
+    (4, 2048, 2048, 32, 4, 128, True, 512, ("float32", "bfloat16")),
+]
+# (B, H, T, hs): the four WKV_SHAPES of tests/test_kernels.py and rwkv6-3b's
+# prefill, each with a non-zero initial state, r/k/v in float32 and bfloat16
+WKV_CHECK_SHAPES = [(2, 3, 96, 16), (1, 2, 64, 8), (2, 1, 40, 4),
+                    (1, 4, 128, 32), (4, 40, 2048, 64)]
+# Kernel against plain version (atol = rtol): tests/test_kernels.py's
+# tolerances, all summation order — flash 2e-6 in float32 and 2e-2 in
+# bfloat16 (the output's bf16 rounding); wkv6 1e-4 on y and the state,
+# which both forms return in float32 whatever the inputs' type.
+FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+WKV_TOL = 1e-4
+# f32-activation serving checks at full width (atol = rtol): the same
+# function through paths whose float32 sums run in other orders (flash
+# tiles vs the dense scores; the plain scan vs the wkv6 kernel; a decode
+# step's (B, 1) products vs the forward's (B, S)), compounded over 32
+# layers, on logits of order 1.
+LM_F32_TOL = 1e-3
+
+
+def _close(got, want, tol):
+    """``(largest |got - want|, largest |got - want| / (tol + tol |want|))``;
+    raises unless the second is <= 1 and ``got`` is finite."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    share = float((diff / (tol + tol * want.abs())).max())
+    if not share <= 1.0 or not bool(got.isfinite().all()):
+        raise AssertionError(f"max |diff| {float(diff.max())} above "
+                             f"tol {tol} (share {share})")
+    return float(diff.max()), share
+
+
+def _worst(a, b):
+    return (max(a[0], b[0]), max(a[1], b[1]))
+
+
+def phase_lm_kernels(dev, seed=0):
+    """Both LM kernels against their plain versions on the card (phase
+    10); returns the largest differences ``({dtype: flash}, wkv6)``."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    rng = np.random.default_rng(seed)
+    worst_fa = {"float32": 0.0, "bfloat16": 0.0}
+    for B, S, T, Hq, Hkv, Dh, causal, window, dts in FA_CHECK_SHAPES:
+        base = [rng.standard_normal(s).astype(np.float32) for s in
+                ((B, S, Hq, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
+        for dt in dts:
+            q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dt))
+                       for a in base)
+            try:
+                worst_fa[dt] = max(worst_fa[dt], _close(
+                    fa.flash_attention(q, k, v, causal=causal,
+                                       window=window),
+                    fa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window), FA_TOL[dt])[0])
+            except AssertionError as e:
+                raise AssertionError(f"flash_attention {dt} "
+                                     f"{(B, S, T, Hq, Hkv, Dh, causal, window)}"
+                                     f": {e}") from None
+    worst_wkv = 0.0
+    for B, H, T, hs in WKV_CHECK_SHAPES:
+        r, k, v = (0.5 * rng.standard_normal((B, T, H, hs)).astype(
+            np.float32) for _ in range(3))
+        w = rng.uniform(0.45, 0.95, (B, T, H, hs)).astype(np.float32)
+        u = (0.3 * rng.standard_normal((H, hs))).astype(np.float32)
+        s0 = (0.2 * rng.standard_normal((B, H, hs, hs))).astype(np.float32)
+        w, u, s0 = (torch.from_numpy(a).to(dev) for a in (w, u, s0))
+        for dt in (torch.float32, torch.bfloat16):
+            rkv = [torch.from_numpy(a).to(dev, dt) for a in (r, k, v)]
+            got = wk.wkv6_scan(*rkv, w, u, s0)
+            want = wk.wkv6_scan_plain(*rkv, w, u, s0)
+            for what, a, b in zip(("y", "state"), got, want):
+                try:
+                    worst_wkv = max(worst_wkv, _close(a, b, WKV_TOL)[0])
+                except AssertionError as e:
+                    raise AssertionError(f"wkv6 {dt} {(B, H, T, hs)} "
+                                         f"{what}: {e}") from None
+    return worst_fa, worst_wkv
+
+
+def flash_bound_ms(q, k, causal, window):
+    """The least time for flash attention on these shapes: q, k, v read
+    and o written once at the HBM rate, against the attended (q, k) pairs'
+    operations (QKᵀ and PV, 2 Dh each) at the dense bf16 tensor-core peak.
+    Returns ``(ms, bound_by, bytes ms, operations ms)``."""
+    B, S, Hq, Dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qpos, kpos = np.arange(S)[:, None], np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if causal:
+        ok &= qpos >= kpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    nbytes = q.element_size() * (2 * B * S * Hq * Dh + 2 * B * T * Hkv * Dh)
+    ops = 4.0 * Dh * int(ok.sum()) * B * Hq
+    return _bound(nbytes, ops, BF16_TENSOR_OPS_PER_S)
+
+
+def wkv6_bound_ms(r, w, s0):
+    """The least time for the WKV6 recurrence on these inputs: r, k, v, w,
+    u and s0 read and y and the state written once at the HBM rate,
+    against the float32 operations the function needs at the fp32 rate.
+    Per step and state entry that is 5: the y sum Σ_i r_i S_ij (multiply,
+    add) and the update w_i S_ij + k_i v_j (two multiplies, an add).  The
+    u term factors as v_j Σ_i r_i u_i k_i, so it costs 5 per step and
+    column, not per entry: r·u·k (2), the sum over i (1), times v_j and
+    into y_j (2)."""
+    B, T, H, hs = r.shape
+    nbytes = (3 * r.numel() * r.element_size() + w.numel() * w.element_size()
+              + 4 * H * hs + 2 * 4 * s0.numel() + 4 * r.numel())
+    ops = 5.0 * B * H * T * (hs * hs + hs)
+    return _bound(nbytes, ops, FP32_OPS_PER_S)
+
+
+def _bound(nbytes, ops, ops_per_s):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * t_bytes, 1e3 * t_ops)
+
+
+def _serve(params, cfg, prompt, attn_impl):
+    """Prefill the prompts, then ``LM_DECODE`` greedy decode steps (argmax
+    over the real vocabulary).  Returns the logits of each step (prefill
+    first), the generated tokens and the prefill and decode walls (card
+    synchronised)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, state = prefill(params, cfg, prompt, LM_PROMPT + LM_DECODE,
+                        attn_impl=attn_impl)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, toks = [lg], []
+    for i in range(LM_DECODE):
+        tok = lg[:, :cfg.vocab].argmax(dim=-1)
+        toks.append(tok)
+        lg, state = decode_step(params, cfg, tok, state, LM_PROMPT + i)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return logits, torch.stack(toks, dim=1), t1 - t0, \
+        time.perf_counter() - t1
+
+
+def device_breakdown(fn):
+    """Run ``fn`` once under ``torch.profiler``; returns its wall (card
+    synchronised, profiler on) and the device seconds of its kernels (the
+    profiler's device events, each counted once) by kind: the port's two
+    LM kernels by name, ``matmul`` (cuBLAS/CUTLASS products), ``copy``
+    (casts, copies, memcpy/memset) and ``other`` (elementwise, reductions,
+    indexing).  Empty when the profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = ("flash_attention" if "flash_attention_kernel" in name else
+                "wkv6" if "wkv6_kernel" in name else
+                "matmul" if any(t in name for t in (
+                    "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
+                else "copy" if "copy" in name or "memset" in name
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total * 1e-6
+    return wall, kinds
+
+
+def _fmt_breakdown(wall, kinds):
+    busy = sum(kinds.values())
+    if not busy:
+        return f"wall {wall:.4f} s, device time not measured (the " \
+               f"profiler saw no device event)"
+    return (f"wall {wall:.4f} s, device busy {busy:.4f} s ("
+            f"{busy / wall:.3f} of the wall): "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in
+                        sorted(kinds.items(), key=lambda kv: -kv[1])))
+
+
+def _check_decode(params, cfg, prompt, logits, gen, attn_impl):
+    """Each decode step's logits against ``forward`` over prompt +
+    generated tokens at its position, and the prefill's at the prompt's
+    last; returns the worst ``_close`` pair."""
+    from repro_torch.models import forward
+    import torch
+    full = forward(params, cfg, torch.cat([prompt, gen], dim=1),
+                   attn_impl=attn_impl)
+    worst = _close(logits[0], full[:, LM_PROMPT - 1], LM_F32_TOL)
+    for i, lg in enumerate(logits[1:]):
+        worst = _worst(worst, _close(lg, full[:, LM_PROMPT + i], LM_F32_TOL))
+    return worst
+
+
+def phase_serve(name, dev, seed):
+    """Serve ``LM_BATCH`` prompts of ``LM_PROMPT`` seeded tokens through
+    ``prefill`` and ``LM_DECODE`` greedy ``decode_step``s of the full-width
+    config ``name`` (random weights from a seeded generator on the card),
+    phases 11 (yi-6b) and 12 (rwkv6-3b).  Returns the measurements."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.models import LM, attention, decode_step, prefill, ssm
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    cfg = configs.get(name)
+    dense = cfg.family != "ssm"
+    impl = "flash" if dense else "auto"
+    counter = fa.flash_attention if dense else wk.wkv6_scan
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lm = LM(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                device=dev)
+        params = lm.params
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in lm.parameters())
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+
+        # warm-up (cuBLAS handles, allocator) on a short prompt
+        prefill(params, cfg, prompt[:, :64], 66, attn_impl=impl)
+        # the main path, bf16 activations: counts zeroed just before
+        fa.flash_attention.launches = 0
+        wk.wkv6_scan.launches = 0
+        logits, gen, out["prefill_s"], out["decode_s"] = _serve(
+            params, cfg, prompt, impl)
+        out["launches"] = counter.launches
+        out["other_launches"] = (wk.wkv6_scan.launches if dense
+                                 else fa.flash_attention.launches)
+        per_prefill = cfg.n_layers
+        per_step = 0 if dense else cfg.n_layers
+        want = per_prefill + LM_DECODE * per_step
+        if out["launches"] != want or out["other_launches"]:
+            raise AssertionError(
+                f"{name}: {counter.__name__} launched {out['launches']} "
+                f"times (want {want}: {per_prefill} per prefill, {per_step}"
+                f" per decode step), the other kernel "
+                f"{out['other_launches']}")
+        if not all(bool(lg.isfinite().all()) for lg in logits):
+            raise AssertionError(f"{name}: non-finite bf16 logits")
+        out["gen"] = gen[0, :8].tolist()
+
+        # the kernel's time on layer 0's inputs of this prefill
+        p0 = _layer0(params)
+        h = apply_norm(p0["norm1"], embed_tokens(params["embed"], prompt,
+                                                 cfg), cfg)
+        if dense:
+            pos = torch.arange(LM_PROMPT, device=dev)[None, :]
+            q, k, v = attention._qkv(p0["mixer"], h, cfg, pos)
+            run = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa
+            plain = lambda: fa.flash_attention_plain(q, k, v,       # noqa
+                                                     causal=True)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(           # noqa
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            out["lib_err"] = float((lib().transpose(1, 2).float()
+                                    - run().float()).abs().max())
+            out["lib_ms"] = cuda_ms(lib, 10)
+            out["bound"] = flash_bound_ms(q, k, True, None)
+            out["k_ms"] = cuda_ms(run, 10)
+            out["p_ms"] = cuda_ms(plain, 3)
+            del q, k, v, qt, kt, vt
+        else:
+            r, k, v, _, w = ssm._tmix_proj(p0["mixer"], h, ssm._shift(h),
+                                           cfg)
+            u = p0["mixer"]["u"].float()
+            H, hs = ssm._rwkv_dims(cfg)
+            s0 = torch.zeros((LM_BATCH, H, hs, hs), device=dev)
+            run = lambda: wk.wkv6_scan(r, k, v, w, u, s0)            # noqa
+            plain = lambda: wk.wkv6_scan_plain(r, k, v, w, u, s0)    # noqa
+            step = lambda: wk.wkv6_scan(r[:, :1], k[:, :1], v[:, :1],  # noqa
+                                        w[:, :1], u, s0)
+            out["lib_ms"] = None
+            out["bound"] = wkv6_bound_ms(r, w, s0)
+            out["k_ms"] = cuda_ms(run, 10)
+            out["p_ms"] = cuda_ms(plain, 1)
+            out["step_ms"] = cuda_ms(step, 20)
+            del r, k, v, w
+        del h, logits
+
+        # where one prefill and one decode step spend the card's time
+        box = {}
+        out["prof_prefill"] = device_breakdown(lambda: box.update(
+            st=prefill(params, cfg, prompt, LM_PROMPT + LM_DECODE,
+                       attn_impl=impl)[1]))
+        out["prof_decode"] = device_breakdown(lambda: decode_step(
+            params, cfg, gen[:, 0], box["st"], LM_PROMPT))
+        del box
+
+        # float32 activations: the same weights, checked
+        cfg32 = cfg.replace(dtype="float32")
+        logits32, gen32, _, _ = _serve(params, cfg32, prompt, impl)
+        if dense:
+            ref, _ = prefill(params, cfg32, prompt, LM_PROMPT,
+                             attn_impl="dense")
+        else:
+            ssm.wkv6_scan = wk.wkv6_scan_plain
+            try:
+                ref, _ = prefill(params, cfg32, prompt, LM_PROMPT)
+            finally:
+                ssm.wkv6_scan = wk.wkv6_scan
+        out["prefill_err"] = _close(logits32[0], ref, LM_F32_TOL)
+        del ref
+        out["decode_err"] = _check_decode(
+            params, cfg32, prompt, logits32, gen32,
+            "dense" if dense else "auto")
+        out["logit_max"] = max(float(lg.abs().max()) for lg in logits32)
+        del lm, params, logits32
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_line(label, name, r) -> str:
+    """Phase 11's or 12's line of numbers, from ``phase_serve``'s result."""
+    kname = "flash_attention" if name == "yi-6b" else "wkv6"
+    ntok = LM_BATCH * LM_PROMPT
+    bound, bound_by, b_bytes, b_ops = r["bound"]
+    extra = (f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
+             f"{r['lib_ms']:.4f} ms on the same tensors (max |SDPA - "
+             f"kernel| {r['lib_err']})" if r["lib_ms"] is not None else
+             f"one decode step's launch (T = 1) {r['step_ms']:.4f} ms")
+    return (f"{label}: {name} at full width, "
+          f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
+          f"{r['init_s']:.2f} s; {LM_BATCH} x {LM_PROMPT}-token prompts "
+          f"+ {LM_DECODE} greedy steps, bf16: prefill "
+          f"{r['prefill_s']:.4f} s = {ntok / r['prefill_s']:.0f} "
+          f"tokens/s, decode {r['decode_s']:.4f} s = "
+          f"{LM_BATCH * LM_DECODE / r['decode_s']:.1f} tokens/s "
+          f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
+          f"tokens {r['gen']}; {kname} launches {r['launches']} "
+          f"(other LM kernel {r['other_launches']}); on layer 0's "
+          f"prefill inputs: kernel {r['k_ms']:.4f} ms, plain "
+          f"{r['p_ms']:.4f} ms, {extra}, bound {bound:.4f} ms "
+          f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
+          f"{b_ops:.4f} ms) | f32 activations: prefill logits vs "
+          + ("attn_impl='dense'" if name == "yi-6b"
+             else "the plain _wkv_scan path")
+          + f" max |diff| {r['prefill_err'][0]} (share of tol "
+          f"{r['prefill_err'][1]:.3f}), each decode step and the prefill "
+          f"vs forward over prompt + generated tokens max |diff| "
+          f"{r['decode_err'][0]} (share {r['decode_err'][1]:.3f}), max "
+          f"|logit| {r['logit_max']:.4f}, tol {LM_F32_TOL} | profiled "
+          f"bf16 prefill: {_fmt_breakdown(*r['prof_prefill'])}; one "
+          f"decode step: {_fmt_breakdown(*r['prof_decode'])}")
+
+
+def _layer0(params):
+    """Layer 0's parameters of a one-sub-block stack (views)."""
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda a: a[0], params["stack"]["sub0"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -961,6 +1370,10 @@ def main() -> int:
     from repro_torch.kernels.mr_sched import megakernel as mk
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    # float32 products in full float32: the LM checks compare float32
+    # paths, and rwkv6's decay LoRA product is float32 by design
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     print(f"device: {smi} | torch {torch.__version__} cuda "
@@ -1114,8 +1527,29 @@ def main() -> int:
           f"operations {s['parts'][1]:.4f} ms)",
           flush=True)
 
+    # 10. the LM kernels against their plain versions
+    t0 = time.perf_counter()
+    worst_fa, worst_wkv = phase_lm_kernels(dev)
+    n_fa = sum(len(c[-1]) for c in FA_CHECK_SHAPES)
+    print(f"lm kernels: flash_attention vs flash_attention_plain on {n_fa} "
+          f"cases (tests' FA_SHAPES in f32 and bf16, yi-6b's prefill "
+          f"(4, 2048, 32/4 heads, 128) f32 and bf16 causal, and with window "
+          f"512), max_abs_err {worst_fa} (tol {FA_TOL}); wkv6 vs "
+          f"wkv6_scan_plain "
+          f"on {2 * len(WKV_CHECK_SHAPES)} cases (tests' WKV_SHAPES and "
+          f"rwkv6-3b's (4, 40, 2048, 64), non-zero s0, r/k/v f32 and bf16), "
+          f"y and final state, max_abs_err {worst_wkv} (tol {WKV_TOL}), "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 11. and 12. serving yi-6b and rwkv6-3b at full width
+    lm = {}
+    for label, name in (("serve dense", "yi-6b"), ("serve rwkv", "rwkv6-3b")):
+        r = lm[name] = phase_serve(name, dev, seed=0)
+        print(serve_line(label, name, r), flush=True)
+
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]
+    yi, rw = lm["yi-6b"], lm["rwkv6-3b"]
     print(json.dumps({"kernels": [{
         "name": "mr_epoch", "route": "cuda", "source": src + "mr_epoch.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
@@ -1146,7 +1580,20 @@ def main() -> int:
         "launches": s["launches"], "max_abs_err": max(worst_s, s["worst"]),
         "ms": s["k_ms"],
         "plain_ms": s["p_ms"], "bound_ms": s["b_ms"],
-        "bound_by": s["bound_by"], "library_ms": None}]}))
+        "bound_by": s["bound_by"], "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+        "launches": yi["launches"], "max_abs_err": max(worst_fa.values()),
+        "ms": yi["k_ms"], "plain_ms": yi["p_ms"], "bound_ms": yi["bound"][0],
+        "bound_by": yi["bound"][1], "library_ms": yi["lib_ms"]}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:33",
+        "launches": rw["launches"], "max_abs_err": worst_wkv,
+        "ms": rw["k_ms"], "plain_ms": rw["p_ms"], "bound_ms": rw["bound"][0],
+        "bound_by": rw["bound"][1], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

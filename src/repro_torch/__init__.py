@@ -7,7 +7,9 @@ grid into a ``ScenarioArrays`` batch, steps it through the hand-written
 CPU) and reduces it into a labelled ``SweepResult``.  Traced, the same
 kernels record each lane's per-epoch time series and event log
 (``core.telemetry``); ``kernels.mr_sched.ops.schedule`` runs the
-fixed-epoch ``mr_schedule`` kernel.  Entry points take
-``device=`` and default to ``"cuda"``.
+fixed-epoch ``mr_schedule`` kernel.  ``models`` and ``configs`` serve the
+LM substrate's dense-attention and RWKV6 families (``prefill``,
+``decode_step``) through the hand-written ``flash_attention`` and ``wkv6``
+kernels.  Entry points take ``device=`` and default to ``"cuda"``.
 """
 __version__ = "0.1.0"

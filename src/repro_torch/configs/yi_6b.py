@@ -1,0 +1,9 @@
+"""yi-6b — llama-arch dense decoder with GQA. [arXiv:2403.04652; hf]"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4,
+    d_ff=11008, vocab=64000,
+    rope_theta=5_000_000.0, norm="rmsnorm", act="swiglu",
+)

@@ -2,4 +2,6 @@
 plain PyTorch version:
 
 * mr_sched — the batched IOTSim event loop (the paper's hot path)
+* flash_attention — GQA attention with an online softmax (LM prefill)
+* rwkv6 — the RWKV6 WKV recurrence (LM prefill and decode)
 """

@@ -26,6 +26,9 @@ SOURCES = {
     "mr_epoch": _HERE / "mr_sched" / "csrc" / "mr_epoch.cu",
     "mr_epoch_control": _HERE / "mr_sched" / "csrc" / "mr_epoch_control.cu",
     "mr_schedule": _HERE / "mr_sched" / "csrc" / "mr_schedule.cu",
+    "flash_attention": _HERE / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+    "wkv6": _HERE / "rwkv6" / "csrc" / "wkv6.cu",
 }
 # library -> (source, macros)
 LIBRARIES = {
@@ -34,6 +37,8 @@ LIBRARIES = {
     "mr_epoch_trace": ("mr_epoch", ("-DMR_TRACE",)),
     "mr_epoch_control_trace": ("mr_epoch_control", ("-DMR_TRACE",)),
     "mr_schedule": ("mr_schedule", ()),
+    "flash_attention": ("flash_attention", ()),
+    "wkv6": ("wkv6", ()),
 }
 BUILD_DIR = _HERE / "_build"
 # Bitwise parity with the reference needs every float op to round on its

@@ -1,0 +1,224 @@
+"""Layer stacks: a Python loop over the stacked ``layers`` axis.
+
+Parameters are stacked on a leading ``layers`` axis per sub-block of the
+block pattern's smallest repeating period, as in the JAX package (whose
+``lax.scan`` over that axis becomes a loop here; PyTorch runs eagerly and
+needs no rematerialisation for serving).  Decode states are stacked the same
+way and updated in place.  Blocks whose family is not ported yet (``moe``,
+``mamba``) raise ``NotImplementedError`` naming ROADMAP A9 (``_period``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention, ssm
+from .config import ArchConfig
+from .layers import (apply_mlp, apply_norm, mlp_decls, norm_decls,
+                     stack_decls, torch_dtype, tree_items, tree_map)
+
+
+def _pattern_period(cfg: ArchConfig) -> list[dict]:
+    pat = cfg.block_pattern()
+    for p in range(1, len(pat) + 1):
+        if len(pat) % p == 0 and pat == pat[:p] * (len(pat) // p):
+            return pat[:p]
+    return pat
+
+
+MIXER_DECLS = {"attn": attention.attn_decls, "rwkv": ssm.rwkv_tmix_decls}
+MLP_DECLS = {"mlp": mlp_decls, "rwkv_cmix": ssm.rwkv_cmix_decls}
+
+
+def _period(cfg: ArchConfig) -> list[dict]:
+    """The block period, raising for a block the port does not have yet."""
+    period = _pattern_period(cfg)
+    for entry in period:
+        for kind, ported in ((entry["mixer"], MIXER_DECLS),
+                             (entry["mlp"], MLP_DECLS)):
+            if kind not in ported:
+                raise NotImplementedError(
+                    f"{cfg.name}: {kind} blocks are not ported to "
+                    f"repro_torch yet (ROADMAP A9)")
+    return period
+
+
+def sub_block_decls(cfg: ArchConfig, entry: dict) -> dict:
+    return {
+        "norm1": norm_decls(cfg),
+        "mixer": MIXER_DECLS[entry["mixer"]](cfg),
+        "norm2": norm_decls(cfg),
+        "mlp": MLP_DECLS[entry["mlp"]](cfg),
+    }
+
+
+def stack_param_decls(cfg: ArchConfig) -> dict:
+    """{"sub{i}": decls} stacked over n_layers/period periods."""
+    period = _period(cfg)
+    if not period:                       # 0-layer variant
+        return {}
+    n_periods = cfg.n_layers // len(period)
+    return {
+        f"sub{i}": stack_decls(sub_block_decls(cfg, e), n_periods)
+        for i, e in enumerate(period)
+    }
+
+
+def _layer(tree, li: int):
+    """Layer ``li``'s slice of a stacked tree (views)."""
+    return tree_map(lambda a: a[li], tree)
+
+
+def _n_periods(params: dict) -> int:
+    return next(iter(tree_items(params)))[1].shape[0]
+
+
+def _apply_mlp_block(p, h, cfg: ArchConfig, entry: dict):
+    if entry["mlp"] == "mlp":
+        return apply_mlp(p, h, cfg)
+    return ssm.apply_rwkv_cmix(p, h, cfg)
+
+
+def _apply_sub_block(p, x, cfg: ArchConfig, entry: dict, positions,
+                     attn_impl: str):
+    h = apply_norm(p["norm1"], x, cfg)
+    if entry["mixer"] == "attn":
+        out = attention.apply_attention(p["mixer"], h, cfg, positions,
+                                        impl=attn_impl)
+    else:
+        out = ssm.apply_rwkv_tmix(p["mixer"], h, cfg)
+    x = x + out
+    h = apply_norm(p["norm2"], x, cfg)
+    return x + _apply_mlp_block(p["mlp"], h, cfg, entry)
+
+
+def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
+                attn_impl: str = "auto"):
+    """Full-sequence forward through all layers.  x: (B,S,D)."""
+    period = _period(cfg)
+    if not period:
+        return x
+    for li in range(_n_periods(params)):
+        for i, entry in enumerate(period):
+            x = _apply_sub_block(_layer(params[f"sub{i}"], li), x, cfg,
+                                 entry, positions, attn_impl)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decode: per-layer recurrent state threading
+# ---------------------------------------------------------------------------
+
+def init_stack_state(cfg: ArchConfig, batch: int, cache_len: int,
+                     device=None) -> dict:
+    """Stacked per-period decode states (KV caches / SSM states)."""
+    period = _period(cfg)
+    if not period:
+        return {}
+    n_periods = cfg.n_layers // len(period)
+
+    def stacked(leaves):
+        return tree_map(lambda a: a.expand((n_periods,) + a.shape).clone(),
+                        leaves)
+
+    state = {}
+    for i, entry in enumerate(period):
+        sub = {}
+        if entry["mixer"] == "attn":
+            sub["mixer"] = stacked(attention.init_kv_cache(
+                cfg, batch, cache_len, device=device))
+        else:
+            sub["mixer"] = stacked(ssm.init_rwkv_state(cfg, batch,
+                                                       device=device))
+        if entry["mlp"] == "rwkv_cmix":
+            sub["mlp"] = stacked(torch.zeros(
+                (batch, cfg.d_model), dtype=torch_dtype(cfg.dtype),
+                device=device))
+        state[f"sub{i}"] = sub
+    return state
+
+
+def _prefill_sub_block(p, x, cfg: ArchConfig, entry: dict, cache_len: int,
+                       attn_impl: str):
+    h = apply_norm(p["norm1"], x, cfg)
+    new = {}
+    if entry["mixer"] == "attn":
+        out, new["mixer"] = attention.prefill_attention(
+            p["mixer"], h, cfg, cache_len, impl=attn_impl)
+    else:
+        out, new["mixer"] = ssm.apply_rwkv_tmix(p["mixer"], h, cfg,
+                                                return_state=True)
+    x = x + out
+    h = apply_norm(p["norm2"], x, cfg)
+    if entry["mlp"] == "rwkv_cmix":
+        # cmix token-shift decode state = last token of the cmix input h
+        new["mlp"] = h[:, -1]
+    return x + _apply_mlp_block(p["mlp"], h, cfg, entry), new
+
+
+def _stack_states(states: list):
+    """A list of per-layer state trees -> one tree stacked on axis 0."""
+    first = states[0]
+    if isinstance(first, dict):
+        return {k: _stack_states([s[k] for s in states]) for k in first}
+    return torch.stack(states)
+
+
+def prefill_stack(params: dict, x, cfg: ArchConfig, cache_len: int, *,
+                  attn_impl: str = "auto"):
+    """Full-sequence forward that also returns stacked decode states."""
+    period = _period(cfg)
+    if not period:
+        return x, {}
+    per_layer = []
+    for li in range(_n_periods(params)):
+        new_st = {}
+        for i, entry in enumerate(period):
+            x, new_st[f"sub{i}"] = _prefill_sub_block(
+                _layer(params[f"sub{i}"], li), x, cfg, entry, cache_len,
+                attn_impl)
+        per_layer.append(new_st)
+    return x, _stack_states(per_layer)
+
+
+def _step_sub_block(p, x, st, cfg: ArchConfig, entry: dict, t: int):
+    h = apply_norm(p["norm1"], x, cfg)
+    new = {}
+    if entry["mixer"] == "attn":
+        out, new["mixer"] = attention.decode_attention(p["mixer"], h,
+                                                       st["mixer"], cfg, t)
+    else:
+        out, new["mixer"] = ssm.rwkv_tmix_step(p["mixer"], h, st["mixer"],
+                                               cfg)
+    x = x + out
+    h = apply_norm(p["norm2"], x, cfg)
+    if entry["mlp"] == "rwkv_cmix":
+        out, new["mlp"] = ssm.rwkv_cmix_step(p["mlp"], h, st["mlp"], cfg)
+        return x + out, new
+    return x + _apply_mlp_block(p["mlp"], h, cfg, entry), new
+
+
+def _write_back(dst, li: int, new) -> None:
+    """Store layer ``li``'s new state into the stacked tree ``dst`` (a
+    leaf that is already the stacked tensor's view is left alone)."""
+    for path, leaf in tree_items(new):
+        node = dst
+        for key in path[:-1]:
+            node = node[key]
+        slot = node[path[-1]][li]
+        if leaf.data_ptr() != slot.data_ptr():
+            slot.copy_(leaf)
+
+
+def step_stack(params: dict, x, state: dict, cfg: ArchConfig, t: int):
+    """One-token decode through all layers.  x: (B,1,D); t: position.
+    ``state`` is updated in place and returned."""
+    period = _period(cfg)
+    if not period:
+        return x, state
+    for li in range(_n_periods(params)):
+        for i, entry in enumerate(period):
+            key = f"sub{i}"
+            x, new = _step_sub_block(_layer(params[key], li), x,
+                                     _layer(state[key], li), cfg, entry, t)
+            _write_back(state[key], li, new)
+    return x, state

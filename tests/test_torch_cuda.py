@@ -8,14 +8,22 @@ card and no JAX it runs alone:
 instantiations of ``mr_epoch`` (open loop and control, untraced and traced)
 and ``mr_schedule`` are held against their plain PyTorch versions on the
 card, bit for bit, and the sweep and traced paths on the card against the
-same paths on the CPU.
+same paths on the CPU.  The LM kernels (``flash_attention``, ``wkv6``) are
+held against their plain versions at the tolerances of the CPU tests
+(summation order), and the reduced yi-6b and rwkv6-3b serving paths on the
+card against the same paths on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import control, engine, sweep
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.mr_sched import kernel, megakernel, ops
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from repro_torch.models import decode_step, init_model, prefill
+from repro_torch.models.layers import tree_map
 
 
 def _card():
@@ -282,3 +290,112 @@ def test_schedule_kernel_matches_plain_on_card(T):
     assert kernel.mr_schedule.launches == before + 2
     for name, a, b in zip(("start", "finish"), want, got):
         assert torch.equal(_bits(a), _bits(b)), f"ops.schedule {name}"
+
+
+# ---------------------------------------------------------------------------
+# LM kernels
+# ---------------------------------------------------------------------------
+
+FA_SHAPES = [(2, 128, 128, 4, 2, 32, True, None),
+             (1, 256, 256, 8, 8, 16, True, 64),
+             (2, 64, 64, 4, 1, 32, False, None),
+             (1, 96, 96, 2, 1, 8, True, 32),
+             (1, 200, 200, 4, 2, 128, True, None)]     # ragged 64-tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(shape, dtype):
+    dev = _card()
+    B, S, T, Hq, Hkv, Dh, causal, window = shape
+    rng = np.random.default_rng(S + Dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(dev, dtype) for sh in ((B, S, Hq, Dh), (B, T, Hkv, Dh),
+                                          (B, T, Hkv, Dh)))
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.flash_attention.launches == before + 1
+    want = fa_kernel.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [4, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain_on_card(hs, dtype):
+    dev = _card()
+    B, T, H = 2, 77, 3
+    rng = np.random.default_rng(hs)
+    r, k, v = (torch.from_numpy(0.5 * rng.standard_normal((B, T, H, hs))
+                                .astype(np.float32)).to(dev, dtype)
+               for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.45, 0.95, (B, T, H, hs))
+                         .astype(np.float32)).to(dev)
+    u = torch.from_numpy((0.3 * rng.standard_normal((H, hs)))
+                         .astype(np.float32)).to(dev)
+    s0 = torch.from_numpy((0.2 * rng.standard_normal((B, H, hs, hs)))
+                          .astype(np.float32)).to(dev)
+    before = wkv_kernel.wkv6_scan.launches
+    y, s = wkv_kernel.wkv6_scan(r, k, v, w, u, s0)
+    assert wkv_kernel.wkv6_scan.launches == before + 1
+    y2, s2 = wkv_kernel.wkv6_scan_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y2, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s2, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_kernels_never_take_the_plain_path_on_card(monkeypatch):
+    dev = _card()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor took the plain version")
+    monkeypatch.setattr(fa_kernel, "flash_attention_plain", refuse)
+    monkeypatch.setattr(wkv_kernel, "wkv6_scan_plain", refuse)
+    x = torch.zeros((1, 64, 2, 16), device=dev)
+    fa_kernel.flash_attention(x, x, x)
+    w = torch.full((1, 8, 2, 16), 0.5, device=dev)
+    u = torch.zeros((2, 16), device=dev)
+    wkv_kernel.wkv6_scan(w, w, w, w, u)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(torch.zeros((1, 8, 2, 256), device=dev),
+                                  torch.zeros((1, 8, 2, 256), device=dev),
+                                  torch.zeros((1, 8, 2, 256), device=dev))
+    with pytest.raises(ValueError):
+        wkv_kernel.wkv6_scan(*(torch.zeros((1, 4, 2, 12), device=dev),) * 4,
+                             torch.zeros((2, 12), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yi-6b", "rwkv6-3b"])
+def test_serving_on_card_matches_cpu(name):
+    dev = _card()
+    cfg = configs.get(name).reduced(dtype="float32")
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 14)))
+    counts = (fa_kernel.flash_attention.launches,
+              wkv_kernel.wkv6_scan.launches)
+    out = {}
+    for where, params in (("cpu", cpu), ("card", card)):
+        t = toks.to(params["final_norm"]["scale"].device)
+        lg, st = prefill(params, cfg, t[:, :12], 14, attn_impl="flash")
+        lgs = [lg]
+        for pos in (12, 13):
+            lg, st = decode_step(params, cfg, t[:, pos], st, pos)
+            lgs.append(lg)
+        out[where] = [x.cpu() for x in lgs]
+    # f32 end to end; the kernels' summation order differs (1e-5, as the
+    # CPU parity tests)
+    for a, b in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    grew = (fa_kernel.flash_attention.launches - counts[0],
+            wkv_kernel.wkv6_scan.launches - counts[1])
+    assert grew == ((cfg.n_layers, 0) if name == "yi-6b"
+                    else (0, 3 * cfg.n_layers))
+

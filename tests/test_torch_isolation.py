@@ -26,6 +26,8 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from repro_torch.kernels import _build
 from repro_torch.kernels.mr_sched import kernel, megakernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.core import telemetry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -36,6 +38,7 @@ assert torch.get_num_threads() == threads0
 assert not _build._loaded, "an import loaded a kernel library"
 assert not megakernel._LIBS, "an import bound a kernel"
 assert not kernel._LIB, "an import bound mr_schedule"
+assert not fa_kernel._LIB and not wkv_kernel._LIB, "an import bound a kernel"
 assert telemetry.provenance.cache_info().currsize == 0
 print(len(names))
 """
@@ -82,7 +85,7 @@ def test_every_kernel_source_is_built_without_torch_headers():
     # defined there (the trace instantiations through the MR_TRACE macro)
     assert set(_build.LIBRARIES) == {
         "mr_epoch", "mr_epoch_control", "mr_epoch_trace",
-        "mr_epoch_control_trace", "mr_schedule"}
+        "mr_epoch_control_trace", "mr_schedule", "flash_attention", "wkv6"}
     for name, (src, macros) in _build.LIBRARIES.items():
         text = _build.SOURCES[src].read_text()
         assert f"{name}_launch" in text, name
