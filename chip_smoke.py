@@ -58,7 +58,9 @@ each printing one line of numbers:
               plain version's; its time, launches and bound.
 
 10. lm kernels — ``flash_attention`` and ``wkv6`` against their plain
-              versions on the card at stated tolerances (summation order):
+              versions on the card at stated tolerances (flash: f32 at 2e-6,
+              summation order; bf16, the tensor-core path, at 2 bf16 ulps +
+              1e-4, its worst case in ulps printed):
               flash on the kernel tests' five shapes in f32 and bf16, yi-6b's
               prefill shape (B 4, S = T = 2048, 32/4 heads, head_dim 128)
               f32 and bf16, causal and with a 512 window; wkv6 on the kernel
@@ -68,9 +70,12 @@ each printing one line of numbers:
               generator on the card), 4 prompts of 2048 seeded tokens
               through ``prefill(attn_impl="flash")`` and 32 greedy
               ``decode_step``s in bf16: flash's launch count must rise by 32
-              per prefill; prefill and decode tokens/s, the kernel's time,
-              plain version's, ``F.scaled_dot_product_attention``'s on the
-              same tensors (timed only, never on the path) and its bound;
+              per prefill; prefill and decode tokens/s, the kernel's time
+              (with its TFLOP/s of the function's operations and its share
+              of the bound), plain version's, ``F.scaled_dot_product_
+              attention``'s on the same tensors (timed only, never on the
+              path; the kernel's ratio to it) and its bound; on a line of
+              its own before, the float32 instantiation's time there;
               a profiled prefill and decode step (device time by kind of
               kernel).  In f32 activations the prefill logits match
               ``attn_impl="dense"`` and each decode step's logits match
@@ -992,9 +997,8 @@ FA_CHECK_SHAPES = [
     (2, 64, 64, 4, 1, 32, False, None, ("float32", "bfloat16")),
     (1, 128, 128, 2, 2, 64, True, None, ("float32", "bfloat16")),
     (1, 96, 96, 2, 1, 8, True, 32, ("float32", "bfloat16")),
-    # yi-6b's prefill, and a sliding window at head_dim 128
-    # in float32 too, where the 2e-6 tolerance would catch a dropped or
-    # mis-scaled kv tile that bf16's 2e-2 could miss (|o| ~ 0.03-0.06 here)
+    # yi-6b's prefill, and a sliding window at head_dim 128; in float32
+    # too (the CUDA-core instantiation), at 2e-6 (|o| ~ 0.03-0.06 here)
     (4, 2048, 2048, 32, 4, 128, True, None, ("float32", "bfloat16")),
     (4, 2048, 2048, 32, 4, 128, True, 512, ("float32", "bfloat16")),
 ]
@@ -1002,11 +1006,13 @@ FA_CHECK_SHAPES = [
 # prefill, each with a non-zero initial state, r/k/v in float32 and bfloat16
 WKV_CHECK_SHAPES = [(2, 3, 96, 16), (1, 2, 64, 8), (2, 1, 40, 4),
                     (1, 4, 128, 32), (4, 40, 2048, 64)]
-# Kernel against plain version (atol = rtol): tests/test_kernels.py's
-# tolerances, all summation order — flash 2e-6 in float32 and 2e-2 in
-# bfloat16 (the output's bf16 rounding); wkv6 1e-4 on y and the state,
-# which both forms return in float32 whatever the inputs' type.
-FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+# Kernel against plain version: flash 2e-6 (atol = rtol) in float32
+# (summation order, tests/test_kernels.py's tolerance); in bfloat16 2 bf16
+# ulps of |want| + 1e-4 (the output's rounding after the tensor cores'
+# summation order and the hi/lo split of p; the 1e-4 floor is for outputs
+# that cancel near zero); wkv6 1e-4 (atol = rtol) on y and the state, which
+# both forms return in float32 whatever the inputs' type.
+FA_TOL = {"float32": 2e-6, "bfloat16": (2, 1e-4)}   # bf16: (ulps, atol)
 WKV_TOL = 1e-4
 # f32-activation serving checks at full width (atol = rtol): the same
 # function through paths whose float32 sums run in other orders (flash
@@ -1028,30 +1034,55 @@ def _close(got, want, tol):
     return float(diff.max()), share
 
 
+def _close_ulps(got, want, ulps, atol):
+    """bf16: ``(largest |got - want|, largest (|got - want| - atol)^+ in
+    bf16 ulps of |want|)``; raises unless the second is <= ``ulps`` and
+    ``got`` is finite."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import bf16_ulp
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    over = (diff - atol).clamp_min(0.0)
+    beyond = torch.where(over > 0, over / bf16_ulp(want),
+                         torch.zeros_like(over))
+    worst = float(beyond.max())
+    if not worst <= ulps or not bool(got.isfinite().all()):
+        raise AssertionError(f"max |diff| {float(diff.max())}: "
+                             f"{worst} bf16 ulps beyond atol {atol} (tol "
+                             f"{ulps} ulps)")
+    return float(diff.max()), worst
+
+
 def _worst(a, b):
     return (max(a[0], b[0]), max(a[1], b[1]))
 
 
 def phase_lm_kernels(dev, seed=0):
     """Both LM kernels against their plain versions on the card (phase
-    10); returns the largest differences ``({dtype: flash}, wkv6)``."""
+    10); returns the largest differences ``({dtype: flash}, wkv6)`` and
+    the bf16 flash cases' worst ulps beyond the atol floor."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rwkv6 import kernel as wk
     rng = np.random.default_rng(seed)
     worst_fa = {"float32": 0.0, "bfloat16": 0.0}
+    worst_ulps = 0.0
     for B, S, T, Hq, Hkv, Dh, causal, window, dts in FA_CHECK_SHAPES:
         base = [rng.standard_normal(s).astype(np.float32) for s in
                 ((B, S, Hq, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh))]
         for dt in dts:
             q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dt))
                        for a in base)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
             try:
-                worst_fa[dt] = max(worst_fa[dt], _close(
-                    fa.flash_attention(q, k, v, causal=causal,
-                                       window=window),
-                    fa.flash_attention_plain(q, k, v, causal=causal,
-                                             window=window), FA_TOL[dt])[0])
+                if dt == "bfloat16":
+                    err, ulps = _close_ulps(got, want, *FA_TOL[dt])
+                    worst_ulps = max(worst_ulps, ulps)
+                else:
+                    err = _close(got, want, FA_TOL[dt])[0]
+                worst_fa[dt] = max(worst_fa[dt], err)
             except AssertionError as e:
                 raise AssertionError(f"flash_attention {dt} "
                                      f"{(B, S, T, Hq, Hkv, Dh, causal, window)}"
@@ -1074,7 +1105,7 @@ def phase_lm_kernels(dev, seed=0):
                 except AssertionError as e:
                     raise AssertionError(f"wkv6 {dt} {(B, H, T, hs)} "
                                          f"{what}: {e}") from None
-    return worst_fa, worst_wkv
+    return worst_fa, worst_wkv, worst_ulps
 
 
 def flash_bound_ms(q, k, causal, window):
@@ -1164,7 +1195,7 @@ def device_breakdown(fn):
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        kind = ("flash_attention" if "flash_attention_kernel" in name else
+        kind = ("flash_attention" if "flash_attention" in name else
                 "wkv6" if "wkv6_kernel" in name else
                 "matmul" if any(t in name for t in (
                     "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
@@ -1270,6 +1301,10 @@ def phase_serve(name, dev, seed):
             out["bound"] = flash_bound_ms(q, k, True, None)
             out["k_ms"] = cuda_ms(run, 10)
             out["p_ms"] = cuda_ms(plain, 3)
+            # the float32 instantiation (CUDA cores) at the same shape
+            q, k, v = (x.float() for x in (q, k, v))
+            out["f32_ms"] = cuda_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True), 5)
             del q, k, v, qt, kt, vt
         else:
             r, k, v, _, w = ssm._tmix_proj(p0["mixer"], h, ssm._shift(h),
@@ -1326,9 +1361,13 @@ def serve_line(label, name, r) -> str:
     kname = "flash_attention" if name == "yi-6b" else "wkv6"
     ntok = LM_BATCH * LM_PROMPT
     bound, bound_by, b_bytes, b_ops = r["bound"]
+    ops_per_s = (BF16_TENSOR_OPS_PER_S if name == "yi-6b"
+                 else FP32_OPS_PER_S)
+    rate = b_ops / r["k_ms"] * ops_per_s / 1e12   # function ops / time
     extra = (f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
-             f"{r['lib_ms']:.4f} ms on the same tensors (max |SDPA - "
-             f"kernel| {r['lib_err']})" if r["lib_ms"] is not None else
+             f"{r['lib_ms']:.4f} ms on the same tensors (kernel / SDPA "
+             f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
+             f"{r['lib_err']})" if r["lib_ms"] is not None else
              f"one decode step's launch (T = 1) {r['step_ms']:.4f} ms")
     return (f"{label}: {name} at full width, "
           f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
@@ -1340,7 +1379,9 @@ def serve_line(label, name, r) -> str:
           f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
           f"tokens {r['gen']}; {kname} launches {r['launches']} "
           f"(other LM kernel {r['other_launches']}); on layer 0's "
-          f"prefill inputs: kernel {r['k_ms']:.4f} ms, plain "
+          f"prefill inputs: kernel {r['k_ms']:.4f} ms ({rate:.1f} "
+          f"TFLOP/s of the function's operations, {bound / r['k_ms']:.4f} "
+          f"of the bound), plain "
           f"{r['p_ms']:.4f} ms, {extra}, bound {bound:.4f} ms "
           f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
           f"{b_ops:.4f} ms) | f32 activations: prefill logits vs "
@@ -1529,12 +1570,15 @@ def main() -> int:
 
     # 10. the LM kernels against their plain versions
     t0 = time.perf_counter()
-    worst_fa, worst_wkv = phase_lm_kernels(dev)
+    worst_fa, worst_wkv, worst_ulps = phase_lm_kernels(dev)
     n_fa = sum(len(c[-1]) for c in FA_CHECK_SHAPES)
     print(f"lm kernels: flash_attention vs flash_attention_plain on {n_fa} "
           f"cases (tests' FA_SHAPES in f32 and bf16, yi-6b's prefill "
           f"(4, 2048, 32/4 heads, 128) f32 and bf16 causal, and with window "
-          f"512), max_abs_err {worst_fa} (tol {FA_TOL}); wkv6 vs "
+          f"512), max_abs_err {worst_fa}, bf16 worst {worst_ulps:.3f} "
+          f"ulps beyond the {FA_TOL['bfloat16'][1]} floor (tol: f32 "
+          f"{FA_TOL['float32']}, bf16 {FA_TOL['bfloat16'][0]} ulps + "
+          f"{FA_TOL['bfloat16'][1]}); wkv6 vs "
           f"wkv6_scan_plain "
           f"on {2 * len(WKV_CHECK_SHAPES)} cases (tests' WKV_SHAPES and "
           f"rwkv6-3b's (4, 40, 2048, 64), non-zero s0, r/k/v f32 and bf16), "
@@ -1545,6 +1589,12 @@ def main() -> int:
     lm = {}
     for label, name in (("serve dense", "yi-6b"), ("serve rwkv", "rwkv6-3b")):
         r = lm[name] = phase_serve(name, dev, seed=0)
+        if name == "yi-6b":
+            print(f"flash f32: the float32 instantiation (CUDA cores) on "
+                  f"layer 0's prefill inputs cast to float32, (4, 2048, "
+                  f"32/4 heads, 128) causal: {r['f32_ms']:.4f} ms per "
+                  f"launch (bf16 tensor-core kernel {r['k_ms']:.4f} ms)",
+                  flush=True)
         print(serve_line(label, name, r), flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"

@@ -12,8 +12,12 @@ recurrence:
   kept f32 in the PV product, output ``acc / max(l, 1e-30)``.
 * :func:`flash_attention` — the wrapper: a CUDA tensor launches the
   hand-written kernel ``csrc/flash_attention.cu`` (built for ``sm_90a`` at
-  first use; its own 64 × 64 tiles, so it agrees with the plain version up
-  to summation order), a CPU tensor takes the plain version.
+  first use; its own tiles of 64 q rows by 64 keys in float32 and 32 keys
+  in bfloat16), a CPU tensor takes the plain version.
+  float32 runs on the CUDA cores and agrees with the plain version up to
+  summation order; bfloat16 runs on the tensor cores (``mma.sync``, p
+  split into a bf16 hi/lo pair in PV) and is held to 2 bf16 ulps
+  (:func:`bf16_ulp`) plus a small absolute floor.
   ``flash_attention.launches`` counts its launches.
 """
 from __future__ import annotations
@@ -138,35 +142,68 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at ``|x|`` (0 where ``x`` is 0): the
+    unit in which the bf16 kernel's result is held to its plain version."""
+    x = x.float().abs()
+    exp = torch.frexp(x).exponent            # |x| in [2^(e-1), 2^e)
+    return torch.where(x > 0, torch.ldexp(torch.ones_like(x), exp - 8),
+                       torch.zeros_like(x))
+
+
+def _rows_aligned(x) -> bool:
+    """Can ``cp.async`` move ``x``'s rows 16 bytes at a time: is its pointer,
+    and every stride of a leading dim that has more than one index, a
+    multiple of 16 bytes?"""
+    return x.data_ptr() % 16 == 0 and all(
+        x.size(i) == 1 or x.stride(i) * x.element_size() % 16 == 0
+        for i in range(3))
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q: (B, S, Hq, Dh); k/v: (B, T, Hkv, Dh) -> (B, S, Hq, Dh) in q's
     dtype (float32 or bfloat16).  q-head ``h`` reads kv-head ``h // G``.
 
     CUDA tensors launch the kernel (or raise; it tiles by 64); CPU tensors
-    take :func:`flash_attention_plain` at its default block sizes.
+    take :func:`flash_attention_plain` at its default block sizes.  Inputs
+    are read in place through their strides, except: a tensor whose head
+    dim is strided is copied contiguous; in bfloat16 a head dim that is not
+    a multiple of 8 is zero-padded to one (a copy; the zeros leave the dot
+    products exact and the padded output columns are dropped), and a tensor
+    whose pointer or row strides are not multiples of 16 bytes is copied
+    contiguous, since the tensor-core kernel moves rows by 16-byte
+    ``cp.async``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, window)
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     B, S, Hq, Dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    o = torch.empty((B, S, Hq, Dh), dtype=q.dtype, device=q.device)
+    scale = float(np.float32(Dh ** -0.5))
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    pad = -Dh % 8 if q.dtype == torch.bfloat16 else 0
+    if pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (x if _rows_aligned(x)
+                   else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    o = torch.empty((B, S, Hq, Dh + pad), dtype=q.dtype, device=q.device)
     strides = [x.stride(i) for x in (q, k, v) for i in (0, 1, 2)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     _DTYPES[q.dtype], B, S, T, Hq, Hkv, Dh, *strides,
+                     _DTYPES[q.dtype], B, S, T, Hq, Hkv, Dh + pad, *strides,
                      int(causal), 0 if window is None else int(window),
-                     float(np.float32(Dh ** -0.5)), stream)
+                     scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return o
+    return o[..., :Dh].contiguous() if pad else o
 
 
 flash_attention.launches = 0

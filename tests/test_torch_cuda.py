@@ -9,9 +9,10 @@ instantiations of ``mr_epoch`` (open loop and control, untraced and traced)
 and ``mr_schedule`` are held against their plain PyTorch versions on the
 card, bit for bit, and the sweep and traced paths on the card against the
 same paths on the CPU.  The LM kernels (``flash_attention``, ``wkv6``) are
-held against their plain versions at the tolerances of the CPU tests
-(summation order), and the reduced yi-6b and rwkv6-3b serving paths on the
-card against the same paths on the CPU.
+held against their plain versions (flash: float32 at 2e-6, summation
+order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6 at
+1e-4), and the reduced yi-6b and rwkv6-3b serving paths on the card
+against the same paths on the CPU.
 """
 import numpy as np
 import pytest
@@ -298,9 +299,38 @@ def test_schedule_kernel_matches_plain_on_card(T):
 
 FA_SHAPES = [(2, 128, 128, 4, 2, 32, True, None),
              (1, 256, 256, 8, 8, 16, True, 64),
-             (2, 64, 64, 4, 1, 32, False, None),
+             (2, 64, 64, 4, 1, 32, False, None),       # non-causal MQA
+             (1, 128, 128, 2, 2, 64, True, None),
              (1, 96, 96, 2, 1, 8, True, 32),
-             (1, 200, 200, 4, 2, 128, True, None)]     # ragged 64-tiles
+             (1, 200, 200, 4, 2, 128, True, None),     # ragged 64-tiles
+             (2, 320, 320, 4, 1, 128, True, 100),      # window, head_dim 128
+             (2, 100, 260, 4, 2, 64, False, None),     # S < T
+             (1, 192, 72, 2, 2, 32, False, None),      # S > T
+             (1, 80, 80, 2, 1, 12, True, None)]        # head_dim padded to 16
+# bf16 against the plain version: 2 bf16 ulps of |want| + 1e-4 (the hi/lo
+# split of p and the tensor cores' summation order, near outputs that
+# cancel); float32 2e-6 (summation order).
+BF16_ULPS, BF16_ATOL, F32_TOL = 2, 1e-4, 2e-6
+
+
+def _assert_flash_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+        return
+    want = want.float()
+    diff = (got.float() - want).abs()
+    tol = BF16_ULPS * fa_kernel.bf16_ulp(want) + BF16_ATOL
+    assert bool((diff <= tol).all()), \
+        f"max |diff| {float(diff.max())}, share {float((diff / tol).max())}"
+
+
+def _fa_inputs(shape, dtype, dev, seed):
+    B, S, T, Hq, Hkv, Dh, _, _ = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(dev, dtype) for sh in ((B, S, Hq, Dh), (B, T, Hkv, Dh),
+                                       (B, T, Hkv, Dh))]
 
 
 @pytest.mark.cuda
@@ -309,19 +339,46 @@ FA_SHAPES = [(2, 128, 128, 4, 2, 32, True, None),
 def test_flash_kernel_matches_plain_on_card(shape, dtype):
     dev = _card()
     B, S, T, Hq, Hkv, Dh, causal, window = shape
-    rng = np.random.default_rng(S + Dh)
-    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
-               .to(dev, dtype) for sh in ((B, S, Hq, Dh), (B, T, Hkv, Dh),
-                                          (B, T, Hkv, Dh)))
+    q, k, v = _fa_inputs(shape, dtype, dev, S + Dh)
     before = fa_kernel.flash_attention.launches
     got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
     assert fa_kernel.flash_attention.launches == before + 1
     want = fa_kernel.flash_attention_plain(q, k, v, causal=causal,
                                            window=window)
-    tol = 2e-6 if dtype == torch.float32 else 2e-2
-    assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                               rtol=tol)
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["fused", "misaligned", "odd_stride"])
+def test_flash_kernel_reads_strided_views_on_card(layout, dtype,
+                                                  monkeypatch):
+    """q, k, v as views of one fused projection (read through their
+    strides), at a pointer 2 bytes off 16, and with a row stride that is
+    not a multiple of 16 bytes: the same result as contiguous inputs,
+    never through the plain version."""
+    dev = _card()
+    B, S, Hq, Hkv, Dh = 2, 96, 4, 2, 32
+    width = (Hq + 2 * Hkv) * Dh + (1 if layout == "odd_stride" else 0)
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.standard_normal(B * S * width + 1)
+                            .astype(np.float32)).to(dev, dtype)
+    off = 1 if layout == "misaligned" else 0
+    fused = flat[off:off + B * S * width].view(B, S, width)
+    q = fused[..., :Hq * Dh].view(B, S, Hq, Dh)
+    k = fused[..., Hq * Dh:(Hq + Hkv) * Dh].view(B, S, Hkv, Dh)
+    v = fused[..., (Hq + Hkv) * Dh:(Hq + 2 * Hkv) * Dh].view(B, S, Hkv, Dh)
+    if layout == "misaligned" and dtype == torch.bfloat16:
+        assert q.data_ptr() % 16 == 2
+    want = fa_kernel.flash_attention(*(x.contiguous() for x in (q, k, v)))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor took the plain version")
+    monkeypatch.setattr(fa_kernel, "flash_attention_plain", refuse)
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v)
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -356,8 +413,9 @@ def test_lm_kernels_never_take_the_plain_path_on_card(monkeypatch):
         raise AssertionError("a CUDA tensor took the plain version")
     monkeypatch.setattr(fa_kernel, "flash_attention_plain", refuse)
     monkeypatch.setattr(wkv_kernel, "wkv6_scan_plain", refuse)
-    x = torch.zeros((1, 64, 2, 16), device=dev)
-    fa_kernel.flash_attention(x, x, x)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 64, 2, 16), device=dev, dtype=dtype)
+        fa_kernel.flash_attention(x, x, x)
     w = torch.full((1, 8, 2, 16), 0.5, device=dev)
     u = torch.zeros((2, 16), device=dev)
     wkv_kernel.wkv6_scan(w, w, w, w, u)

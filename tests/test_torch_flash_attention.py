@@ -6,7 +6,9 @@ tests' shapes, seeded with numpy.
 Tolerances are those of ``tests/test_kernels.py`` for the Pallas kernel
 against its oracle: 2e-6 in float32 (summation order of the two products
 and the row sums) and 2e-2 in bfloat16 (the output's rounding to bf16, a
-few units in the last place of values of order 1)."""
+few units in the last place of values of order 1).  The bf16 result is
+also held in ulps: within 2 bf16 ulps of the Pallas kernel's plus 1e-5,
+the unit the CUDA kernel is held to on the card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import ArchConfig as JaxArchConfig
 from repro.models import attention as jax_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain, ops
+from repro_torch.kernels.flash_attention.kernel import bf16_ulp
 from repro_torch.models import ArchConfig, attention
 
 FA_SHAPES = [
@@ -59,6 +62,35 @@ def test_flash_matches_pallas_interpret(shape, dtype):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     tol = DTYPES[dtype][2]
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", FA_SHAPES)
+def test_flash_bf16_within_ulps_of_pallas(shape):
+    # both round the same f32 recurrence to bf16 once, at the output: the
+    # summation order of the products and row sums moves a value across a
+    # rounding boundary by at most an ulp, and near zero by a few 1e-8
+    *_, causal, window = shape
+    for seed in (0, 1, 2):
+        (jq, jk, jv), (tq, tk, tv) = _inputs(shape, "bfloat16", seed=seed)
+        want = torch.from_numpy(_np(jax_flash(
+            jq, jk, jv, causal=causal, window=window, block_q=64,
+            block_k=32, interpret=True)))
+        got = flash_attention_plain(tq, tk, tv, causal=causal,
+                                    window=window, block_q=64, block_k=32)
+        assert got.dtype == torch.bfloat16
+        diff = (got.float() - want).abs()
+        assert bool((diff <= 2 * bf16_ulp(want) + 1e-5).all()), \
+            float((diff / (2 * bf16_ulp(want) + 1e-5)).max())
+
+
+def test_bf16_ulp():
+    x = torch.tensor([1.0, 1.5, -0.75, 2.0 ** -20, 0.0, 3.0e4])
+    want = [2.0 ** -7, 2.0 ** -7, 2.0 ** -8, 2.0 ** -27, 0.0, 2.0 ** 7]
+    assert bf16_ulp(x).tolist() == want
+    # a bf16 value plus one ulp is the next bf16 value up
+    b = torch.tensor([1.0, 0.3, 7.0], dtype=torch.bfloat16)
+    up = (b.float() + bf16_ulp(b)).to(torch.bfloat16)
+    assert torch.equal(up, torch.nextafter(b, torch.full_like(b, 1e9)))
 
 
 @pytest.mark.parametrize("shape", FA_SHAPES)
