@@ -23,17 +23,27 @@ each printing one line of numbers:
               AUTOSCALE, deadlines with SHED/BOOST and preemption, reserve
               fleets, failover onto replica holders), all 15 leaves; and the
               control instantiation on degenerate control data against the
-              open-loop kernel on the 8 shared leaves.
+              open-loop kernel on the 8 shared leaves.  Each instantiation
+              also on lanes built to stress space-shared admission
+              (``tests/mr_stress.py``) at T = 12, 40 and 70, with
+              ``max_pes`` at, above and below the largest PE count.
 4. main     — ``SweepPlan.run(device="cuda")`` on 65,536 open-loop cells; the
-              kernel's launch count must rise; wall time, scenarios/s, the
-              kernel's own time (CUDA events), the plain version's time on
-              the same batches, the kernel's bound and the per-layer split.
+              kernel's launch count must rise; every bucket's kernel run
+              bitwise its plain version's; wall time, scenarios/s, the
+              kernel's device time per grid (CUDA events around each
+              launch, the host's work hidden behind a spin kernel; median
+              and spread of 5 rounds) with the critical-lane
+              epoch latency (per bucket, device time over its largest
+              ``n_epochs``) and the card's SM clock and power draw, the
+              plain version's time on the same batches, the kernel's bound
+              and the per-layer split.
 5. cpu      — 2048 cells drawn from every bucket of the main run, stepped
               again by the port on the CPU at the same bucket shapes:
               integer metrics exact, float metrics bitwise.
 6. control  — the same for the closed loop: ``SweepPlan.run(device="cuda")``
               on 65,536 closed-loop cells, a quarter of each closed-loop kind;
-              the control instantiation's launch count must rise, every lane's
+              the control instantiation's launch count must rise, every
+              bucket bitwise the plain version, every lane's
               ``n_epochs`` stays within its epoch bound, and the grid's totals
               of failures, re-dispatches, scale events, shed tasks and
               preemptions must each be > 0.  Then 2048 of its cells bitwise
@@ -45,9 +55,10 @@ each printing one line of numbers:
               summed over the grid equal to the counts the schedule and the
               metrics give, 2048 cells' trace buffers bitwise the port's CPU
               run, and a closed-loop lane's Chrome trace with one span per
-              start; traced and untraced wall (median and spread of
-              alternating passes), the trace kernels' time,
-              launches and bound, and the trace's bytes.
+              start; every bucket's trace kernel run bitwise its plain
+              version's; traced and untraced wall (median and spread of
+              alternating passes), the trace kernels' device time (as in
+              phase 4), launches and bound, and the trace's bytes.
 8. report   — ``SweepPlan.run(device="cuda", report=True)`` on the open-loop
               grid: metrics bitwise phase 4's, the report's cells add up to
               the grid and its dispatches to the launches counted.
@@ -107,12 +118,16 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(1, os.path.join(ROOT, "tests"))   # mr_stress
 
 N_CELLS = 65536          # main path: 32x the largest recorded JAX row (b2048)
 KERNEL_LANES = 2048      # lanes per kernel-check grid
 KERNEL_TS = (8, 32, 64)  # padded task counts of the kernel-check grids
 CPU_CELLS = 2048         # cells re-run on the CPU
 TIMING_REPS = 5
+TIMING_ROUNDS = 5        # timed passes over a grid's mr_epoch launches
+SPIN_CYCLES = 4_000_000  # ~2 ms at 1.98 GHz: the card's lead over the host
+STRESS_CASES = ((12, 0), (40, 3), (70, -3))  # (T, max_pes - largest PE)
 TRACE_PASSES = 11        # alternating untraced/traced passes of phase 7
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores (same)
@@ -329,6 +344,32 @@ def nvidia_smi() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+def check_stress(device, control=False, trace=False, seed=0):
+    """One instantiation against its plain version on ``KERNEL_LANES``
+    admission-stress lanes (``tests/mr_stress.py``) per case of
+    ``STRESS_CASES`` (one, two and three task-set words per VM;
+    ``max_pes`` at, above and below the largest PE count); returns
+    ``(max_abs_err, lanes checked)``."""
+    import torch
+    import mr_stress
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    worst = 0.0
+    for T, pes_delta in STRESS_CASES:
+        lanes, max_pes = mr_stress.stress_lanes(KERNEL_LANES, T, seed + T,
+                                                control)
+        x = [torch.tensor(a, device=device)
+             for a in lanes[:28 if control else 13 + trace]]
+        max_pes = max(1, max_pes + pes_delta)
+        kern = mk.mr_epoch(*x, max_pes=max_pes, control=control, trace=trace)
+        plain = mk.mr_epoch_plain(*x, max_pes=max_pes, control=control,
+                                  trace=trace)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            mk.state_leaves(control, trace), kern, plain,
+            f"T={T}: {mk.instantiation(control, trace)} on stress lanes"))
+    return worst, KERNEL_LANES * len(STRESS_CASES)
+
+
 def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
     """Open-loop kernel vs plain version on the card; returns the largest
     absolute difference seen (0.0 when every leaf is bitwise equal)."""
@@ -362,7 +403,8 @@ def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
         compare(megakernel.STATE_LEAVES, ctl[:8], kern,
                 f"T={T}: degenerate control")
         checked += lanes
-    return worst, checked
+    w, c = check_stress(device, seed=seed)
+    return max(worst, w), checked + c
 
 
 def phase_control_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
@@ -397,7 +439,8 @@ def phase_control_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
                 f"T={T}: control resumed")
         totals += [int(kern[i].sum()) for i in (8, 11, 12, 13)]
         checked += lanes
-    return worst, checked, totals
+    w, c = check_stress(device, control=True, seed=seed + 100)
+    return max(worst, w), checked + c, totals
 
 
 def vm_valid_lane(batch):
@@ -467,6 +510,10 @@ def phase_trace_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
             events += int(ev_n.sum())
             dropped += int(over.sum())
             checked += lanes
+    for control in (False, True):
+        w, c = check_stress(device, control, True, seed + 100 * control)
+        worst[control] = max(worst[control], w)
+        checked += c
     return worst[0], worst[1], checked, events, dropped
 
 
@@ -594,7 +641,8 @@ def kernel_bound_ms(batch, n_epochs, max_pes, control=False, trace=None):
 
 def spread(xs):
     """``median (min, max)`` of a list of readings, unrounded."""
-    return f"{float(np.median(xs))!r} ({min(xs)!r}, {max(xs)!r})"
+    return f"{float(np.median(xs))!r} ({float(min(xs))!r}, " \
+        f"{float(max(xs))!r})"
 
 
 def cuda_ms(fn, reps):
@@ -610,11 +658,101 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def cuda_once(fn):
+    """``(ms, result)`` of one call of ``fn``, timed with CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def gpu_sample():
+    """``(SM clock MHz, power draw W)`` of the card now (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    clock, power = (float(x) for x in out.split(","))
+    return clock, power
+
+
+def launch_ms(launches):
+    """Device time of each closure of ``launches`` (each launches one
+    kernel), in ms: CUDA events around the launch, queued behind a spin
+    kernel (``torch.cuda._sleep``) that keeps the card busy while the host
+    checks the arguments, allocates the outputs and issues the launch, so
+    that none of this host work is counted.  A reading is kept only if the
+    spin was still running when the closing event had been queued; else
+    the launch is timed again behind a spin twice as long, and after three
+    tries the run fails."""
+    import torch
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = []
+    for f in launches:
+        for attempt in range(3):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES << attempt)
+            t0.record()
+            f()
+            t1.record()
+            covered = not t0.query()
+            torch.cuda.synchronize()
+            if covered:
+                break
+        else:
+            raise AssertionError("the host's work on a launch outlasted a "
+                                 f"{SPIN_CYCLES << 2}-cycle spin three times")
+        out.append(t0.elapsed_time(t1))
+    return out
+
+
+def kernel_times(launches, max_epochs):
+    """Device time of a grid's ``mr_epoch`` kernels: ``launches`` holds one
+    closure per bucket, each launching its kernel once on a prepared
+    carry, and ``max_epochs`` each bucket's largest realized ``n_epochs``.
+    A round times every closure with :func:`launch_ms` and sums the
+    kernels' device times; ``TIMING_ROUNDS`` rounds after a warm-up pass.
+    Returns ``ms``, the grid's device time in each round; ``epoch_ns``,
+    each bucket's critical-lane epoch latency (its median device time over
+    the rounds over its largest ``n_epochs``); ``clock`` and ``power``, an
+    ``nvidia-smi`` sample after each round."""
+    import torch
+    for f in launches:
+        f()
+    torch.cuda.synchronize()
+    res = dict(ms=[], buckets=[], clock=[], power=[])
+    for _ in range(TIMING_ROUNDS):
+        per = launch_ms(launches)
+        clock, power = gpu_sample()
+        res["ms"].append(sum(per))
+        res["buckets"].append(per)
+        res["clock"].append(clock)
+        res["power"].append(power)
+    med = np.median(np.asarray(res.pop("buckets")), axis=0)
+    res["epoch_ns"] = list(med / np.asarray(max_epochs, np.float64) * 1e6)
+    return res
+
+
+def times_line(what, r):
+    """The readings of :func:`kernel_times`, median (min, max), as a
+    line."""
+    return (f"kernel time: {what}: device {spread(r['ms'])} ms per grid "
+            f"over {len(r['ms'])} rounds, critical-lane epoch latency "
+            f"{spread(r['epoch_ns'])} ns over {len(r['epoch_ns'])} buckets, "
+            f"SM clock {spread(r['clock'])} MHz, power draw "
+            f"{spread(r['power'])} W")
+
+
 def phase_main(cols, dev, control=False, pad_tasks=None):
     """Drive ``SweepPlan.run(device=dev)`` on the grid twice (the
     kernels' launch counts zeroed just before the first run and read just
-    after it), check its results, then time the kernel, its plain version
-    and the layers bucket by bucket.  Returns the measurements."""
+    after it), check its results, hold the kernel bitwise against its plain
+    version on every bucket, then time the kernel (:func:`kernel_times`),
+    its plain version and the layers bucket by bucket.  Returns the measurements."""
     import torch
     from repro_torch.core import engine, sweep
     from repro_torch.kernels.mr_sched import megakernel, ops
@@ -645,12 +783,18 @@ def phase_main(cols, dev, control=False, pad_tasks=None):
             raise AssertionError(f"non-finite {k} in the main path")
     compiled, pad_t, pad_v = plan._compiled()
     buckets = bucket_batches(compiled, pad_t, pad_v, dev)
-    k_ms = p_ms = b_ms = by_ops = 0.0
+    p_ms = b_ms = by_ops = worst = 0.0
+    runs, max_epochs = [], []
+    leaves = megakernel.state_leaves(control)
     for idx, gcols, statics, tb, vb, batch, max_pes in buckets:
         inputs = ops.kernel_inputs(batch)
         if control:
             inputs = inputs + ops.control_lane_data(batch)
-        st = megakernel.mr_epoch(*inputs, max_pes=max_pes, control=control)
+        st0 = megakernel.initial_state(
+            inputs[0], inputs[2], inputs[3], inputs[4], inputs[9],
+            inputs[10], inputs[16] if control else None)
+        st = megakernel.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                                 control=control)
         bound = (engine._lane_bound(batch) if control
                  else torch.full_like(st[7][:, 0], 2 * tb + 2))
         if not ((st[7][:, 0] >= 1) & (st[7][:, 0] <= bound)).all():
@@ -659,18 +803,25 @@ def phase_main(cols, dev, control=False, pad_tasks=None):
         if not np.array_equal(result["n_epochs"].reshape(-1)[idx],
                               st[7][:, 0].cpu().numpy()):
             raise AssertionError("the kernel's n_epochs differ from the run")
-        k_ms += cuda_ms(lambda: megakernel.mr_epoch(
-            *inputs, max_pes=max_pes, control=control), TIMING_REPS)
-        p_ms += cuda_ms(lambda: megakernel.mr_epoch_plain(
-            *inputs, max_pes=max_pes, control=control), 1)
+        ms, plain = cuda_once(lambda: megakernel.mr_epoch_plain(
+            *inputs, state=st0, max_pes=max_pes, control=control))
+        p_ms += ms
+        worst = max(worst, compare(leaves, st, plain,
+                                   f"T={tb}: main-path bucket"))
+        runs.append(lambda inputs=inputs, st0=st0, max_pes=max_pes:
+                    megakernel.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                                        control=control))
+        max_epochs.append(int(st[7].max()))
         bound_ms, by = kernel_bound_ms(batch, st[7][:, 0], max_pes, control)
         b_ms += bound_ms
         by_ops += bound_ms if by == "operations" else 0.0
+    times = kernel_times(runs, max_epochs)
     layers = layer_seconds(buckets, dev, control)
     return dict(result=result, buckets=buckets, launches=launches, plan=plan,
-                wall_first=wall_first, wall=wall, k_ms=k_ms, p_ms=p_ms,
-                b_ms=b_ms, bound_by="operations" if by_ops >= b_ms / 2
-                else "bytes", layers=layers, n=n)
+                wall_first=wall_first, wall=wall, times=times,
+                k_ms=float(np.median(times["ms"])), p_ms=p_ms,
+                worst=worst, b_ms=b_ms, bound_by="operations"
+                if by_ops >= b_ms / 2 else "bytes", layers=layers, n=n)
 
 
 def trace_identities(batch, out, buf, control):
@@ -713,9 +864,10 @@ def phase_traced(m, dev, control=False, seed=7):
     """Drive ``engine.simulate_batch_arrays(trace=True)`` over the main
     run's buckets (launch counts zeroed just before, read just after),
     check it, time it against the untraced driver (``TRACE_PASSES``
-    alternating untraced and traced passes), time the trace kernel, the
-    untraced kernel the same way (from a prepared carry) and the trace
-    kernel's plain version, and re-run ``CPU_CELLS`` cells on the CPU."""
+    alternating untraced and traced passes), hold the trace kernel bitwise
+    against its plain version on every bucket (from a prepared carry),
+    time the trace kernel (:func:`kernel_times`), the untraced kernel from the same carry and the plain version,
+    and re-run ``CPU_CELLS`` cells on the CPU."""
     import torch
     from repro_torch.core import engine, telemetry
     from repro_torch.kernels.mr_sched import megakernel as mk, ops
@@ -750,7 +902,9 @@ def phase_traced(m, dev, control=False, seed=7):
     ratios = [t / u for u, t in zip(*walls)]
     totals = dict.fromkeys(telemetry.EVENT_NAMES.values(), 0)
     nbytes = 0
-    k_ms = u_ms = p_ms = b_ms = by_ops = 0.0
+    p_ms = b_ms = by_ops = worst = 0.0
+    runs, untraced_runs, max_epochs = [], [], []
+    names = mk.state_leaves(control, True)
     chrome = None
     rng = np.random.default_rng(seed)
     n_cpu = 0
@@ -775,7 +929,8 @@ def phase_traced(m, dev, control=False, seed=7):
                 if spans != tr.counts_by_kind(0)["start"]:
                     raise AssertionError("Chrome trace: spans != STARTs")
                 chrome = (spans, tr.counts_by_kind(0)["kill"])
-        # the trace kernel alone, its plain version and its bound
+        # the trace kernel alone from a prepared carry: bitwise its plain
+        # version; its times and bound
         inputs = ops.kernel_inputs(batch) + (
             ops.control_lane_data(batch) if control
             else (vm_valid_lane(batch),))
@@ -783,16 +938,24 @@ def phase_traced(m, dev, control=False, seed=7):
         st0 = mk.initial_state(inputs[0], inputs[2], inputs[3], inputs[4],
                                inputs[9], inputs[10],
                                inputs[16] if control else None, *caps)
-        k_ms += cuda_ms(lambda: mk.mr_epoch(
+        kern = mk.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                           control=control, trace=True)
+        ms, plain = cuda_once(lambda: mk.mr_epoch_plain(
             *inputs, state=st0, max_pes=max_pes, control=control,
-            trace=True), TIMING_REPS)
+            trace=True))
+        p_ms += ms
+        worst = max(worst, compare(names, kern, plain,
+                                   f"T={tb}: traced main-path bucket"))
         n_carry = len(st0) - len(mk.TRACE_LEAVES)
-        u_ms += cuda_ms(lambda: mk.mr_epoch(
-            *inputs[:len(inputs) - (not control)], state=st0[:n_carry],
-            max_pes=max_pes, control=control), TIMING_REPS)
-        p_ms += cuda_ms(lambda: mk.mr_epoch_plain(
-            *inputs, state=st0, max_pes=max_pes, control=control,
-            trace=True), 1)
+        runs.append(lambda inputs=inputs, st0=st0, max_pes=max_pes:
+                    mk.mr_epoch(*inputs, state=st0, max_pes=max_pes,
+                                control=control, trace=True))
+        untraced_runs.append(
+            lambda inputs=inputs[:len(inputs) - (not control)],
+            st=st0[:n_carry], max_pes=max_pes:
+            mk.mr_epoch(*inputs, state=st, max_pes=max_pes,
+                        control=control))
+        max_epochs.append(int(out.n_epochs.max()))
         bound_ms, by = kernel_bound_ms(batch, out.n_epochs, max_pes, control,
                                        caps)
         b_ms += bound_ms
@@ -825,10 +988,14 @@ def phase_traced(m, dev, control=False, seed=7):
             raise AssertionError("scale events != scale_events")
         if chrome is None:
             raise AssertionError("no closed-loop lane was killed")
+    times = kernel_times(runs, max_epochs)
+    u_times = kernel_times(untraced_runs, max_epochs)
     return dict(launches=launches, wall_first=wall_first,
                 wall_untraced=walls[0], wall_traced=walls[1], ratios=ratios,
-                totals=totals, nbytes=nbytes, k_ms=k_ms, u_ms=u_ms,
-                p_ms=p_ms, b_ms=b_ms,
+                totals=totals, nbytes=nbytes, times=times,
+                k_ms=float(np.median(times["ms"])),
+                u_ms=float(np.median(u_times["ms"])), p_ms=p_ms,
+                worst=worst, b_ms=b_ms,
                 bound_by="operations" if by_ops >= b_ms / 2 else "bytes",
                 chrome=chrome, n_cpu=n_cpu)
 
@@ -1476,11 +1643,13 @@ def main() -> int:
           f"{sorted({b[3] for b in m['buckets']})}), wall "
           f"{m['wall_first']:.3f} s first / {m['wall']:.3f} s again, "
           f"{N_CELLS / m['wall']:.0f} scenarios/s, mr_epoch launches "
-          f"{m['launches'][0]}, kernel {m['k_ms']:.3f} ms, plain "
+          f"{m['launches'][0]}, kernel {m['k_ms']!r} ms (device median), "
+          f"every bucket bitwise plain, plain "
           f"{m['p_ms']:.3f} ms, bound {m['b_ms']:.4f} ms ({m['bound_by']}), "
           f"realized_epochs max {int(m['result']['realized_epochs'].max())}"
           f" | layers over buckets: encode {enc_s:.3f} s, step "
           f"{step_s:.3f} s, metrics {met_s:.3f} s", flush=True)
+    print(times_line("mr_epoch, open-loop grid", m["times"]), flush=True)
 
     # 5. the same cells on the CPU
     t0 = time.perf_counter()
@@ -1509,12 +1678,15 @@ def main() -> int:
           f"{c['wall_first']:.3f} s first / {c['wall']:.3f} s again, "
           f"{N_CELLS / c['wall']:.0f} scenarios/s, mr_epoch control "
           f"launches {c['launches'][1]} (open loop {c['launches'][0]}), "
-          f"kernel {c['k_ms']:.3f} ms, plain {c['p_ms']:.3f} ms, bound "
+          f"kernel {c['k_ms']!r} ms (device median), every bucket bitwise "
+          f"plain, plain {c['p_ms']:.3f} ms, bound "
           f"{c['b_ms']:.4f} ms ({c['bound_by']}), realized_epochs max "
           f"{ep_max} (7T+V+3 = {7 * worst_t + 12}) | "
           + ", ".join(f"{k} {int(v)}" for k, v in mech.items())
           + f" | layers over buckets: encode {enc_s:.3f} s, step "
           f"{step_s:.3f} s, metrics {met_s:.3f} s", flush=True)
+    print(times_line("mr_epoch_control, closed-loop grid", c["times"]),
+          flush=True)
     t0 = time.perf_counter()
     n_checked = phase_cpu(c, control=True)
     print(f"cpu: {n_checked} closed-loop cells from {len(c['buckets'])} "
@@ -1536,8 +1708,9 @@ def main() -> int:
               f"{t['k_ms'] / 1e3 / np.median(t['wall_traced']):.4f}, "
               f"{mk.instantiation(control, True)} launches "
               f"{t['launches'][int(control)]}, "
-              f"kernel {t['k_ms']:.3f} ms (untraced kernel from the same "
-              f"carry {t['u_ms']:.3f} ms), plain {t['p_ms']:.3f} ms, bound "
+              f"kernel {t['k_ms']!r} ms (device median; untraced kernel "
+              f"from the same carry {t['u_ms']!r} ms), every bucket bitwise "
+              f"plain, plain {t['p_ms']:.3f} ms, bound "
               f"{t['b_ms']:.4f} ms "
               f"({t['bound_by']}), trace bytes {t['nbytes']} | SimOutput "
               f"bitwise untraced, 0 dropped, events "
@@ -1547,6 +1720,8 @@ def main() -> int:
                  if control else "")
               + f" | {t['n_cpu']} cells' trace buffers bitwise on the CPU",
               flush=True)
+        print(times_line(f"{mk.instantiation(control, True)}, {name}-loop "
+                         "grid", t["times"]), flush=True)
 
     # 8. run(report=True) on the open-loop grid
     rep = phase_report(m, dev)
@@ -1603,25 +1778,29 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "mr_epoch", "route": "cuda", "source": src + "mr_epoch.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
-        "launches": m["launches"][0], "max_abs_err": worst, "ms": m["k_ms"],
+        "launches": m["launches"][0], "max_abs_err": max(worst, m["worst"]),
+        "ms": m["k_ms"],
         "plain_ms": m["p_ms"], "bound_ms": m["b_ms"],
         "bound_by": m["bound_by"], "library_ms": None}, {
         "name": "mr_epoch_control", "route": "cuda",
         "source": src + "mr_epoch_control.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
-        "launches": c["launches"][1], "max_abs_err": worst_c,
+        "launches": c["launches"][1], "max_abs_err": max(worst_c,
+                                                         c["worst"]),
         "ms": c["k_ms"], "plain_ms": c["p_ms"], "bound_ms": c["b_ms"],
         "bound_by": c["bound_by"], "library_ms": None}, {
         "name": "mr_epoch_trace", "route": "cuda",
         "source": src + "mr_epoch.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
-        "launches": to["launches"][0], "max_abs_err": worst_to,
+        "launches": to["launches"][0], "max_abs_err": max(worst_to,
+                                                          to["worst"]),
         "ms": to["k_ms"], "plain_ms": to["p_ms"], "bound_ms": to["b_ms"],
         "bound_by": to["bound_by"], "library_ms": None}, {
         "name": "mr_epoch_control_trace", "route": "cuda",
         "source": src + "mr_epoch_control.cu",
         "replaces": "src/repro/kernels/mr_sched/megakernel.py:101",
-        "launches": tc["launches"][1], "max_abs_err": worst_tc,
+        "launches": tc["launches"][1], "max_abs_err": max(worst_tc,
+                                                          tc["worst"]),
         "ms": tc["k_ms"], "plain_ms": tc["p_ms"], "bound_ms": tc["b_ms"],
         "bound_by": tc["bound_by"], "library_ms": None}, {
         "name": "mr_schedule", "route": "cuda",

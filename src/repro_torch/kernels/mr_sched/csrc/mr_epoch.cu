@@ -4,26 +4,43 @@
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/mr_sched/megakernel.py:_kernel (called through _mr_epoch_impl).
 // The plain PyTorch version, megakernel.py:mr_epoch_plain, runs the same
-// op sequence; the two agree bit for bit on all 8 carry leaves.
+// algorithm; the two agree bit for bit on all 8 carry leaves.
 //
-// What bounds it on this card.  Per lane and epoch the work is a few dozen
-// compare/select operations per task slot plus max_pes admission passes,
-// on data that fits in shared memory; the bytes it must move (lane data in,
-// carry in and out) are a few KB per lane for a whole history of up to
-// 2T+2 epochs.  Neither HBM bandwidth nor the fp32 rate is the limit: the
-// loop is a chain of dependent steps (next-event min -> completions ->
-// admission -> next epoch), so it is latency bound.  The design keeps the
-// whole carry of a lane in shared memory for its entire history (one HBM
-// read and one write per leaf), gives each lane one warp so the per-epoch
-// reductions are warp shuffles with no block barrier, and runs several
-// lanes per block so many independent chains are in flight on each SM.
-// Each warp stops at its own lane's last event (the TPU kernel stopped a
-// whole tile at its slowest lane); a finished lane is a fixed point of the
-// epoch body, so per-lane results, n_epochs included, are the same.
+// What bounds it on this card.  The bytes a lane must move (lane data in,
+// carry in and out) are a few KB for a whole history of up to 2T+2 epochs,
+// and its operations a few dozen per task slot and epoch: neither HBM
+// bandwidth nor the fp32 rate is the limit.  Each epoch depends on the one
+// before (next-event min -> completions -> admission -> next epoch), so a
+// launch lasts as long as its slowest lane's chain of epochs: the kernel is
+// bound by the latency of one epoch.  The whole carry of a lane stays in
+// shared memory for its entire history (one HBM read and one write per
+// leaf); each lane has one warp, so the per-epoch reductions are warp
+// shuffles and ballots with no block barrier; each warp stops at its own
+// lane's last event (the TPU kernel stopped a whole tile at its slowest
+// lane; a finished lane is a fixed point of the epoch body, so per-lane
+// results, n_epochs included, are the same).
 //
-// Layout: one warp per lane; task slot t is owned by thread t % 32.  The
-// per-VM reductions (running counts, the admission scan) run one thread
-// per VM over that VM's task list, built once per launch in index order.
+// What the first design lost.  It ran every per-VM reduction on one thread
+// per VM walking that VM's task list through dependent shared-memory loads:
+// the running and completion counts, and an admission scan of max_pes steps
+// of three passes each (maximum priority, minimum eligible time, first
+// index).  The grids have 1-9 VMs, so most of the warp idled, and a lane
+// with most of its tasks on one VM paid 3 x max_pes x T dependent loads per
+// epoch on one thread.
+//
+// What this design does.  No thread walks a VM's task list inside the
+// epoch loop.  Each VM's task set is a bit mask (W = ceil(T/32) words,
+// built once per launch, the binding being static); the running,
+// completed and eligible sets are ballots, so a per-VM count is W popcounts.
+// Admission is by per-task rank, the rule of the JAX engine
+// (core/engine.py:953-955) that the Pallas scan reproduces: the scan picks
+// a VM's eligible tasks in (priority desc, eligible time asc, index asc)
+// order and admits the one picked at step s < max_pes iff s < the VM's
+// free PEs, so each eligible task counts the eligible tasks of its VM ahead
+// of it and is admitted iff that rank passes both tests.  Keys compare with
+// the scan's float == and >: -0.0 ties 0.0, and a priority below -1e30 (the
+// scan's starting maximum) or NaN is never picked.  Admission only compares
+// and counts, so the rule changes no rounding.
 //
 // Rounding: built with -fmad=false and IEEE division, so every op rounds on
 // its own, except the two places where the reference's XLA:CPU lowering
@@ -107,13 +124,55 @@ struct Params {
 };
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes agrees.
+// Per task: f32 x 11, i32 x 1, 5 flag bytes; per VM: f32 x 5; the VMs'
+// task sets, V x W words; three per-epoch task sets, W words each.
 __host__ __device__ inline int lane_smem_bytes(int T, int V) {
-  return (60 * T + 20 * V + 4 + 15) / 16 * 16;
+  const int W = (T + 31) / 32;
+  return (53 * T + 20 * V + 4 * V * W + 12 * W + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float warp_min(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, o));
   return x;
+}
+
+__device__ __forceinline__ bool has(const unsigned* set, int t) {
+  return (set[t >> 5] >> (t & 31)) & 1u;
+}
+
+// |a & b| over W words
+__device__ __forceinline__ int overlap(const unsigned* a, const unsigned* b, int W) {
+  int c = 0;
+  for (int w = 0; w < W; ++w) c += __popc(a[w] & b[w]);
+  return c;
+}
+
+// Whether the admission scan admits eligible task t of VM v, whose task set
+// is vset (W words): its rank, the eligible tasks of v that the scan picks
+// before t, must be below max_pes and, as a float, below free_v.  Both
+// tests are monotone in the rank, so counting stops at the first rank that
+// fails them.
+__device__ bool admitted(int t, const unsigned* vset, const unsigned* elm, int W,
+                         const float* prio, const float* elig, float free_v,
+                         int max_pes, float big) {
+  const float pt = prio[t];
+  if (!(pt >= -big)) return false;  // never equals the scan's maximum
+  const auto ok = [&](int r) { return r < max_pes && (float)r < free_v; };
+  if (ok(overlap(vset, elm, W) - 1)) return true;  // every rank passes
+  if (!ok(0)) return false;
+  const float et = elig[t];
+  int rank = 0;
+  for (int w = 0; w < W; ++w) {
+    unsigned m = vset[w] & elm[w];
+    while (m) {
+      const int u = (w << 5) + __ffs(m) - 1;
+      m &= m - 1;
+      const float pu = prio[u], eu = elig[u];
+      if ((pu > pt || (pu == pt && (eu < et || (eu == et && u < t)))) && !ok(++rank))
+        return false;
+    }
+  }
+  return true;
 }
 
 #ifdef MR_TRACE
@@ -146,10 +205,9 @@ __global__ void mr_epoch_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const long n = (long)blockIdx.x * p.lanes_per_block + warp;
   if (n >= p.N) return;  // the whole warp leaves together
-  const int T = p.T, V = p.V;
+  const int T = p.T, V = p.V, W = (T + 31) / 32;
 
-  // per-lane shared memory: f32[T] x 11, f32[V] x 4, i32[T] x 2, i32[V+1],
-  // u8[T] x 8 (flags)
+  // per-lane shared memory, in lane_smem_bytes order
   unsigned char* base = smem + (size_t)warp * p.lane_bytes;
   float* rem = reinterpret_cast<float*>(base);
   float* start = rem + T;
@@ -164,19 +222,19 @@ __global__ void mr_epoch_kernel(const Params p) {
   float* eta = rate + T;
   float* vmips = eta + T;
   float* vpes = vmips + V;
-  float* von = vpes + V;
+  float* von = vpes + V;     // running tasks at the epoch's start
   float* vshare = von + V;
-  int* tvm = reinterpret_cast<int*>(vshare + V);
-  int* vtasks = tvm + T;
-  int* voff = vtasks + T;
-  unsigned char* f_valid = reinterpret_cast<unsigned char*>(voff + V + 1);
+  float* vfree = vshare + V; // free PEs after this epoch's completions
+  int* tvm = reinterpret_cast<int*>(vfree + V);
+  unsigned* vset = reinterpret_cast<unsigned*>(tvm + T);  // tasks bound to each VM
+  unsigned* runm = vset + V * W;  // running at the epoch's start
+  unsigned* donem = runm + W;     // completed this epoch
+  unsigned* elm = donem + W;      // eligible this epoch
+  unsigned char* f_valid = reinterpret_cast<unsigned char*>(elm + W);
   unsigned char* f_red = f_valid + T;
   unsigned char* f_run = f_red + T;
   unsigned char* f_ns = f_run + T;     // not started (epoch start)
-  unsigned char* f_el = f_ns + T;      // eligible this epoch
-  unsigned char* f_rm = f_el + T;      // still in the admission scan
-  unsigned char* f_ad = f_rm + T;      // admitted by the scan
-  unsigned char* f_done = f_ad + T;    // completed this epoch
+  unsigned char* f_st = f_ns + T;      // started this epoch
 
   const long rT = n * T, rV = n * V;
   const float spin = p.spinup[n];
@@ -198,25 +256,15 @@ __global__ void mr_epoch_kernel(const Params p) {
     f_red[t] = p.is_red[rT + t] != 0;
     f_run[t] = p.running_in[rT + t] != 0;
   }
-  __syncwarp();
-  // each VM's task list, in task-index order
   for (int v = lane; v < V; v += 32) {
     vmips[v] = p.vm_mips[rV + v];
     vpes[v] = p.vm_pes[rV + v];
-    int c = 0;
-    for (int t = 0; t < T; ++t) c += tvm[t] == v;
-    voff[v + 1] = c;
   }
+  for (int i = lane; i < V * W; i += 32) vset[i] = 0u;
   __syncwarp();
-  if (lane == 0) {
-    voff[0] = 0;
-    for (int v = 0; v < V; ++v) voff[v + 1] += voff[v];
-  }
-  __syncwarp();
-  for (int v = lane; v < V; v += 32) {
-    int k = voff[v];
-    for (int t = 0; t < T; ++t)
-      if (tvm[t] == v) vtasks[k++] = t;
+  for (int t = lane; t < T; t += 32) {
+    const int v = tvm[t];
+    if (v >= 0 && v < V) atomicOr(&vset[v * W + (t >> 5)], 1u << (t & 31));
   }
   __syncwarp();
 
@@ -238,16 +286,23 @@ __global__ void mr_epoch_kernel(const Params p) {
   __syncwarp();
 #endif
 
+  // Loops that ballot a task set run b over [0, T) in steps of 32 on every
+  // lane, so the whole warp takes part in each ballot.
   for (int step = 0; step < p.epoch_limit; ++step) {
     bool unfinished = false;
-    for (int t = lane; t < T; t += 32)
-      unfinished |= f_valid[t] && finish[t] >= p.half_big;
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      const bool in = t < T;
+      unfinished |= in && f_valid[t] && finish[t] >= p.half_big;
+      const unsigned m = __ballot_sync(kFull, in && f_run[t]);
+      if (lane == 0) runm[b >> 5] = m;
+    }
     if (!__any_sync(kFull, unfinished)) break;
+    __syncwarp();
 
     // processor-sharing rates: per-VM running counts and shares
     for (int v = lane; v < V; v += 32) {
-      float c = 0.f;
-      for (int k = voff[v]; k < voff[v + 1]; ++k) c += f_run[vtasks[k]] ? 1.f : 0.f;
+      const float c = (float)overlap(vset + v * W, runm, W);
       von[v] = c;
       vshare[v] = vmips[v] * fminf(1.f, vpes[v] / fmaxf(c, 1.f));
     }
@@ -297,74 +352,62 @@ __global__ void mr_epoch_kernel(const Params p) {
 
     // advance the fluid state; fire every completion in the tie window
     int maps_done = 0;
-    for (int t = lane; t < T; t += 32) {
-      bool run = f_run[t];
-      float rm = rem[t];
-      if (run) rm = fmaf(neg_dt, rate[t], rm);
-      const bool done = live && run && eta[t] <= thr;
-      if (done) {
-        finish[t] = t_next;
-        run = false;
-        rm = 0.f;
-        maps_done += !f_red[t];
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      bool done = false;
+      if (t < T) {
+        bool run = f_run[t];
+        float rm = rem[t];
+        if (run) rm = fmaf(neg_dt, rate[t], rm);
+        done = live && run && eta[t] <= thr;
+        if (done) {
+          finish[t] = t_next;
+          run = false;
+          rm = 0.f;
+          maps_done += !f_red[t];
+        }
+        f_run[t] = run;
+        rem[t] = rm;
       }
-      f_done[t] = done;
-      f_run[t] = run;
-      rem[t] = rm;
+      const unsigned m = __ballot_sync(kFull, done);
+      if (lane == 0) donem[b >> 5] = m;
     }
     maps_done = __reduce_add_sync(kFull, maps_done);
     const int maps_left_new = maps_left - maps_done;
     const bool phase_done = maps_left_new == 0 && maps_left > 0;
     const float release = t_next + shuffle;
-    for (int t = lane; t < T; t += 32) {
-      if (f_red[t] && phase_done) ready[t] = release;
-      const bool e = live && f_ns[t] && elig[t] <= thr && t_next < close_t[t];
-      f_el[t] = e;
-      f_rm[t] = e;
-      f_ad[t] = 0;
-    }
-    __syncwarp();
-
-    // space-shared admission: per VM, take the lexicographic minimum of
-    // (priority desc, eligible time, index) max_pes times; the task taken
-    // at step s is admitted iff s < the VM's free slots after completions
-    for (int v = lane; v < V; v += 32) {
-      float done_c = 0.f;
-      for (int k = voff[v]; k < voff[v + 1]; ++k) done_c += f_done[vtasks[k]] ? 1.f : 0.f;
-      const float free_v = vpes[v] - (von[v] - done_c);
-      if (!is_space) continue;
-      for (int s = 0; s < p.max_pes; ++s) {
-        float mx = -p.big;
-        for (int k = voff[v]; k < voff[v + 1]; ++k) {
-          const int t = vtasks[k];
-          if (f_rm[t]) mx = fmaxf(mx, prio[t]);
-        }
-        float mn = p.big;
-        for (int k = voff[v]; k < voff[v + 1]; ++k) {
-          const int t = vtasks[k];
-          if (f_rm[t] && prio[t] == mx) mn = fminf(mn, elig[t]);
-        }
-        int pick = T;
-        for (int k = voff[v]; k < voff[v + 1]; ++k) {
-          const int t = vtasks[k];
-          if (f_rm[t] && prio[t] == mx && elig[t] == mn) {
-            pick = t;  // lists ascend, so the first match is the min index
-            break;
-          }
-        }
-        if (pick < T) {
-          if ((float)s < free_v) f_ad[pick] = 1;
-          f_rm[pick] = 0;
-        }
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      bool e = false;
+      if (t < T) {
+        if (f_red[t] && phase_done) ready[t] = release;
+        e = live && f_ns[t] && elig[t] <= thr && t_next < close_t[t];
       }
+      const unsigned m = __ballot_sync(kFull, e);
+      if (lane == 0) elm[b >> 5] = m;
     }
     __syncwarp();
 
+    // starts: time-shared starts every eligible task; space-shared admits
+    // by rank into each VM's PEs left free after the completions
+    if (is_space) {
+      for (int v = lane; v < V; v += 32)
+        vfree[v] = vpes[v] - (von[v] - (float)overlap(vset + v * W, donem, W));
+      __syncwarp();
+    }
     for (int t = lane; t < T; t += 32) {
-      if (f_el[t] && (!is_space || f_ad[t])) {
+      bool go = false;
+      if (has(elm, t)) {
+        const int v = tvm[t];
+        go = !is_space || (v >= 0 && v < V &&
+                           admitted(t, vset + v * W, elm, W, prio, elig, vfree[v],
+                                    p.max_pes, p.big));
+      }
+      if (go) {
         start[t] = t_next;
         f_run[t] = 1;
       }
+      f_st[t] = go;
     }
 #ifdef MR_TRACE
     {
@@ -380,10 +423,9 @@ __global__ void mr_epoch_kernel(const Params p) {
         p.ev_task_out[rE + slot] = t;
         p.ev_vm_out[rE + slot] = tvm[t];
       };
-      ev_n = log_events(ev_n, T, p.E, [&](int t) { return f_done[t] != 0; },
+      ev_n = log_events(ev_n, T, p.E, [&](int t) { return has(donem, t); },
                         [&](int s, int t) { put(s, t, kEvFinish); });
-      ev_n = log_events(ev_n, T, p.E,
-                        [&](int t) { return f_el[t] && (!is_space || f_ad[t]); },
+      ev_n = log_events(ev_n, T, p.E, [&](int t) { return f_st[t] != 0; },
                         [&](int s, int t) { put(s, t, kEvStart); });
     }
 #endif

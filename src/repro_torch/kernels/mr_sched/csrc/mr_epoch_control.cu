@@ -7,27 +7,49 @@
 // kernels/mr_sched/megakernel.py:_kernel (called through _mr_epoch_impl).
 // The open-loop lowering is mr_epoch.cu, which carries no control code.
 // The plain PyTorch version, megakernel.py:mr_epoch_plain(control=True),
-// runs the same op sequence; the two agree bit for bit on all 15 carry
+// runs the same algorithm; the two agree bit for bit on all 15 carry
 // leaves.
 //
-// What bounds it on this card.  As for the open loop: per lane and epoch
-// about a hundred compare/select operations per task slot on data held in
-// shared memory, a few KB of HBM traffic per lane for a whole history of
-// up to 7T+V+3 epochs, and a chain of dependent steps per epoch.  It is
-// latency bound.  The design is the open loop's: one warp per lane, the
-// lane's whole carry in shared memory for its entire history, several
-// lanes per block; per-VM reductions run one thread per VM.  Each warp
-// stops at its own lane's end (unfinished non-shed work and its epoch
-// bound), which is the per-lane meaning of the reference (ROADMAP C6): the
-// TPU kernel stepped a whole tile to its slowest lane, and under control a
-// finished lane is not a fixed point of the epoch body.
+// What bounds it on this card.  As for the open loop: a few KB of HBM
+// traffic per lane for a whole history of up to 7T+V+3 epochs, about a
+// hundred compare/select operations per task slot and epoch, and a chain
+// of dependent steps per epoch, so a launch lasts as long as its slowest
+// lane's epochs and the kernel is bound by the latency of one epoch.  One
+// warp per lane, the lane's whole carry in shared memory for its entire
+// history, several lanes per block.  Each warp stops at its own lane's end
+// (unfinished non-shed work and its epoch bound), which is the per-lane
+// meaning of the reference (ROADMAP C6): the TPU kernel stepped a whole
+// tile to its slowest lane, and under control a finished lane is not a
+// fixed point of the epoch body.
 //
-// Per-VM task lists.  A task runs on its bound VM (task_vm) until its first
-// failure kill or eviction sets `hit`, then on its failover VM (task_vm2).
-// Each VM keeps two lists built once per launch in index order: the tasks
-// bound to it, and the tasks that fail over to it from another VM.  Every
-// per-VM reduction walks both and keeps the tasks whose current slot, taken
-// at the epoch's start as in the reference, is this VM.
+// What the first design lost.  Every per-VM reduction ran on one thread per
+// VM, walking the VM's two task lists (bound there, failing over there)
+// through dependent shared-memory loads: the running and unfinished counts
+// and the weakest evictable task, the completion count, the preemption
+// victim (three passes), and an admission scan of max_pes steps of four
+// passes each.  With 1-9 VMs most of the warp idled through all of it.
+//
+// What this design does.  No thread walks a VM's task list inside the
+// epoch loop.  A task runs on its bound VM (task_vm) until its first
+// failure kill or eviction sets `hit`, then on its failover VM (task_vm2);
+// each VM keeps the bit masks (W = ceil(T/32) words) of the tasks bound to
+// it and of those failing over to it, built once per launch, and its
+// current set is (bound & ~hit) | (failover & hit) with `hit` taken at the
+// epoch's start, as in the reference.  Per-VM counts are popcounts of that
+// set against ballots of the running, unfinished and completed tasks.  The
+// per-VM extrema (weakest evictable priority, highest eligible priority on
+// a full VM, the victim's priority and index) are shared-memory atomics
+// from every task at once, on priorities mapped to order-preserving
+// integers; they feed only comparisons, so the sign a zero keeps does not
+// matter.  Admission is by per-task rank, the rule of the JAX engine
+// (core/engine.py:953-955) that the Pallas scan reproduces: the scan picks
+// a VM's eligible tasks by (urgency desc, priority desc, eligible time asc,
+// index asc) and admits the one picked at step s < max_pes iff s < the VM's
+// free PEs, so each eligible task counts the eligible tasks of its VM ahead
+// of it and is admitted iff that rank passes both tests.  A priority below
+// -1e30 (the scan's starting maximum) or NaN is never picked, and such an
+// urgent task holds its VM's urgent tier open, so no non-urgent task of that
+// VM is admitted.  Admission only compares and counts: no rounding changes.
 //
 // Rounding: built with -fmad=false and IEEE division, so every op rounds on
 // its own, except where the reference's XLA:CPU lowering fuses a multiply
@@ -141,14 +163,16 @@ struct Params {
 };
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes(control=
-// True) agrees.  Per task: f32 x 13, i32 x 6, 15 flag bytes; per VM: f32 x
-// 10, i32 x 2 (CSR offsets), 2 flag bytes; plus the two closing offsets.
-// The trace instantiation keeps two more flag bytes per task and per VM.
+// True) agrees.  Per task: f32 x 13, i32 x 4, 12 flag bytes; per VM: f32 x
+// 9, i32 x 4, 3 flag bytes; the VMs' two task sets, 2 x V x W words; six
+// per-epoch task sets, W words each.  The trace instantiation keeps two
+// more flag bytes per task and per VM.
 __host__ __device__ inline int lane_smem_bytes(int T, int V) {
+  const int W = (T + 31) / 32;
 #ifdef MR_TRACE
-  return (93 * T + 52 * V + 8 + 15) / 16 * 16;
+  return (82 * T + 57 * V + 8 * V * W + 24 * W + 15) / 16 * 16;
 #else
-  return (91 * T + 50 * V + 8 + 15) / 16 * 16;
+  return (80 * T + 55 * V + 8 * V * W + 24 * W + 15) / 16 * 16;
 #endif
 }
 
@@ -160,6 +184,70 @@ __device__ __forceinline__ float warp_min(float x) {
 __device__ __forceinline__ int warp_min_int(int x) {
   for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
   return x;
+}
+
+__device__ __forceinline__ bool has(const unsigned* set, int t) {
+  return (set[t >> 5] >> (t & 31)) & 1u;
+}
+
+// A float as an int of the same order (-0.0 just below 0.0), so that
+// integer atomicMin/atomicMax take float extrema; and back.
+__device__ __forceinline__ int okey(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float okey_float(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// The current task set of one VM (its bound and failover masks, W words
+// each, at the given hit mask), and its overlap with other task sets.
+struct VmSet {
+  const unsigned* bound;
+  const unsigned* over;
+  const unsigned* hitm;
+  __device__ __forceinline__ unsigned word(int w) const {
+    return (bound[w] & ~hitm[w]) | (over[w] & hitm[w]);
+  }
+  __device__ __forceinline__ int count(const unsigned* m, int W) const {
+    int c = 0;
+    for (int w = 0; w < W; ++w) c += __popc(word(w) & m[w]);
+    return c;
+  }
+};
+
+// Whether the admission scan admits eligible task t of the VM whose current
+// set is s: its rank, the eligible tasks of the VM that the scan picks
+// before t (the urgent tier first), must be below max_pes and, as a float,
+// below free_v.  Both tests are monotone in the rank, so counting stops at
+// the first rank that fails them.  stalled: an eligible urgent task of the
+// VM can never be picked, so the scan never leaves the urgent tier.
+__device__ bool admitted(int t, const VmSet& s, const unsigned* elm, int W,
+                         const float* prio, const float* elig,
+                         const unsigned char* urg, bool stalled, float free_v,
+                         int max_pes, float big) {
+  const float pt = prio[t];
+  const bool ut = urg[t];
+  if (!(pt >= -big) || (stalled && !ut)) return false;
+  const auto ok = [&](int r) { return r < max_pes && (float)r < free_v; };
+  if (ok(s.count(elm, W) - 1)) return true;  // every rank passes
+  if (!ok(0)) return false;
+  const float et = elig[t];
+  int rank = 0;
+  for (int w = 0; w < W; ++w) {
+    unsigned m = s.word(w) & elm[w];
+    while (m) {
+      const int u = (w << 5) + __ffs(m) - 1;
+      m &= m - 1;
+      const bool uu = urg[u];
+      const float pu = prio[u], eu = elig[u];
+      const bool ahead = uu != ut ? uu
+                         : pu > pt || (pu == pt && (eu < et || (eu == et && u < t)));
+      if (ahead && !ok(++rank)) return false;
+    }
+  }
+  return true;
 }
 
 #ifdef MR_TRACE
@@ -215,8 +303,9 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const long n = (long)blockIdx.x * p.lanes_per_block + warp;
   if (n >= p.N) return;  // the whole warp leaves together
-  const int T = p.T, V = p.V;
+  const int T = p.T, V = p.V, W = (T + 31) / 32;
 
+  // per-lane shared memory, in lane_smem_bytes order
   unsigned char* base = smem + (size_t)warp * p.lane_bytes;
   // per task, f32
   float* rem = reinterpret_cast<float*>(base);
@@ -241,20 +330,30 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   float* vrest = vfail + V;
   float* vopen = vrest + V;
   float* vclose = vopen + V;
-  float* vminev = vclose + V;  // weakest evictable priority
-  float* vunfin = vminev + V;  // unfinished work bound to the VM
+  float* vfree = vclose + V; // free PEs after completions and evictions
   // per task, i32
-  int* tvm = reinterpret_cast<int*>(vunfin + V);
+  int* tvm = reinterpret_cast<int*>(vfree + V);
   int* tvm2 = tvm + T;
   int* cvm = tvm2 + T;       // current VM at the epoch's start
   int* nev = cvm + T;
-  int* vtasks = nev + T;     // tasks bound to each VM
-  int* vtasks2 = vtasks + T; // tasks failing over to each VM from another
-  // per VM, i32 (CSR offsets, V + 1 each)
-  int* voff = vtasks2 + T;
-  int* voff2 = voff + V + 1;
+  // per VM, i32: okey()s of the weakest evictable priority, the highest
+  // eligible priority and the lowest outranked one; the victim's index
+  int* vk_ev = nev + T;
+  int* vk_el = vk_ev + V;
+  int* vk_low = vk_el + V;
+  int* vvic = vk_low + V;
+  // task sets, W words each: bound to and failing over to each VM (V sets
+  // each), then this epoch's
+  unsigned* vbound = reinterpret_cast<unsigned*>(vvic + V);
+  unsigned* vover = vbound + V * W;
+  unsigned* hitm = vover + V * W;  // hit at the epoch's start
+  unsigned* runm = hitm + W;       // running at the epoch's start
+  unsigned* unfm = runm + W;       // unfinished at the epoch's start
+  unsigned* donem = unfm + W;      // completed this epoch
+  unsigned* elm = donem + W;       // eligible this epoch
+  unsigned* stallm = elm + W;      // eligible, urgent, never picked
   // flags
-  unsigned char* f_valid = reinterpret_cast<unsigned char*>(voff2 + V + 1);
+  unsigned char* f_valid = reinterpret_cast<unsigned char*>(stallm + W);
   unsigned char* f_red = f_valid + T;
   unsigned char* f_run = f_red + T;
   unsigned char* f_hit = f_run + T;
@@ -264,15 +363,13 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   unsigned char* f_shedc = f_eval + T;  // shed at the arrival candidate
   unsigned char* f_shedt = f_shedc + T; // shed at the admission instant
   unsigned char* f_urg = f_shedt + T;   // BOOST urgent
-  unsigned char* f_el = f_urg + T;      // eligible this epoch
-  unsigned char* f_rm = f_el + T;       // still in the admission scan
-  unsigned char* f_ad = f_rm + T;       // admitted by the scan
-  unsigned char* f_done = f_ad + T;     // completed this epoch
-  unsigned char* f_ev = f_done + T;     // evicted this epoch
+  unsigned char* f_st = f_urg + T;      // started this epoch
+  unsigned char* f_ev = f_st + T;       // evicted this epoch
   unsigned char* v_valid = f_ev + T;
   unsigned char* v_auto = v_valid + V;
+  unsigned char* v_full = v_auto + V;   // no free PE after completions
 #ifdef MR_TRACE
-  unsigned char* f_kill = v_auto + V;   // killed by a failure this epoch
+  unsigned char* f_kill = v_full + V;   // killed by a failure this epoch
   unsigned char* f_nshed = f_kill + T;  // newly shed this epoch
   unsigned char* v_opm = f_nshed + T;   // reserve opened this epoch
   unsigned char* v_clm = v_opm + V;     // reserve closed this epoch
@@ -330,46 +427,16 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   const int bound = 2 * T + 2 + (__any_sync(kFull, any_fail) ? 2 * T + V : 0) +
                     (dl_shed && __any_sync(kFull, any_dl) ? T + 1 : 0) +
                     (pre_on ? 2 * T : 0);
+  for (int i = lane; i < 2 * V * W; i += 32) vbound[i] = 0u;
   __syncwarp();
-  // each VM's two task lists, in task-index order
-  for (int v = lane; v < V; v += 32) {
-    int c = 0, c2 = 0;
-    for (int t = 0; t < T; ++t) {
-      c += tvm[t] == v;
-      c2 += tvm2[t] == v && tvm[t] != v;
-    }
-    voff[v + 1] = c;
-    voff2[v + 1] = c2;
+  for (int t = lane; t < T; t += 32) {
+    const unsigned bit = 1u << (t & 31);
+    const int v = tvm[t], v2 = tvm2[t];
+    if (v >= 0 && v < V) atomicOr(&vbound[v * W + (t >> 5)], bit);
+    if (v2 >= 0 && v2 < V) atomicOr(&vover[v2 * W + (t >> 5)], bit);
   }
   __syncwarp();
-  if (lane == 0) {
-    voff[0] = voff2[0] = 0;
-    for (int v = 0; v < V; ++v) {
-      voff[v + 1] += voff[v];
-      voff2[v + 1] += voff2[v];
-    }
-  }
-  __syncwarp();
-  for (int v = lane; v < V; v += 32) {
-    int k = voff[v], k2 = voff2[v];
-    for (int t = 0; t < T; ++t) {
-      if (tvm[t] == v) vtasks[k++] = t;
-      else if (tvm2[t] == v) vtasks2[k2++] = t;
-    }
-  }
-  __syncwarp();
-
-  // visit every task whose current slot is VM v
-  auto for_cur = [&](int v, auto&& f) {
-    for (int k = voff[v]; k < voff[v + 1]; ++k) {
-      const int t = vtasks[k];
-      if (cvm[t] == v) f(t);
-    }
-    for (int k = voff2[v]; k < voff2[v + 1]; ++k) {
-      const int t = vtasks2[k];
-      if (cvm[t] == v) f(t);
-    }
-  };
+  const auto vm_set = [&](int v) { return VmSet{vbound + v * W, vover + v * W, hitm}; };
 
   float time = p.time_in[n];
   int maps_left = p.maps_left_in[n];
@@ -389,33 +456,42 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   __syncwarp();
 #endif
 
+  // Loops that ballot a task set run b over [0, T) in steps of 32 on every
+  // lane, so the whole warp takes part in each ballot.
   for (int step = 0; step < p.epoch_limit; ++step) {
     bool unfinished = false;
-    for (int t = lane; t < T; t += 32) {
-      unfinished |= f_valid[t] && finish[t] >= p.half_big && !f_shed[t];
-      cvm[t] = f_hit[t] ? tvm2[t] : tvm[t];
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      const bool in = t < T;
+      bool unf = false;
+      if (in) {
+        unf = f_valid[t] && finish[t] >= p.half_big && !f_shed[t];
+        cvm[t] = f_hit[t] ? tvm2[t] : tvm[t];
+      }
+      unfinished |= unf;
+      const unsigned mu = __ballot_sync(kFull, unf);
+      const unsigned mr = __ballot_sync(kFull, in && f_run[t]);
+      const unsigned mh = __ballot_sync(kFull, in && f_hit[t]);
+      if (lane == 0) {
+        unfm[b >> 5] = mu;
+        runm[b >> 5] = mr;
+        hitm[b >> 5] = mh;
+      }
     }
     if (!__any_sync(kFull, unfinished) || lane_ep >= bound) break;
     __syncwarp();
 
-    // per VM at the epoch's start: running count and share, the weakest
-    // evictable task, unfinished work bound to it, and the control hook's
-    // observables
+    // per VM at the epoch's start: running count and share, and the
+    // control hook's observables
     int q = 0, n_open = 0, n_busy = 0, first = V + 1;
     for (int t = lane; t < T; t += 32)
       q += f_valid[t] && finish[t] >= p.half_big && !f_shed[t] &&
            start[t] >= p.half_big && ready[t] <= time;
     for (int v = lane; v < V; v += 32) {
-      float c = 0.f, u = 0.f, mn = p.big;
-      for_cur(v, [&](int t) {
-        c += f_run[t] ? 1.f : 0.f;
-        u += f_valid[t] && finish[t] >= p.half_big && !f_shed[t] ? 1.f : 0.f;
-        if (f_run[t] && nev[t] < 2) mn = fminf(mn, prio[t]);
-      });
+      const float c = (float)vm_set(v).count(runm, W);
       von[v] = c;
       vshare[v] = vmips[v] * fminf(1.f, vpes[v] / fmaxf(c, 1.f));
-      vminev[v] = mn;
-      vunfin[v] = u;
+      vk_ev[v] = okey(p.big);
       const bool open = v_valid[v] && vopen[v] + spin <= time && time < vclose[v];
       n_open += open;
       n_busy += open && c > 0.5f;
@@ -431,8 +507,9 @@ __global__ void mr_epoch_control_kernel(const Params p) {
     for (int v = lane; v < V; v += 32) {
       const bool reserve = v_valid[v] && v_auto[v];
       const bool open_m = trigger && reserve && vopen[v] >= p.half_big && v == first;
+      // close a reserve with no unfinished work bound to it
       const bool close_m = pol_on && reserve && vopen[v] < p.half_big &&
-                           time < vclose[v] && vunfin[v] < 0.5f;
+                           time < vclose[v] && (float)vm_set(v).count(unfm, W) < 0.5f;
       if (open_m) vopen[v] = time;
       if (close_m) vclose[v] = time;
 #ifdef MR_TRACE
@@ -443,6 +520,15 @@ __global__ void mr_epoch_control_kernel(const Params p) {
     }
     n_scale += __reduce_add_sync(kFull, scaled);
     __syncwarp();
+    if (pre_onl) {
+      // the weakest evictable task's priority on each VM
+      for (int t = lane; t < T; t += 32) {
+        const int v = cvm[t];
+        if (v >= 0 && v < V && f_run[t] && nev[t] < 2 && prio[t] == prio[t])
+          atomicMin(&vk_ev[v], okey(prio[t]));
+      }
+      __syncwarp();
+    }
 
     // next event: completions, gated arrivals (SHED at the arrival
     // candidate, on the carried rem), pending failure instants
@@ -471,7 +557,9 @@ __global__ void mr_epoch_control_kernel(const Params p) {
       const bool shedc = f_shed[t] || (dl_shed && evaluable && cand < close_t && efin > dl[t]);
       f_shedc[t] = shedc;
       const bool slot = ((inr ? vpes[v] : 0.f) - (inr ? von[v] : 0.f)) > 0.5f;
-      const bool can_pre = pre_onl && prio[t] > (inr ? vminev[v] : 0.f);
+      // a pending task beating the weakest evictable running task on its
+      // VM defines an arrival even with no free slot
+      const bool can_pre = pre_onl && prio[t] > (inr ? okey_float(vk_ev[v]) : 0.f);
       const float a = ns && !shedc && (!is_space || slot || can_pre) && cand < close_t
                           ? cand : p.big;
       lmin = fminf(lmin, fminf(e, a));
@@ -486,27 +574,32 @@ __global__ void mr_epoch_control_kernel(const Params p) {
     // SHED at the admission instant and BOOST urgency (carried rem), then
     // advance the fluid state and fire every completion in the tie window
     int maps_done = 0;
-    for (int t = lane; t < T; t += 32) {
-      const int v = cvm[t];
-      const bool inr = v >= 0 && v < V;
-      const float close_t = inr ? vclose[v] : 0.f;
-      const float efin = t_next + rem[t] / fmaxf(inr ? vmips[v] : 0.f, p.tiny);
-      f_shedt[t] = f_shedc[t] ||
-                   (dl_shed && f_eval[t] && t_next < close_t && efin > dl[t]);
-      f_urg[t] = dl_boost && f_eval[t] && efin + dl_slack >= dl[t];
-      bool run = f_run[t];
-      float rm = rem[t];
-      if (run) rm = fmaf(neg_dt, rate[t], rm);
-      const bool done = live && run && eta[t] <= thr;
-      if (done) {
-        finish[t] = t_next;
-        run = false;
-        rm = 0.f;
-        maps_done += !f_red[t];
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      bool done = false;
+      if (t < T) {
+        const int v = cvm[t];
+        const bool inr = v >= 0 && v < V;
+        const float close_t = inr ? vclose[v] : 0.f;
+        const float efin = t_next + rem[t] / fmaxf(inr ? vmips[v] : 0.f, p.tiny);
+        f_shedt[t] = f_shedc[t] ||
+                     (dl_shed && f_eval[t] && t_next < close_t && efin > dl[t]);
+        f_urg[t] = dl_boost && f_eval[t] && efin + dl_slack >= dl[t];
+        bool run = f_run[t];
+        float rm = rem[t];
+        if (run) rm = fmaf(neg_dt, rate[t], rm);
+        done = live && run && eta[t] <= thr;
+        if (done) {
+          finish[t] = t_next;
+          run = false;
+          rm = 0.f;
+          maps_done += !f_red[t];
+        }
+        f_run[t] = run;
+        rem[t] = rm;
       }
-      f_done[t] = done;
-      f_run[t] = run;
-      rem[t] = rm;
+      const unsigned m = __ballot_sync(kFull, done);
+      if (lane == 0) donem[b >> 5] = m;
     }
     maps_done = __reduce_add_sync(kFull, maps_done);
     const int maps_left_new = maps_left - maps_done;
@@ -516,92 +609,92 @@ __global__ void mr_epoch_control_kernel(const Params p) {
     // shuffle release, then failure kills (after completions: a task that
     // finishes at the failure instant completes), then eligibility
     bool lost_any = false;
-    for (int t = lane; t < T; t += 32) {
-      if (f_red[t] && phase_done) ready[t] = release;
-      const int v = cvm[t];
-      const bool inr = v >= 0 && v < V;
-      const float ft = inr ? vfail[v] : 0.f, rt = inr ? vrest[v] : 0.f;
-      const float close_t = inr ? vclose[v] : 0.f;
-      const bool aff = f_valid[t] && live && ft > time && ft <= t_next &&
-                       finish[t] >= p.half_big && !f_shedc[t];
-      float lost = 0.f;
-      if (aff) {
-        lost = tlen[t] - rem[t];
-        rem[t] = tlen[t];
-        f_run[t] = 0;
-        start[t] = p.big;
-        float rd = fmaxf(ready[t], ft + redisp);
-        if (!f_hit[t]) rd = rd + refetch[t];
-        ready[t] = rd;
-        f_hit[t] = 1;
-      }
-      lostf[t] = lost;
-      lost_any |= lost != 0.f;
+    for (int b = 0; b < T; b += 32) {
+      const int t = b + lane;
+      bool e = false;
+      if (t < T) {
+        if (f_red[t] && phase_done) ready[t] = release;
+        const int v = cvm[t];
+        const bool inr = v >= 0 && v < V;
+        const float ft = inr ? vfail[v] : 0.f, rt = inr ? vrest[v] : 0.f;
+        const float close_t = inr ? vclose[v] : 0.f;
+        const bool aff = f_valid[t] && live && ft > time && ft <= t_next &&
+                         finish[t] >= p.half_big && !f_shedc[t];
+        float lost = 0.f;
+        if (aff) {
+          lost = tlen[t] - rem[t];
+          rem[t] = tlen[t];
+          f_run[t] = 0;
+          start[t] = p.big;
+          float rd = fmaxf(ready[t], ft + redisp);
+          if (!f_hit[t]) rd = rd + refetch[t];
+          ready[t] = rd;
+          f_hit[t] = 1;
+        }
+        lostf[t] = lost;
+        lost_any |= lost != 0.f;
 #ifdef MR_TRACE
-      f_kill[t] = aff;
+        f_kill[t] = aff;
 #endif
-      const bool e = live && f_ns[t] && elig[t] <= thr && t_next < close_t &&
-                     !(t_next >= ft && t_next < rt) && !f_shedt[t];
-      f_el[t] = e;
-      f_rm[t] = e;
-      f_ad[t] = 0;
-      f_ev[t] = 0;
+        e = live && f_ns[t] && elig[t] <= thr && t_next < close_t &&
+            !(t_next >= ft && t_next < rt) && !f_shedt[t];
+        f_ev[t] = 0;
+      }
+      const unsigned me = __ballot_sync(kFull, e);
+      const unsigned ms = __ballot_sync(kFull, e && f_urg[t] && !(prio[t] >= -p.big));
+      if (lane == 0) {
+        elm[b >> 5] = me;
+        stallm[b >> 5] = ms;
+      }
     }
     __syncwarp();
 
-    // per VM: preemption of the weakest evictable task on a full VM, free
-    // PEs, and the admission scan by (urgency, priority desc, eligible
-    // time, index), max_pes times; the task taken at step s is admitted
-    // iff s < the VM's free slots
-    for (int v = lane; v < V; v += 32) {
-      float done_c = 0.f;
-      for_cur(v, [&](int t) { done_c += f_done[t] ? 1.f : 0.f; });
-      float ev_c = 0.f;
-      if (pre_onl && (vpes[v] - (von[v] - done_c)) <= 0.5f) {
-        float mx_el = -p.big;
-        for_cur(v, [&](int t) { if (f_el[t]) mx_el = fmaxf(mx_el, prio[t]); });
-        float mn_low = p.big;
-        for_cur(v, [&](int t) {
-          if (f_run[t] && nev[t] < 2 && mx_el > prio[t]) mn_low = fminf(mn_low, prio[t]);
-        });
-        int victim = -1;
-        for_cur(v, [&](int t) {
-          if (f_run[t] && nev[t] < 2 && mx_el > prio[t] && prio[t] == mn_low)
-            victim = max(victim, t);
-        });
-        if (victim >= 0) {
-          f_ev[victim] = 1;
+    // preemption: on each full space-shared VM the weakest evictable
+    // running task (lowest priority, latest index) loses its PE to an
+    // eligible task that strictly outranks it
+    if (pre_onl) {
+      for (int v = lane; v < V; v += 32) {
+        v_full[v] = (vpes[v] - (von[v] - (float)vm_set(v).count(donem, W))) <= 0.5f;
+        vk_el[v] = okey(-p.big);
+        vk_low[v] = okey(p.big);
+        vvic[v] = -1;
+      }
+      __syncwarp();
+      for (int t = lane; t < T; t += 32) {
+        const int v = cvm[t];
+        if (has(elm, t) && v >= 0 && v < V && v_full[v] && prio[t] == prio[t])
+          atomicMax(&vk_el[v], okey(prio[t]));
+      }
+      __syncwarp();
+      const auto victim_cand = [&](int t) {
+        const int v = cvm[t];
+        return v >= 0 && v < V && v_full[v] && f_run[t] && nev[t] < 2 &&
+               okey_float(vk_el[v]) > prio[t];
+      };
+      for (int t = lane; t < T; t += 32)
+        if (victim_cand(t)) atomicMin(&vk_low[cvm[t]], okey(prio[t]));
+      __syncwarp();
+      for (int t = lane; t < T; t += 32)
+        if (victim_cand(t) && prio[t] == okey_float(vk_low[cvm[t]]))
+          atomicMax(&vvic[cvm[t]], t);
+      __syncwarp();
+    }
+
+    // free PEs per VM, after completions and evictions
+    if (is_space) {
+      for (int v = lane; v < V; v += 32) {
+        float ev_c = 0.f;
+        if (pre_onl && vvic[v] >= 0) {
+          f_ev[vvic[v]] = 1;
           ev_c = 1.f;
         }
+        vfree[v] = vpes[v] - (von[v] - (float)vm_set(v).count(donem, W) - ev_c);
       }
-      const float free_v = vpes[v] - (von[v] - done_c - ev_c);
-      if (!is_space) continue;
-      for (int s = 0; s < p.max_pes; ++s) {
-        float mu = -p.big;
-        for_cur(v, [&](int t) { if (f_rm[t]) mu = fmaxf(mu, f_urg[t] ? 1.f : 0.f); });
-        float mx = -p.big;
-        for_cur(v, [&](int t) {
-          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu) mx = fmaxf(mx, prio[t]);
-        });
-        float mn = p.big;
-        for_cur(v, [&](int t) {
-          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu && prio[t] == mx)
-            mn = fminf(mn, elig[t]);
-        });
-        int pick = T;
-        for_cur(v, [&](int t) {
-          if (f_rm[t] && (f_urg[t] ? 1.f : 0.f) == mu && prio[t] == mx && elig[t] == mn)
-            pick = min(pick, t);
-        });
-        if (pick < T) {
-          if ((float)s < free_v) f_ad[pick] = 1;
-          f_rm[pick] = 0;
-        }
-      }
+      __syncwarp();
     }
-    __syncwarp();
 
-    // evictions, starts, and the lane's lost work
+    // evictions, starts (time-shared: every eligible task; space-shared:
+    // by rank), and the lane's lost work
     bool map_shed = false;
     for (int t = lane; t < T; t += 32) {
       float lost = 0.f;
@@ -620,10 +713,19 @@ __global__ void mr_epoch_control_kernel(const Params p) {
       }
       loste[t] = lost;
       lost_any |= lost != 0.f;
-      if (f_el[t] && (!is_space || f_ad[t])) {
+      bool go = false;
+      if (has(elm, t)) {
+        const int v = cvm[t];
+        go = !is_space ||
+             (v >= 0 && v < V &&
+              admitted(t, vm_set(v), elm, W, prio, elig, f_urg,
+                       vm_set(v).count(stallm, W) > 0, vfree[v], p.max_pes, p.big));
+      }
+      if (go) {
         start[t] = t_next;
         f_run[t] = 1;
       }
+      f_st[t] = go;
       map_shed |= f_shedt[t] && !f_red[t];
     }
     map_shed = __any_sync(kFull, map_shed);
@@ -658,7 +760,7 @@ __global__ void mr_epoch_control_kernel(const Params p) {
                          [&](int s, int v) { put(s, time, kEvScaleOpen, -1, v); });
       c = log_events(c, V, p.E, [&](int v) { return v_clm[v] != 0; },
                      [&](int s, int v) { put(s, time, kEvScaleClose, -1, v); });
-      c = log_events(c, T, p.E, [&](int t) { return f_done[t] != 0; },
+      c = log_events(c, T, p.E, [&](int t) { return has(donem, t); },
                      [&](int s, int t) { put(s, t_next, kEvFinish, t, cvm[t]); });
       const int c_kill = c;
       c = log_events(c, T, p.E, [&](int t) { return f_kill[t] != 0; },
@@ -670,8 +772,7 @@ __global__ void mr_epoch_control_kernel(const Params p) {
       c = log_events(c, T, p.E, [&](int t) { return f_ev[t] != 0; },
                      [&](int s, int t) { put(s, t_next, kEvPreempt, t, cvm[t]); });
       const int n_evict = c - c_kill - n_kill;
-      c = log_events(c, T, p.E,
-                     [&](int t) { return f_el[t] && (!is_space || f_ad[t]); },
+      c = log_events(c, T, p.E, [&](int t) { return f_st[t] != 0; },
                      [&](int s, int t) { put(s, t_next, kEvStart, t, cvm[t]); });
       const int c_shed = c;
       c = log_events(c, T, p.E, [&](int t) { return f_nshed[t] != 0; },

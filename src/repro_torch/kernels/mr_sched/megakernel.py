@@ -6,12 +6,15 @@ megakernel.py:_kernel`` (via ``_mr_epoch_impl``), open-loop and
 whole event history: processor-sharing rates, the next-event min over
 completions and lease-gated arrivals, completions inside the ``1e-6`` tie
 window, the shuffle release of reduces, and space-shared admission by
-per-VM lexicographic minima of ``(priority desc, eligible time, index)``
-taken ``max_pes`` times.  The control lowering adds, each epoch, the
+per-task rank: the eligible tasks on a task's VM ahead of it by
+``(priority desc, eligible time, index)`` must be fewer than ``max_pes``
+and than the VM's free PEs, exactly the outcome of the Pallas kernel's
+``max_pes``-step scan.  The control lowering adds, each epoch, the
 AUTOSCALE hook at the opening clock, the ``[fail, restore)`` down-window
 gates, failure kills with failover re-dispatch and re-replication, SHED at
 the arrival candidate and at the admission instant, preemption of the
-weakest evictable task per full VM, and the BOOST urgency tier.  It is
+weakest evictable task per full VM, and the BOOST urgency tier (urgent
+tasks rank first).  It is
 resumable: ``state`` carries the 8-leaf carry (15 under control) in and
 out and ``epoch_limit`` caps the epochs of one call.
 
@@ -19,7 +22,7 @@ Where the reference multiplies into an add, XLA:CPU fuses the two into one
 FMA (``rem - dt * r`` and the tie threshold ``t + 1e-6 * max(t, 1)``);
 both forms round once there too, every other op rounds on its own.
 
-Two forms, one op sequence:
+Two forms, one algorithm:
 
 * :func:`mr_epoch_plain` — plain PyTorch on ``[N, ...]`` tensors, any
   device.  The CPU tests hold it against the JAX kernel in interpret mode,
@@ -158,9 +161,11 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
                    trace: bool = False):
     """Plain PyTorch ``mr_epoch``; arguments and result as :func:`mr_epoch`.
 
-    A transcription of the TPU kernel's op sequence on batched tensors:
-    one-hot contractions become gathers (``to_task``) and exact 0/1 counts
-    (``per_vm_sum``), the per-VM extrema are masked reductions.  Every
+    The TPU kernel's op sequence on batched tensors: one-hot contractions
+    become gathers (``to_task``) and exact 0/1 counts (``per_vm_sum``), the
+    per-VM extrema are masked reductions, and the ``max_pes``-step
+    admission scan becomes the rank rule it reproduces (a ``(N, T, T)``
+    comparison of the eligible tasks of each VM), as in the kernels.  Every
     carry update is gated on its lane still being active, so a lane stops
     at its own end whatever its batch mates do (ROADMAP C6); on the open
     loop a finished lane is a fixed point and the gate changes no bit.
@@ -446,29 +451,32 @@ def mr_epoch_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
         else:
             free_v = vm_pes - (n_on_vm
                                - per_vm_sum(done_now.to(F32)))
-        free_after = to_task(free_v)
-        admit = torch.zeros_like(eligible)
-        remaining = eligible
-        for s in range(max_pes):
-            if control:
-                urg_m = torch.where(remaining, urg, neg_big_t)
-                tier = remaining & (urg_m == to_task(
-                    vm_extreme(urg_m, -_BIG, torch.amax)))
-            else:
-                tier = remaining
-            prio_m = torch.where(tier, prio, neg_big_t)
-            top = tier & (prio_m == to_task(
-                vm_extreme(prio_m, -_BIG, torch.amax)))
-            elig_m = torch.where(top, elig, big_t)
-            cand = top & (elig_m == to_task(
-                vm_extreme(elig_m, _BIG, torch.amin)))
-            idx_m = torch.where(cand, idx, torch.full_like(idx, T))
-            min_idx_v = torch.where(
-                onehot, idx_m[:, :, None],
-                torch.full_like(idx_m, T)[:, :, None]).amin(dim=1)
-            pick = cand & (idx == to_task(min_idx_v.to(F32)).to(I32))
-            admit = admit | (pick & (float(s) < free_after))
-            remaining = remaining & ~pick
+        # space-shared admission by rank (the JAX engine's rule,
+        # core/engine.py:953-955, which the Pallas kernel's max_pes-step
+        # scan reproduces): a task's rank is the count of eligible tasks on
+        # its VM that the scan picks before it, by (urgency desc, priority
+        # desc, eligible time asc, index asc); it is admitted iff its rank
+        # is below max_pes and, as a float, below the VM's free PEs.  A
+        # priority below -1e30 (the scan's starting maximum) or NaN is never
+        # picked, and such an urgent task keeps the scan in the urgent tier.
+        # A task bound outside [0, V) sees no free PE.
+        same = (in_range[:, :, None] & in_range[:, None, :]
+                & (vm_idx[:, :, None] == vm_idx[:, None, :])
+                & eligible[:, None, :])
+        pt, pu = prio[:, :, None], prio[:, None, :]
+        et, eu = elig[:, :, None], elig[:, None, :]
+        ahead = (pu > pt) | ((pu == pt) & ((eu < et) | (
+            (eu == et) & (idx[:, None, :] < idx[:, :, None]))))
+        pickable = eligible & (prio >= neg_big_t)
+        if control:
+            ut, uu = urg[:, :, None], urg[:, None, :]
+            ahead = (uu > ut) | ((uu == ut) & ahead)
+            stalled = (same & (uu > 0.5) & ~(pu >= neg_big_t[:, None, :])
+                       ).any(dim=2)
+            pickable = pickable & ~(stalled & (urg < 0.5))
+        rank = (same & ahead).sum(dim=2, dtype=I32)
+        admit = pickable & (rank < max_pes) \
+            & (rank.to(F32) < to_task(free_v))
         start_now = eligible & (~is_space | admit)
         start = torch.where(start_now, t_next[:, None].expand_as(start),
                             start_base)
@@ -776,28 +784,39 @@ def total_launches() -> int:
     """Launches of every ``mr_epoch`` instantiation so far."""
     return sum(getattr(mr_epoch, c) for c in LAUNCH_COUNTERS)
 
-# shared memory one lane (one warp) of the kernel holds: bytes per task and
-# per VM (f32 arrays, i32 arrays, flag bytes), plus fixed bytes; the control
-# trace instantiation keeps two more flags per task (killed, newly shed) and
-# per VM (opened, closed)
-_LANE_BYTES = {(False, False): (11 * 4 + 2 * 4 + 8, 4 * 4 + 4, 4),
-               (True, False): (13 * 4 + 6 * 4 + 15, 10 * 4 + 2 * 4 + 2, 8)}
+# shared memory one lane (one warp) of the kernel holds, as bytes per task,
+# per VM, per VM and task-set word, and per task-set word (W = ceil(T/32)
+# words hold one bit per task): the open loop keeps each VM's task set and
+# three per-epoch sets, the control lowering two sets per VM (bound,
+# failover) and six per-epoch sets; the control trace instantiation keeps
+# two more flags per task (killed, newly shed) and per VM (opened, closed)
+_LANE_BYTES = {(False, False): (11 * 4 + 4 + 5, 5 * 4, 4, 3 * 4),
+               (True, False): (13 * 4 + 4 * 4 + 12, 9 * 4 + 4 * 4 + 3, 8,
+                               6 * 4)}
 _LANE_BYTES[(False, True)] = _LANE_BYTES[(False, False)]
-_LANE_BYTES[(True, True)] = (13 * 4 + 6 * 4 + 17, 10 * 4 + 2 * 4 + 4, 8)
+_LANE_BYTES[(True, True)] = (13 * 4 + 4 * 4 + 14, 9 * 4 + 4 * 4 + 5, 8,
+                             6 * 4)
 _SMEM_LIMIT = 200 * 1024
 
 
 def lane_smem_bytes(T: int, V: int, control: bool = False,
                     trace: bool = False) -> int:
     """Bytes of shared memory one lane of the kernel keeps (16-aligned)."""
-    per_t, per_v, fixed = _LANE_BYTES[(control, trace)]
-    return (per_t * T + per_v * V + fixed + 15) // 16 * 16
+    per_t, per_v, per_vw, per_w = _LANE_BYTES[(control, trace)]
+    W = (T + 31) // 32
+    return (per_t * T + per_v * V + per_vw * V * W + per_w * W + 15) \
+        // 16 * 16
 
 
 def _lanes_per_block(T: int, V: int, control: bool = False,
                      trace: bool = False) -> int:
+    """Lanes (warps) per block: 2.  A launch lasts as long as its slowest
+    lane, and smaller blocks spread a bucket's lanes more evenly over the
+    SMs (on the H100, 1 and 2 lanes per block ran the 65,536-cell grids'
+    buckets fastest, 4 and 8 slower); 2 keeps 64 warps resident per SM on
+    batches too large for one wave, where 1 would keep 32."""
     per_lane = lane_smem_bytes(T, V, control, trace)
     if per_lane > _SMEM_LIMIT:
         raise ValueError(f"mr_epoch: T={T}, V={V} needs {per_lane} bytes of "
                          "shared memory per lane, above the kernel's limit")
-    return max(1, min(4, _SMEM_LIMIT // per_lane))
+    return min(2, _SMEM_LIMIT // per_lane)

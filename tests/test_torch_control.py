@@ -7,7 +7,9 @@ failover onto replica holders — go through:
 
 * JAX ``mr_epoch(..., control=True, interpret=True)`` at ``tile=1`` and the
   port's ``mr_epoch_plain(control=True)``: 14 of the 15 carry leaves
-  bitwise, ``work_lost`` at rtol 1e-6;
+  bitwise, ``work_lost`` at rtol 1e-6; also, untraced and traced, on lanes
+  built to stress admission (``mr_stress``), which the port decides by
+  per-task rank where the Pallas kernel scans;
 * a per-lane JAX reference (``jax.vmap`` of ``engine.simulate_arrays(
   control=True)`` and its metrics) and the port's ``SweepPlan.run``:
   schedules and integer metrics exact, float metrics bitwise except the
@@ -31,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import mr_stress
 from repro.core import config as jconfig
 from repro.core import control as jcontrol
 from repro.core import costmodel as jcost
@@ -197,6 +200,29 @@ def test_plain_control_preempts_like_pallas():
     want = _jax(lanes, max_pes)
     assert want[13].sum() > 0                 # evictions happened
     _assert_carry(want, _torch(lanes, max_pes), "preemption")
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("T,pes_delta", [(12, 0), (12, 3), (12, -3),
+                                         (40, 0)])
+def test_plain_control_matches_pallas_on_admission_stress(T, pes_delta,
+                                                          trace):
+    """The open loop's admission stress under control, plus BOOST-urgent
+    tasks (some that the scan never picks, holding back the rest of their
+    VM) and preemption victims on full VMs, failures whose tasks run on
+    their second binding, in range or not, SHED deadlines and reserves;
+    ``max_pes`` at, above and below the largest PE count."""
+    lanes, max_pes = mr_stress.stress_lanes(20, T, seed=50 + T + pes_delta,
+                                            control=True)
+    max_pes = max(1, max_pes + pes_delta)
+    want = _jax(lanes, max_pes, trace=trace)
+    got = _torch(lanes, max_pes, trace=trace)
+    _assert_carry(want[:15], got[:15], f"stress T={T}")
+    if trace:
+        np.testing.assert_array_equal(got[15].view(np.int32),
+                                      want[15].view(np.int32), err_msg="ts")
+    assert (want[3] < 5e29).sum() > 4 * 20          # tasks were admitted
+    assert want[8].any() and want[13].any()         # fail-overs, evictions
 
 
 def test_control_resume_split_matches_pallas_and_one_call():
@@ -461,13 +487,19 @@ def test_wrapper_takes_plain_control_version_on_cpu():
 
 
 def test_control_kernel_shared_memory_layout():
-    # the C source's lane_smem_bytes and the wrapper's agree
+    # the C source's lane_smem_bytes and the wrapper's agree, untraced and
+    # traced, at one, two and three task-set words per VM
     src = tmk.__file__.rsplit("/", 1)[0] + "/csrc/mr_epoch_control.cu"
     text = open(src).read()
-    assert "(91 * T + 50 * V + 8 + 15) / 16 * 16" in text
-    assert tmk.lane_smem_bytes(64, 16, control=True) == \
-        (91 * 64 + 50 * 16 + 8 + 15) // 16 * 16
-    assert tmk._lanes_per_block(64, 16, control=True) == 4
+    for trace, (per_t, per_v) in ((False, (80, 55)), (True, (82, 57))):
+        assert (f"({per_t} * T + {per_v} * V + 8 * V * W + 24 * W + 15) "
+                "/ 16 * 16") in text
+        for T, Vv in ((8, 1), (64, 16), (70, 9)):
+            W = (T + 31) // 32
+            assert tmk.lane_smem_bytes(T, Vv, control=True, trace=trace) \
+                == (per_t * T + per_v * Vv + 8 * Vv * W + 24 * W + 15) \
+                // 16 * 16
+    assert tmk._lanes_per_block(64, 16, control=True) == 2
     with pytest.raises(ValueError):
         tmk._lanes_per_block(4096, 16, control=True)
 

@@ -7,7 +7,8 @@ card and no JAX it runs alone:
 (``--noconftest``: the suite's conftest imports JAX).  The four
 instantiations of ``mr_epoch`` (open loop and control, untraced and traced)
 and ``mr_schedule`` are held against their plain PyTorch versions on the
-card, bit for bit, and the sweep and traced paths on the card against the
+card, bit for bit (``mr_epoch`` also on lanes built to stress admission,
+``mr_stress``), and the sweep and traced paths on the card against the
 same paths on the CPU.  The LM kernels (``flash_attention``, ``wkv6``) are
 held against their plain versions (flash: float32 at 2e-6, summation
 order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6 at
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import mr_stress
 from repro_torch import configs
 from repro_torch.core import control, engine, sweep
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -255,6 +257,33 @@ def test_trace_kernel_matches_plain_on_card(T, control_):
                           small[n_carry + 1:-1]):
         assert torch.equal(_bits(a[:, :E]), _bits(b)), f"kept {leaf}"
     assert torch.equal(got[-1], small[-1]) and int(got[-1].max()) > E
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control_,trace", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+@pytest.mark.parametrize("T,pes_delta", [(12, 0), (40, 3), (70, -3)])
+def test_kernels_match_plain_on_admission_stress(T, pes_delta, control_,
+                                                 trace):
+    # one, two and three task-set words per VM; max_pes at, above and
+    # below the largest PE count
+    dev = _card()
+    lanes, max_pes = mr_stress.stress_lanes(256, T, seed=T,
+                                            control=control_)
+    max_pes = max(1, max_pes + pes_delta)
+    x = [torch.tensor(a, device=dev)
+         for a in lanes[:28 if control_ else 13 + trace]]
+    counter = ("control_" if control_ else "") + ("trace_" if trace else "") \
+        + "launches"
+    before = getattr(megakernel.mr_epoch, counter)
+    got = megakernel.mr_epoch(*x, max_pes=max_pes, control=control_,
+                              trace=trace)
+    assert getattr(megakernel.mr_epoch, counter) == before + 1
+    want = megakernel.mr_epoch_plain(*x, max_pes=max_pes, control=control_,
+                                     trace=trace)
+    for leaf, a, b in zip(megakernel.state_leaves(control_, trace), want,
+                          got):
+        assert torch.equal(_bits(a), _bits(b)), leaf
 
 
 @pytest.mark.cuda

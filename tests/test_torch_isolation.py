@@ -57,8 +57,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 def test_no_source_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
+    # chip_smoke.py imports tests/mr_stress.py, so it is held to the same
+    # rule
     files = sorted((SRC / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "tests" / "mr_stress.py"]
     assert len(files) >= 15
     for f in files:
         hits = pat.findall(f.read_text())

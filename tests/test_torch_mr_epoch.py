@@ -5,14 +5,17 @@ go through JAX ``mr_epoch(..., interpret=True)`` and the port's
 ``mr_epoch_plain`` on the CPU; all 8 carry leaves must be bitwise equal,
 across tiles, both sched policies, the four bindings, LOCALITY on skewed
 placement, elastic lease windows with spinup and priorities, the tail-heavy
-straggler shape, and a run resumed at ``epoch_limit``.  The CUDA kernel
-itself is held against the plain version on the card in
+straggler shape, and a run resumed at ``epoch_limit``; and, untraced and
+traced, on lanes built to stress space-shared admission (``mr_stress``),
+which the port decides by per-task rank where the Pallas kernel scans.
+The CUDA kernel itself is held against the plain version on the card in
 ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
 import torch
 
+import mr_stress
 from repro.core import elasticity as jel
 from repro.core import sweep as jsweep
 from repro.kernels.mr_sched import megakernel as jmk
@@ -121,6 +124,27 @@ def test_plain_matches_pallas_bitwise(kind, tile, T):
     assert want[7].max() > 2            # lanes took real event epochs
 
 
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("T,pes_delta", [(12, 0), (12, 3), (12, -3),
+                                         (40, 0)])
+def test_plain_matches_pallas_on_admission_stress(T, pes_delta, trace):
+    """One VM for all tasks, index ties, -0.0 beside 0.0, VMs with 0,
+    fractional and exactly ``max_pes`` PEs, priorities at the scan's
+    sentinels, tasks bound outside [0, V); ``max_pes`` at, above and
+    below the largest PE count (the scan's precondition broken)."""
+    lanes, max_pes = mr_stress.stress_lanes(24, T, seed=T + pes_delta)
+    max_pes = max(1, max_pes + pes_delta)
+    kw = dict(trace=True, vm_valid=lanes[13]) if trace else {}
+    want = _jax(lanes[:13], max_pes, tile=8, **kw)
+    got = _torch(lanes[:13] + ((lanes[13],) if trace else ()), max_pes,
+                 trace=trace)
+    _assert_bitwise(want[:8], got[:8], f"stress T={T}")
+    if trace:
+        np.testing.assert_array_equal(got[8].view(np.int32),
+                                      want[8].view(np.int32), err_msg="ts")
+    assert (want[3] < 5e29).sum() > 4 * 24          # tasks were admitted
+
+
 def test_resume_split_matches_pallas_and_one_call():
     lanes, max_pes = _lanes("elastic", T=16, seed=3)
     full = _torch(lanes, max_pes)
@@ -149,12 +173,16 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 def test_kernel_shared_memory_layout():
-    # the C source's lane_smem_bytes and the wrapper's agree
+    # the C source's lane_smem_bytes and the wrapper's agree, at one, two
+    # and three task-set words per VM
     src = (tmk.__file__.rsplit("/", 1)[0] + "/csrc/mr_epoch.cu")
     text = open(src).read()
-    assert "(60 * T + 20 * V + 4 + 15) / 16 * 16" in text
-    assert tmk.lane_smem_bytes(64, 16) == (60 * 64 + 20 * 16 + 4 + 15) \
-        // 16 * 16
-    assert tmk._lanes_per_block(64, 16) == 4
+    assert "(53 * T + 20 * V + 4 * V * W + 12 * W + 15) / 16 * 16" in text
+    for T, Vv in ((8, 1), (64, 16), (70, 9)):
+        W = (T + 31) // 32
+        want = (53 * T + 20 * Vv + 4 * Vv * W + 12 * W + 15) // 16 * 16
+        assert tmk.lane_smem_bytes(T, Vv) == want
+        assert tmk.lane_smem_bytes(T, Vv, trace=True) == want
+    assert tmk._lanes_per_block(64, 16) == 2
     with pytest.raises(ValueError):
         tmk._lanes_per_block(8192, 16)
