@@ -26,7 +26,8 @@ each printing one line of numbers:
               open-loop kernel on the 8 shared leaves.  Each instantiation
               also on lanes built to stress space-shared admission
               (``tests/mr_stress.py``) at T = 12, 40 and 70, with
-              ``max_pes`` at, above and below the largest PE count.
+              ``max_pes`` at, above and below the largest PE count, and on
+              a large fleet (T = 1024, V = 400: a lane takes a block).
 4. main     — ``SweepPlan.run(device="cuda")`` on 65,536 open-loop cells; the
               kernel's launch count must rise; every bucket's kernel run
               bitwise its plain version's; wall time, scenarios/s, the
@@ -66,7 +67,11 @@ each printing one line of numbers:
               grid's cells it models (a static fleet, no priorities): its
               makespans against phase 4's at the reference's tolerance
               (rtol 1e-4, atol 1e-2), each bucket's schedule bitwise the
-              plain version's; its time, launches and bound.
+              plain version's; the kernel's device time per grid (as in
+              phase 4), launches and bound; then the kernel bitwise its
+              plain version on admission-stress lanes (T = 12, 40, 70)
+              and on long lanes (T = 2048 on 9 VMs; T = 1024 on 1500
+              VMs, whose task sets live in global scratch).
 
 10. lm kernels — ``flash_attention`` and ``wkv6`` against their plain
               versions on the card at stated tolerances (flash: f32 at 2e-6,
@@ -124,10 +129,11 @@ N_CELLS = 65536          # main path: 32x the largest recorded JAX row (b2048)
 KERNEL_LANES = 2048      # lanes per kernel-check grid
 KERNEL_TS = (8, 32, 64)  # padded task counts of the kernel-check grids
 CPU_CELLS = 2048         # cells re-run on the CPU
-TIMING_REPS = 5
 TIMING_ROUNDS = 5        # timed passes over a grid's mr_epoch launches
 SPIN_CYCLES = 4_000_000  # ~2 ms at 1.98 GHz: the card's lead over the host
 STRESS_CASES = ((12, 0), (40, 3), (70, -3))  # (T, max_pes - largest PE)
+FLEET = (1024, 400)      # (T, V) of the large-fleet stress lanes
+SCHEDULE_LONG = ((2048, 9), (1024, 1500))  # (T, V) of long mr_schedule lanes
 TRACE_PASSES = 11        # alternating untraced/traced passes of phase 7
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores (same)
@@ -348,15 +354,22 @@ def check_stress(device, control=False, trace=False, seed=0):
     """One instantiation against its plain version on ``KERNEL_LANES``
     admission-stress lanes (``tests/mr_stress.py``) per case of
     ``STRESS_CASES`` (one, two and three task-set words per VM;
-    ``max_pes`` at, above and below the largest PE count); returns
+    ``max_pes`` at, above and below the largest PE count), and on one
+    lane of each open-loop stress kind at the large-fleet shape ``FLEET``
+    (a lane takes a block of its own; under control the control data is
+    degenerate: the control kinds at this size keep the plain version
+    busy for minutes, ``tests/test_torch_cuda.py`` runs them); returns
     ``(max_abs_err, lanes checked)``."""
     import torch
     import mr_stress
     from repro_torch.kernels.mr_sched import megakernel as mk
+    cases = [(T, d, KERNEL_LANES, mr_stress.V, control)
+             for T, d in STRESS_CASES]
+    cases.append((FLEET[0], 0, len(mr_stress.OPEN_KINDS), FLEET[1], False))
     worst = 0.0
-    for T, pes_delta in STRESS_CASES:
-        lanes, max_pes = mr_stress.stress_lanes(KERNEL_LANES, T, seed + T,
-                                                control)
+    for T, pes_delta, n, V, control_kinds in cases:
+        lanes, max_pes = mr_stress.stress_lanes(n, T, seed + T,
+                                                control_kinds, V)
         x = [torch.tensor(a, device=device)
              for a in lanes[:28 if control else 13 + trace]]
         max_pes = max(1, max_pes + pes_delta)
@@ -366,8 +379,9 @@ def check_stress(device, control=False, trace=False, seed=0):
         torch.cuda.synchronize()
         worst = max(worst, compare(
             mk.state_leaves(control, trace), kern, plain,
-            f"T={T}: {mk.instantiation(control, trace)} on stress lanes"))
-    return worst, KERNEL_LANES * len(STRESS_CASES)
+            f"T={T}, V={V}: {mk.instantiation(control, trace)} on stress "
+            "lanes"))
+    return worst, sum(c[2] for c in cases)
 
 
 def phase_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
@@ -711,9 +725,10 @@ def launch_ms(launches):
 
 
 def kernel_times(launches, max_epochs):
-    """Device time of a grid's ``mr_epoch`` kernels: ``launches`` holds one
-    closure per bucket, each launching its kernel once on a prepared
-    carry, and ``max_epochs`` each bucket's largest realized ``n_epochs``.
+    """Device time of a grid's kernels (``mr_epoch`` or ``mr_schedule``):
+    ``launches`` holds one closure per bucket, each launching its kernel
+    once on prepared inputs, and ``max_epochs`` each bucket's largest
+    realized epoch count.
     A round times every closure with :func:`launch_ms` and sums the
     kernels' device times; ``TIMING_ROUNDS`` rounds after a warm-up pass.
     Returns ``ms``, the grid's device time in each round; ``epoch_ns``,
@@ -1027,11 +1042,14 @@ def phase_report(m, dev):
 def phase_schedule(m, dev):
     """``ops.schedule`` over the main grid's cells ``mr_schedule`` models
     (a static fleet: lease windows ``[0, 1e30)``, no spin-up, zero
-    priorities), bucket by bucket; their makespans against the main run's
-    at the reference's tolerance, each bucket's ``(start, finish)``
-    bitwise the plain version's, and the kernel's time and bound."""
+    priorities), bucket by bucket (the launch count zeroed just before and
+    read just after); their makespans against the main run's at the
+    reference's tolerance, each bucket's ``(start, finish)`` bitwise the
+    plain version's; the kernel's device time per grid
+    (:func:`kernel_times`; a bucket's epochs counted as its lanes' most
+    distinct event instants, a lower bound), the plain version's time and
+    the bound; then :func:`check_schedule_lanes`."""
     import torch
-    from repro_torch.core import sweep
     from repro_torch.kernels.mr_sched import kernel, ops
     compiled, pad_t, pad_v = m["plan"]._compiled()
     static = ((compiled["vm_start"] == 0).all(axis=1)
@@ -1049,8 +1067,9 @@ def phase_schedule(m, dev):
     if launches != len(buckets):
         raise AssertionError("ops.schedule did not launch mr_schedule")
     want = m["result"]["makespan"].reshape(-1)[cells]
-    k_ms = p_ms = b_ms = by_ops = worst = 0.0
+    p_ms = b_ms = by_ops = worst = 0.0
     parts = np.zeros(2)                     # bytes, operations (ms)
+    runs, max_epochs = [], []
     for (idx, gcols, statics, tb, vb, batch, _), (start, finish) in zip(
             buckets, outs):
         valid = batch.task_valid
@@ -1060,21 +1079,66 @@ def phase_schedule(m, dev):
             raise AssertionError("non-finite mr_schedule makespan")
         np.testing.assert_allclose(span, want[idx], rtol=1e-4, atol=1e-2)
         inputs = ops.kernel_inputs(batch)[:9]
+        ms, plain = cuda_once(lambda: kernel.mr_schedule_plain(*inputs))
+        p_ms += ms
         worst = max(worst, compare(("start", "finish"), (start, finish),
-                                   kernel.mr_schedule_plain(*inputs),
+                                   plain,
                                    f"T={tb}: mr_schedule on the main path"))
-        k_ms += cuda_ms(lambda: kernel.mr_schedule(*inputs), TIMING_REPS)
-        p_ms += cuda_ms(lambda: kernel.mr_schedule_plain(*inputs), 1)
-        bound_ms, by, part = schedule_bound_ms(batch, start, finish)
+        runs.append(lambda inputs=inputs: kernel.mr_schedule(*inputs))
+        epochs = event_instants(valid, start, finish)
+        max_epochs.append(int(epochs.max()))
+        bound_ms, by, part = schedule_bound_ms(batch, epochs)
         parts += part
         b_ms += bound_ms
         by_ops += bound_ms if by == "operations" else 0.0
+    times = kernel_times(runs, max_epochs)
+    w, checked = check_schedule_lanes(dev)
     return dict(n=len(cells), buckets=len(buckets), launches=launches,
-                k_ms=k_ms, p_ms=p_ms, b_ms=b_ms, worst=worst, parts=parts,
+                times=times, k_ms=float(np.median(times["ms"])), p_ms=p_ms,
+                b_ms=b_ms, worst=max(worst, w), checked=checked, parts=parts,
                 bound_by="operations" if by_ops >= b_ms / 2 else "bytes")
 
 
-def schedule_bound_ms(batch, start, finish):
+def check_schedule_lanes(device, seed=0):
+    """``mr_schedule`` against its plain version on ``KERNEL_LANES``
+    admission-stress lanes (``mr_stress.schedule_lanes``) at each T of
+    ``STRESS_CASES``, and on one lane of each stress kind at each shape
+    of ``SCHEDULE_LONG`` (T = 2048 on 9 VMs; 1500 VMs, whose task sets
+    live in global scratch); returns ``(max_abs_err, lanes checked)``."""
+    import torch
+    import mr_stress
+    from repro_torch.kernels.mr_sched import kernel
+    cases = [(T, KERNEL_LANES, mr_stress.V) for T, _ in STRESS_CASES]
+    cases += [(T, 2 * len(mr_stress.SCHEDULE_KINDS), V)
+              for T, V in SCHEDULE_LONG]
+    worst = 0.0
+    for T, n, V in cases:
+        x = [torch.tensor(a, device=device)
+             for a in mr_stress.schedule_lanes(n, T, seed + T + V, V)]
+        kern = kernel.mr_schedule(*x)
+        plain = kernel.mr_schedule_plain(*x)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(("start", "finish"), kern, plain,
+                                   f"T={T}, V={V}: mr_schedule on stress "
+                                   "lanes"))
+    return worst, sum(c[1] for c in cases)
+
+
+def event_instants(valid, start, finish):
+    """Distinct instants among each lane's valid starts and finishes: the
+    least number of epochs that lane realizes (each live epoch starts or
+    finishes a task at its instant)."""
+    import torch
+    never = torch.full_like(start, 1e30)
+    inst = torch.cat([torch.where(valid, start, never),
+                      torch.where(valid, finish, never)], dim=1
+                     ).sort(dim=1).values
+    new = torch.ones_like(inst, dtype=torch.bool)
+    new[:, 1:] = inst[:, 1:] != inst[:, :-1]
+    return (new & (inst < 5e29)).sum(dim=1)
+
+
+def schedule_bound_ms(batch, epochs):
     """Least time the card could take for one ``mr_schedule`` call: the
     larger of its bytes over HBM bandwidth and its operations over the
     fp32 rate.  Bytes, per lane: 5 T-wide + 2 scalar + 2 V-wide inputs,
@@ -1082,30 +1146,22 @@ def schedule_bound_ms(batch, start, finish):
     realized epoch of a lane, over its valid tasks and real VMs only:
     about 30 per task (rates, event times, the min, completions,
     eligibility, starts), 6 per VM, and on space-shared lanes 4 per
-    ordered pair of tasks on one VM (the admission rank).  A lane
-    realizes at least one epoch per distinct instant among its tasks'
-    starts and finishes, and that count is used.  Returns the bound, what
-    bounds it, and both times ``(bytes ms, operations ms)``."""
+    ordered pair of tasks on one VM (the admission rank).  ``epochs``:
+    each lane's :func:`event_instants`.  Returns the bound, what bounds
+    it, and both times ``(bytes ms, operations ms)``."""
     import torch
     N, T = batch.task_vm.shape
     V = batch.vm_mips.shape[1]
     nbytes = N * 4 * (5 * T + 2 + 2 * V + 2 * T)
     valid = batch.task_valid
-    never = torch.full_like(start, 1e30)
-    inst = torch.cat([torch.where(valid, start, never),
-                      torch.where(valid, finish, never)], dim=1
-                     ).sort(dim=1).values
-    new = torch.ones_like(inst, dtype=torch.bool)
-    new[:, 1:] = inst[:, 1:] != inst[:, :-1]
-    epochs = (new & (inst < 5e29)).sum(dim=1).double()
-    onehot = (batch.task_vm[:, :, None] == torch.arange(V, device=start.device)
-              ) & valid[:, :, None]
+    onehot = (batch.task_vm[:, :, None] == torch.arange(
+        V, device=valid.device)) & valid[:, :, None]
     pairs = (onehot.sum(dim=1).double() ** 2).sum(dim=1)
     space = (batch.sched_policy != 0).double()
     nt = valid.sum(dim=1).double()
     nv = batch.vm_valid.sum(dim=1).double()
-    ops_n = float((epochs * (30.0 * nt + 6.0 * nv + space * 4.0 * pairs)
-                   ).sum())
+    ops_n = float((epochs.double() * (30.0 * nt + 6.0 * nv
+                                      + space * 4.0 * pairs)).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops_n / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1605,14 +1661,16 @@ def main() -> int:
     t0 = time.perf_counter()
     worst, checked = phase_kernels(dev)
     print(f"kernels: mr_epoch bitwise == mr_epoch_plain on {checked} lanes "
-          f"at T={list(KERNEL_TS)} (+ resume split; control instantiation "
+          f"at T={list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} "
+          f"fleet among them (+ resume split; control instantiation "
           f"on degenerate data == open loop on 8 leaves), max_abs_err "
           f"{worst}, {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     worst_c, checked_c, tot = phase_control_kernels(dev)
     print(f"kernels: mr_epoch control bitwise == mr_epoch_plain(control="
           f"True) on all 15 leaves, {checked_c} closed-loop lanes at "
-          f"T={list(KERNEL_TS)} (+ resume split), max_abs_err {worst_c} | "
+          f"T={list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} fleet "
+          f"among them (+ resume split), max_abs_err {worst_c} | "
           f"hit tasks {tot[0]}, scale events {tot[1]}, shed {tot[2]}, "
           f"evictions {tot[3]}, {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -1621,7 +1679,8 @@ def main() -> int:
     print(f"kernels: mr_epoch_trace and mr_epoch_control_trace bitwise == "
           f"mr_epoch_plain(trace=True) on every carry and trace leaf, "
           f"{checked_t} lanes (open loop and closed loop at T="
-          f"{list(KERNEL_TS)}), carry == the untraced kernels'; undersized "
+          f"{list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} fleet "
+          f"among them), carry == the untraced kernels'; undersized "
           f"event logs (half the median count) bitwise plain, kept rows == "
           f"the full log's first rows, {n_drop} of {n_ev} events dropped and "
           f"counted; max_abs_err {worst_to} / {worst_tc}, "
@@ -1737,11 +1796,15 @@ def main() -> int:
           f"static fleet and no priorities, {s['buckets']} buckets: makespan "
           f"== phase 4's at rtol 1e-4, atol 1e-2, every bucket bitwise "
           f"mr_schedule_plain; mr_schedule launches "
-          f"{s['launches']}, kernel {s['k_ms']:.3f} ms, plain "
+          f"{s['launches']}, kernel {s['k_ms']!r} ms (device median), plain "
           f"{s['p_ms']:.3f} ms, bound {s['b_ms']:.4f} ms ({s['bound_by']}; "
           f"summed over the buckets, bytes {s['parts'][0]:.4f} ms, "
-          f"operations {s['parts'][1]:.4f} ms)",
+          f"operations {s['parts'][1]:.4f} ms) | bitwise plain on "
+          f"{s['checked']} stress lanes (T={[t for t, _ in STRESS_CASES]}; "
+          f"(T, V) = {list(SCHEDULE_LONG)}), max_abs_err {s['worst']}",
           flush=True)
+    print(times_line("mr_schedule, static-fleet cells (epochs: distinct "
+                     "event instants)", s["times"]), flush=True)
 
     # 10. the LM kernels against their plain versions
     t0 = time.perf_counter()

@@ -17,6 +17,7 @@ from .elasticity import ArrivalProcess, ElasticitySpec
 from .engine import JobMetrics, ScenarioArrays, ScenarioMetrics, SimOutput
 from .storage import Placement, StorageSpec
 from .sweep import Axis, SweepPlan, SweepResult
+from .telemetry import RunReport, TraceResult, TraceSpec, trace_scenario
 
 __all__ = [
     "control", "elasticity", "engine", "network", "storage", "sweep",
@@ -29,4 +30,5 @@ __all__ = [
     "JOB_SMALL", "JOB_MEDIUM", "JOB_BIG", "JOB_TYPES",
     "paper_scenario", "JobMetrics", "ScenarioArrays", "ScenarioMetrics",
     "SimOutput", "Axis", "SweepPlan", "SweepResult",
+    "TraceSpec", "TraceResult", "RunReport", "trace_scenario",
 ]

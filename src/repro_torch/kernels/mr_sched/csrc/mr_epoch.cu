@@ -40,7 +40,11 @@
 // of it and is admitted iff that rank passes both tests.  Keys compare with
 // the scan's float == and >: -0.0 ties 0.0, and a priority below -1e30 (the
 // scan's starting maximum) or NaN is never picked.  Admission only compares
-// and counts, so the rule changes no rounding.
+// and counts, so the rule changes no rounding.  When a lane does not fit a
+// block with its VMs' task sets (a large fleet), the sets live in the
+// lane's slice of a global scratch buffer (vm_sets); the kernel is a
+// template on where they live, so the shared-memory instantiation keeps its
+// code.
 //
 // Rounding: built with -fmad=false and IEEE division, so every op rounds on
 // its own, except the two places where the reference's XLA:CPU lowering
@@ -103,6 +107,7 @@ struct Params {
   float* ready_out;
   int* maps_left_out;
   int* n_epochs_out;
+  unsigned* vm_sets;  // V x W words per lane, or null: see lane_smem_bytes
   int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
   float big, half_big, eps, tiny;
 #ifdef MR_TRACE
@@ -125,10 +130,13 @@ struct Params {
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes agrees.
 // Per task: f32 x 11, i32 x 1, 5 flag bytes; per VM: f32 x 5; the VMs'
-// task sets, V x W words; three per-epoch task sets, W words each.
-__host__ __device__ inline int lane_smem_bytes(int T, int V) {
+// task sets, V x W words, unless they live in the lane's slice of the
+// global scratch vm_sets (a large fleet: megakernel.py:block_layout); three
+// per-epoch task sets, W words each.
+__host__ __device__ inline int lane_smem_bytes(int T, int V, bool shared_sets) {
   const int W = (T + 31) / 32;
-  return (53 * T + 20 * V + 4 * V * W + 12 * W + 15) / 16 * 16;
+  const int vw = shared_sets ? V * W : 0;
+  return (53 * T + 20 * V + 4 * vw + 12 * W + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float warp_min(float x) {
@@ -199,6 +207,7 @@ __device__ __forceinline__ int log_events(int cursor, int count, int E,
 }
 #endif
 
+template <bool kSharedSets>
 __global__ void mr_epoch_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -226,8 +235,11 @@ __global__ void mr_epoch_kernel(const Params p) {
   float* vshare = von + V;
   float* vfree = vshare + V; // free PEs after this epoch's completions
   int* tvm = reinterpret_cast<int*>(vfree + V);
-  unsigned* vset = reinterpret_cast<unsigned*>(tvm + T);  // tasks bound to each VM
-  unsigned* runm = vset + V * W;  // running at the epoch's start
+  // tasks bound to each VM: in shared memory, or in the lane's scratch
+  unsigned* vset = kSharedSets ? reinterpret_cast<unsigned*>(tvm + T)
+                               : p.vm_sets + n * V * W;
+  unsigned* runm = kSharedSets ? vset + V * W  // running at the epoch's start
+                               : reinterpret_cast<unsigned*>(tvm + T);
   unsigned* donem = runm + W;     // completed this epoch
   unsigned* elm = donem + W;      // eligible this epoch
   unsigned char* f_valid = reinterpret_cast<unsigned char*>(elm + W);
@@ -456,7 +468,8 @@ __global__ void mr_epoch_kernel(const Params p) {
 
 // The trace instantiation takes vm_valid after prio, the six trace leaves
 // after each carry, and the capacities C (time-series rows) and E (event
-// rows) after lanes_per_block.
+// rows) after lanes_per_block.  vm_sets is null, or N x V x W words of
+// scratch for the VMs' task sets when they do not fit in shared memory.
 extern "C" int MR_LAUNCH(
     const int* task_vm, const int* is_red, const int* valid,
     const float* shuffle, const float* vm_mips, const float* vm_pes,
@@ -479,7 +492,8 @@ extern "C" int MR_LAUNCH(
     float* ts_out, float* ev_t_out, int* ev_kind_out, int* ev_task_out,
     int* ev_vm_out, int* ev_n_out,
 #endif
-    int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+    unsigned* vm_sets, int N, int T, int V, int max_pes, int epoch_limit,
+    int lanes_per_block,
 #ifdef MR_TRACE
     int C, int E,
 #endif
@@ -489,9 +503,9 @@ extern "C" int MR_LAUNCH(
            time_in, rem_in, running_in, start_in, finish_in, ready_in,
            maps_left_in, n_epochs_in,
            time_out, rem_out, running_out, start_out, finish_out, ready_out,
-           maps_left_out, n_epochs_out,
+           maps_left_out, n_epochs_out, vm_sets,
            N, T, V, max_pes, epoch_limit, lanes_per_block,
-           lane_smem_bytes(T, V), big, half_big, eps, tiny};
+           lane_smem_bytes(T, V, vm_sets == nullptr), big, half_big, eps, tiny};
 #ifdef MR_TRACE
   p.vm_valid = vm_valid;
   p.ts_in = ts_in;
@@ -509,14 +523,15 @@ extern "C" int MR_LAUNCH(
   p.C = C;
   p.E = E;
 #endif
+  const auto kernel = vm_sets ? mr_epoch_kernel<false> : mr_epoch_kernel<true>;
   const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mr_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(32 * lanes_per_block);
   const dim3 grid((N + lanes_per_block - 1) / lanes_per_block);
-  mr_epoch_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

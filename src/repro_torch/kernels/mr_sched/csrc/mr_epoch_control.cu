@@ -50,6 +50,10 @@
 // -1e30 (the scan's starting maximum) or NaN is never picked, and such an
 // urgent task holds its VM's urgent tier open, so no non-urgent task of that
 // VM is admitted.  Admission only compares and counts: no rounding changes.
+// When a lane does not fit a block with its VMs' task sets (a large
+// fleet), the sets live in the lane's slice of a global scratch buffer
+// (vm_sets); the kernel is a template on where they live, so the
+// shared-memory instantiation keeps its code.
 //
 // Rounding: built with -fmad=false and IEEE division, so every op rounds on
 // its own, except where the reference's XLA:CPU lowering fuses a multiply
@@ -143,6 +147,7 @@ struct Params {
   int* shed_out;
   int* n_evict_out;
   float* work_lost_out;
+  unsigned* vm_sets;  // 2 x V x W words per lane, or null: see lane_smem_bytes
   int N, T, V, max_pes, epoch_limit, lanes_per_block, lane_bytes;
   float big, half_big, eps, tiny;
 #ifdef MR_TRACE
@@ -164,15 +169,18 @@ struct Params {
 
 // Shared-memory bytes of one lane; megakernel.py:lane_smem_bytes(control=
 // True) agrees.  Per task: f32 x 13, i32 x 4, 12 flag bytes; per VM: f32 x
-// 9, i32 x 4, 3 flag bytes; the VMs' two task sets, 2 x V x W words; six
-// per-epoch task sets, W words each.  The trace instantiation keeps two
-// more flag bytes per task and per VM.
-__host__ __device__ inline int lane_smem_bytes(int T, int V) {
+// 9, i32 x 4, 3 flag bytes; the VMs' two task sets, 2 x V x W words,
+// unless they live in the lane's slice of the global scratch vm_sets (a
+// large fleet: megakernel.py:block_layout); six per-epoch task sets, W
+// words each.  The trace instantiation keeps two more flag bytes per task
+// and per VM.
+__host__ __device__ inline int lane_smem_bytes(int T, int V, bool shared_sets) {
   const int W = (T + 31) / 32;
+  const int vw = shared_sets ? V * W : 0;
 #ifdef MR_TRACE
-  return (82 * T + 57 * V + 8 * V * W + 24 * W + 15) / 16 * 16;
+  return (82 * T + 57 * V + 8 * vw + 24 * W + 15) / 16 * 16;
 #else
-  return (80 * T + 55 * V + 8 * V * W + 24 * W + 15) / 16 * 16;
+  return (80 * T + 55 * V + 8 * vw + 24 * W + 15) / 16 * 16;
 #endif
 }
 
@@ -297,6 +305,7 @@ __device__ float fixed_sum(float* x, int n) {
   return s;
 }
 
+template <bool kSharedSets>
 __global__ void mr_epoch_control_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -344,9 +353,11 @@ __global__ void mr_epoch_control_kernel(const Params p) {
   int* vvic = vk_low + V;
   // task sets, W words each: bound to and failing over to each VM (V sets
   // each), then this epoch's
-  unsigned* vbound = reinterpret_cast<unsigned*>(vvic + V);
+  unsigned* vbound = kSharedSets ? reinterpret_cast<unsigned*>(vvic + V)
+                                 : p.vm_sets + n * 2 * V * W;
   unsigned* vover = vbound + V * W;
-  unsigned* hitm = vover + V * W;  // hit at the epoch's start
+  unsigned* hitm = kSharedSets ? vover + V * W  // hit at the epoch's start
+                               : reinterpret_cast<unsigned*>(vvic + V);
   unsigned* runm = hitm + W;       // running at the epoch's start
   unsigned* unfm = runm + W;       // unfinished at the epoch's start
   unsigned* donem = unfm + W;      // completed this epoch
@@ -822,7 +833,8 @@ __global__ void mr_epoch_control_kernel(const Params p) {
 
 // The trace instantiation takes the six trace leaves after each carry and
 // the capacities C (time-series rows) and E (event rows) after
-// lanes_per_block.
+// lanes_per_block.  vm_sets is null, or N x 2 x V x W words of scratch for
+// the VMs' task sets when they do not fit in shared memory.
 extern "C" int MR_LAUNCH(
     const float* task_len, const int* task_vm, const int* is_red,
     const int* valid, const float* shuffle, const float* vm_mips,
@@ -850,7 +862,8 @@ extern "C" int MR_LAUNCH(
     float* ts_out, float* ev_t_out, int* ev_kind_out, int* ev_task_out,
     int* ev_vm_out, int* ev_n_out,
 #endif
-    int N, int T, int V, int max_pes, int epoch_limit, int lanes_per_block,
+    unsigned* vm_sets, int N, int T, int V, int max_pes, int epoch_limit,
+    int lanes_per_block,
 #ifdef MR_TRACE
     int C, int E,
 #endif
@@ -864,9 +877,9 @@ extern "C" int MR_LAUNCH(
            n_scale_in, shed_in, n_evict_in, work_lost_in,
            time_out, rem_out, running_out, start_out, finish_out, ready_out,
            maps_left_out, n_epochs_out, hit_out, vm_open_out, vm_close_out,
-           n_scale_out, shed_out, n_evict_out, work_lost_out,
+           n_scale_out, shed_out, n_evict_out, work_lost_out, vm_sets,
            N, T, V, max_pes, epoch_limit, lanes_per_block,
-           lane_smem_bytes(T, V), big, half_big, eps, tiny};
+           lane_smem_bytes(T, V, vm_sets == nullptr), big, half_big, eps, tiny};
 #ifdef MR_TRACE
   p.ts_in = ts_in;
   p.ev_t_in = ev_t_in;
@@ -883,16 +896,16 @@ extern "C" int MR_LAUNCH(
   p.C = C;
   p.E = E;
 #endif
+  const auto kernel =
+      vm_sets ? mr_epoch_control_kernel<false> : mr_epoch_control_kernel<true>;
   const size_t smem = (size_t)p.lane_bytes * lanes_per_block;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mr_epoch_control_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(32 * lanes_per_block);
   const dim3 grid((N + lanes_per_block - 1) / lanes_per_block);
-  mr_epoch_control_kernel<<<grid, block, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

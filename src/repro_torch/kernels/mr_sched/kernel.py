@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ...core.util import fma32
-from .megakernel import _check
+from .megakernel import _check, fit_lanes
 
 _BIG = 1e30
 _TIME_EPS = 1e-6
@@ -45,6 +45,13 @@ _INPUTS = (("task_len", F32, "T"), ("task_vm", I32, "T"),
            ("ready0", F32, "T"), ("is_red", I32, "T"), ("valid", I32, "T"),
            ("shuffle", F32, "1"), ("vm_mips", F32, "V"),
            ("vm_pes", F32, "V"), ("sched_policy", I32, "1"))
+
+
+def _maximum(a, b):
+    """``jnp.maximum`` as XLA:CPU computes it: -0.0 orders below 0.0
+    (``torch.maximum`` returns its first argument when they compare
+    equal), NaN propagates."""
+    return torch.where((a == b) & torch.signbit(a), b, torch.maximum(a, b))
 
 
 def mr_schedule_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
@@ -103,7 +110,7 @@ def mr_schedule_plain(task_len, task_vm, ready0, is_red, valid, shuffle,
             & (start >= _BIG / 2)
         has_slot = (task_pes - to_task(n_on_vm)) > 0.5
         arr = torch.where(not_started & (~is_space | has_slot),
-                          torch.maximum(ready, time[:, None].expand_as(ready)),
+                          _maximum(ready, time[:, None].expand_as(ready)),
                           big_t)
         t_next = torch.minimum(eta.amin(dim=1), arr.amin(dim=1))
         live = t_next < _BIG / 2
@@ -151,7 +158,7 @@ def _lib():
         from .. import _build
         fn = _build.load("mr_schedule").mr_schedule_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * (len(_INPUTS) + 2) + [i] * 4 + [f] * 4 + [p]
+        fn.argtypes = [p] * (len(_INPUTS) + 3) + [i] * 4 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
         _LIB.append(fn)
     return _LIB[0]
@@ -166,8 +173,9 @@ def mr_schedule(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
     ``(N,T)`` i32; ``shuffle`` ``(N,1)`` f32; ``vm_mips``/``vm_pes``
     ``(N,V)`` f32; ``sched_policy`` ``(N,1)`` i32 (0 time-shared, 1
     space-shared; default all time-shared).  Returns ``(start, finish)``
-    ``(N,T)`` f32.  CUDA tensors launch the kernel (or raise), CPU tensors
-    take :func:`mr_schedule_plain`.
+    ``(N,T)`` f32.  CUDA tensors launch the kernel (or raise; a lane past
+    :func:`block_layout`'s ceiling raises ``ValueError`` before launch),
+    CPU tensors take :func:`mr_schedule_plain`.
     """
     if task_vm.device.type == "cpu":
         return mr_schedule_plain(task_len, task_vm, ready0, is_red, valid,
@@ -185,16 +193,22 @@ def mr_schedule(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
     width = {"T": T, "1": 1, "V": V}
     for (name, dtype, w), x in zip(_INPUTS, data):
         _check(name, x, dtype, (N, width[w]), dev, "mr_schedule")
+    lanes, shared_sets = block_layout(T, V)
     start = torch.empty((N, T), dtype=F32, device=dev)
     finish = torch.empty_like(start)
     if N == 0:
         return start, finish
+    # the VMs' task sets, where shared memory cannot hold them; the kernel
+    # fills them
+    sets = None if shared_sets else torch.empty(
+        N * V * ((T + 31) // 32), dtype=I32, device=dev)
     f32 = np.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib()(*(x.data_ptr() for x in data), start.data_ptr(),
-                     finish.data_ptr(), N, T, V, _LANES_PER_BLOCK,
-                     float(f32(_BIG)), float(f32(_BIG / 2)),
+                     finish.data_ptr(),
+                     None if sets is None else sets.data_ptr(), N, T, V,
+                     lanes, float(f32(_BIG)), float(f32(_BIG / 2)),
                      float(f32(_TIME_EPS)), float(f32(1e-30)), stream)
     if err != 0:
         raise RuntimeError(f"mr_schedule: kernel launch failed with CUDA "
@@ -204,4 +218,27 @@ def mr_schedule(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
 
 
 mr_schedule.launches = 0
-_LANES_PER_BLOCK = 4
+
+
+def lane_smem_bytes(T: int, V: int, shared_sets: bool = True) -> int:
+    """Bytes of shared memory one lane of the kernel keeps (16-aligned):
+    per task 7 f32, 1 i32 and 4 flag bytes, per VM 5 f32, the VMs' task
+    sets (V x W words, W = ceil(T/32); ``shared_sets=False``: in global
+    scratch instead) and three per-epoch task sets of W words."""
+    W = (T + 31) // 32
+    vw = V * W if shared_sets else 0
+    return (36 * T + 20 * V + 4 * vw + 12 * W + 15) // 16 * 16
+
+
+def block_layout(T: int, V: int) -> tuple[int, bool]:
+    """``(lanes per block, VM task sets in shared memory)`` of a launch:
+    up to 2 lanes (warps) per block (on the H100, 1 and 2 lanes per block
+    ran the open-loop grid's static-fleet buckets equally fast, 4 about 5%
+    slower; 2 keeps 64 warps resident per SM on batches too large for one
+    wave, where 1 would keep 32), the task sets in global scratch when a
+    lane does not fit a block with them.  The ceiling: a lane must fit
+    the block's 232,448 bytes without its task sets, ``36 T + 20 V + 12 W
+    <= 232448`` (T <= 6385 at V = 9, T <= 5827 at V = 1024); beyond it
+    ``ValueError``."""
+    return fit_lanes(lane_smem_bytes(T, V), lane_smem_bytes(T, V, False), 2,
+                     f"mr_schedule: T={T}, V={V}")

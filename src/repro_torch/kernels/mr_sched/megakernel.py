@@ -652,7 +652,7 @@ def _lib(control: bool, trace: bool = False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lane, state = _specs(control, trace)
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [p] * (len(lane) + 2 * len(state)) \
+        fn.argtypes = [p] * (len(lane) + 2 * len(state) + 1) \
             + [i] * (8 if trace else 6) + [f] * 4 + [p]
         fn.restype = ctypes.c_int
         _LIBS[key] = fn
@@ -750,17 +750,23 @@ def mr_epoch(task_len, task_vm, ready0, is_red, valid, shuffle, vm_mips,
         _check(name, x, dtype, (N, width[w]), dev)
     for (name, dtype, w), x in zip(state_spec, state):
         _check(f"state.{name}", x, dtype, (N, width[w]), dev)
+    lanes, shared_sets = block_layout(T, V, control, trace)
     out = tuple(torch.empty_like(x) for x in state)
     if N == 0:
         return out
+    # the VMs' task sets (2 per VM under control), where shared memory
+    # cannot hold them; the kernel fills them
+    sets = None if shared_sets else torch.empty(
+        N * (1 + control) * V * ((T + 31) // 32), dtype=I32, device=dev)
     launch = _lib(control, trace)
     f32 = np.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             *(x.data_ptr() for x in data), *(x.data_ptr() for x in state),
-            *(x.data_ptr() for x in out), N, T, V, int(max_pes),
-            int(epoch_limit), _lanes_per_block(T, V, control, trace), *caps,
+            *(x.data_ptr() for x in out),
+            None if sets is None else sets.data_ptr(), N, T, V,
+            int(max_pes), int(epoch_limit), lanes, *caps,
             float(f32(_BIG)), float(f32(_BIG / 2)), float(f32(_TIME_EPS)),
             float(f32(1e-30)), stream)
     if err != 0:
@@ -796,27 +802,56 @@ _LANE_BYTES = {(False, False): (11 * 4 + 4 + 5, 5 * 4, 4, 3 * 4),
 _LANE_BYTES[(False, True)] = _LANE_BYTES[(False, False)]
 _LANE_BYTES[(True, True)] = (13 * 4 + 4 * 4 + 14, 9 * 4 + 4 * 4 + 5, 8,
                              6 * 4)
-_SMEM_LIMIT = 200 * 1024
+# dynamic shared memory one block may take on the H100 (228 KB per SM, 1 KB
+# of it reserved for each block)
+SMEM_PER_BLOCK = 232_448
 
 
 def lane_smem_bytes(T: int, V: int, control: bool = False,
-                    trace: bool = False) -> int:
-    """Bytes of shared memory one lane of the kernel keeps (16-aligned)."""
+                    trace: bool = False, shared_sets: bool = True) -> int:
+    """Bytes of shared memory one lane of the kernel keeps (16-aligned);
+    ``shared_sets=False``: with the VMs' task sets in global scratch."""
     per_t, per_v, per_vw, per_w = _LANE_BYTES[(control, trace)]
     W = (T + 31) // 32
-    return (per_t * T + per_v * V + per_vw * V * W + per_w * W + 15) \
+    vw = V * W if shared_sets else 0
+    return (per_t * T + per_v * V + per_vw * vw + per_w * W + 15) \
         // 16 * 16
 
 
-def _lanes_per_block(T: int, V: int, control: bool = False,
-                     trace: bool = False) -> int:
-    """Lanes (warps) per block: 2.  A launch lasts as long as its slowest
-    lane, and smaller blocks spread a bucket's lanes more evenly over the
-    SMs (on the H100, 1 and 2 lanes per block ran the 65,536-cell grids'
-    buckets fastest, 4 and 8 slower); 2 keeps 64 warps resident per SM on
-    batches too large for one wave, where 1 would keep 32."""
-    per_lane = lane_smem_bytes(T, V, control, trace)
-    if per_lane > _SMEM_LIMIT:
-        raise ValueError(f"mr_epoch: T={T}, V={V} needs {per_lane} bytes of "
-                         "shared memory per lane, above the kernel's limit")
-    return min(2, _SMEM_LIMIT // per_lane)
+def fit_lanes(with_sets: int, without_sets: int, most: int,
+              what: str) -> tuple[int, bool]:
+    """``(lanes per block, VM task sets in shared memory)`` of a kernel
+    whose lane takes ``with_sets`` bytes of shared memory with its VMs'
+    task sets there and ``without_sets`` with them in global scratch: the
+    sets stay in shared memory while the lane fits a block with them, and
+    a block takes up to ``most`` lanes.  Raises ``ValueError`` when even
+    ``without_sets`` exceeds :data:`SMEM_PER_BLOCK`."""
+    for per_lane, shared in ((with_sets, True), (without_sets, False)):
+        if per_lane <= SMEM_PER_BLOCK:
+            return min(most, SMEM_PER_BLOCK // per_lane), shared
+    raise ValueError(f"{what} needs {without_sets} bytes of shared memory "
+                     f"per lane, above the {SMEM_PER_BLOCK} bytes a block "
+                     "can take")
+
+
+def block_layout(T: int, V: int, control: bool = False,
+                 trace: bool = False) -> tuple[int, bool]:
+    """``(lanes per block, VM task sets in shared memory)`` of a launch.
+
+    Up to 2 lanes (warps) per block.  A launch lasts as long as its
+    slowest lane, and smaller blocks spread a bucket's lanes more evenly
+    over the SMs (on the H100, 1 and 2 lanes per block ran the
+    65,536-cell grids' buckets fastest, 4 and 8 slower); 2 keeps 64 warps
+    resident per SM on batches too large for one wave, where 1 would keep
+    32.  The VMs' task sets (V x ceil(T/32) words, twice under control) go
+    to global scratch when a lane does not fit a block with them.
+
+    The ceiling: a lane must fit :data:`SMEM_PER_BLOCK` (232,448 bytes)
+    without its task sets, i.e. ``lane_smem_bytes(T, V, control, trace,
+    shared_sets=False) <= 232448``: open loop ``53 T + 20 V + 12 W``, so
+    T <= 4351 at V = 9 and T <= 3971 at V = 1024; control ``80 T + 55 V +
+    24 W`` (traced ``82 T + 57 V + 24 W``), T <= 2872 (2802) at V = 9 and
+    T <= 2180 (2103) at V = 1024.  Beyond it ``ValueError``."""
+    return fit_lanes(lane_smem_bytes(T, V, control, trace),
+                     lane_smem_bytes(T, V, control, trace, False), 2,
+                     f"mr_epoch: T={T}, V={V}")

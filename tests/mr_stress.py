@@ -19,7 +19,10 @@ hold what no encoder emits:
   over to a second binding (in range or not), SHED deadlines, and AUTOSCALE
   reserves.
 
-Every lane has ``V = 6`` VM columns, of which the first 2-5 are real.
+Every lane has ``V = 6`` VM columns (or the ``V`` the caller asks for), of
+which the first 2 to V-1 are real.  :func:`schedule_lanes` adapts the
+open-loop kinds that apply to ``mr_schedule``, which has no priorities and
+no ``max_pes``: its ties and signed zeros go into the ready times.
 """
 import numpy as np
 
@@ -31,7 +34,7 @@ CONTROL_KINDS = OPEN_KINDS + ("urgent_preempt", "urgent_stall", "failover",
                               "failover_out_of_range")
 
 
-def _lane(kind, T, rng, control):
+def _lane(kind, T, rng, control, V=V):
     """One lane's data as a dict of numpy rows."""
     nv = int(rng.integers(2, V))
     n_red = int(rng.integers(1, 3))
@@ -129,19 +132,48 @@ _INT = frozenset({"task_vm", "is_red", "valid", "sched", "vm_valid",
                   "preempt", "preempt_resume"})
 
 
-def stress_lanes(n, T, seed, control=False):
-    """``n`` lanes of ``T`` task slots cycling through the kinds (the open
-    kinds, plus the control kinds under ``control``).  Returns the 28
-    ``mr_epoch`` lane-data arrays in the order of its signature (13 open
-    loop, then the 15 control tensors; the open kinds' control tensors are
-    the degenerate no-op values), numpy, each ``(n, width)``, and the
-    largest PE count rounded up."""
-    rng = np.random.default_rng(seed)
-    kinds = CONTROL_KINDS if control else OPEN_KINDS
-    rows = [_lane(kinds[i % len(kinds)], T, rng, control) for i in range(n)]
+def _stack(rows, names):
     out = []
-    for name in _ORDER:
+    for name in names:
         a = np.stack([np.atleast_1d(np.asarray(r[name])) for r in rows])
         out.append(np.ascontiguousarray(
             a.astype(np.int32 if name in _INT else np.float32)))
-    return tuple(out), max(int(np.ceil(out[7].max())), 1)
+    return tuple(out)
+
+
+def stress_lanes(n, T, seed, control=False, V=V):
+    """``n`` lanes of ``T`` task slots and ``V`` VM columns cycling through
+    the kinds (the open kinds, plus the control kinds under ``control``).
+    Returns the 28 ``mr_epoch`` lane-data arrays in the order of its
+    signature (13 open loop, then the 15 control tensors; the open kinds'
+    control tensors are the degenerate no-op values), numpy, each ``(n,
+    width)``, and the largest PE count rounded up."""
+    rng = np.random.default_rng(seed)
+    kinds = CONTROL_KINDS if control else OPEN_KINDS
+    rows = [_lane(kinds[i % len(kinds)], T, rng, control, V)
+            for i in range(n)]
+    out = _stack(rows, _ORDER)
+    return out, max(int(np.ceil(out[7].max())), 1)
+
+
+SCHEDULE_KINDS = ("one_vm", "ties", "signed_zero", "pes_edge",
+                  "out_of_range")
+
+
+def schedule_lanes(n, T, seed, V=V):
+    """``n`` ``mr_schedule`` lanes of ``T`` task slots and ``V`` VM columns
+    cycling through :data:`SCHEDULE_KINDS`, mostly space-shared.  The
+    ``ties`` lanes put -0.0 and 0.0 ready times on two VMs, the
+    ``signed_zero`` lanes -0.0, 0.0, 1.0 and -1.0.  Returns the 9 arrays
+    of ``mr_schedule``'s signature, numpy, each ``(n, width)``."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        kind = SCHEDULE_KINDS[i % len(SCHEDULE_KINDS)]
+        d = _lane(kind, T, rng, False, V)
+        if kind in ("ties", "signed_zero"):
+            vals = [-0.0, 0.0] if kind == "ties" else [-0.0, 0.0, 1.0, -1.0]
+            d["ready0"] = np.where(d["is_red"] != 0, BIG,
+                                   rng.choice(vals, T))
+        rows.append(d)
+    return _stack(rows, _ORDER[:9])

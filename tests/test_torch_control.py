@@ -488,20 +488,29 @@ def test_wrapper_takes_plain_control_version_on_cpu():
 
 def test_control_kernel_shared_memory_layout():
     # the C source's lane_smem_bytes and the wrapper's agree, untraced and
-    # traced, at one, two and three task-set words per VM
+    # traced, at one, two and three task-set words per VM, with the VMs'
+    # task sets in shared memory and in global scratch
     src = tmk.__file__.rsplit("/", 1)[0] + "/csrc/mr_epoch_control.cu"
     text = open(src).read()
+    assert "const int vw = shared_sets ? V * W : 0;" in text
     for trace, (per_t, per_v) in ((False, (80, 55)), (True, (82, 57))):
-        assert (f"({per_t} * T + {per_v} * V + 8 * V * W + 24 * W + 15) "
+        assert (f"({per_t} * T + {per_v} * V + 8 * vw + 24 * W + 15) "
                 "/ 16 * 16") in text
         for T, Vv in ((8, 1), (64, 16), (70, 9)):
             W = (T + 31) // 32
-            assert tmk.lane_smem_bytes(T, Vv, control=True, trace=trace) \
-                == (per_t * T + per_v * Vv + 8 * Vv * W + 24 * W + 15) \
-                // 16 * 16
-    assert tmk._lanes_per_block(64, 16, control=True) == 2
+            for shared in (True, False):
+                vw = Vv * W if shared else 0
+                assert tmk.lane_smem_bytes(T, Vv, control=True, trace=trace,
+                                           shared_sets=shared) \
+                    == (per_t * T + per_v * Vv + 8 * vw + 24 * W + 15) \
+                    // 16 * 16
+    assert tmk.block_layout(64, 16, control=True) == (2, True)
+    # T = 1024 on 400 VMs takes a block of its own; on 1024 VMs at T =
+    # 1536 the task sets move to global scratch
+    assert tmk.block_layout(1024, 400, control=True) == (1, True)
+    assert tmk.block_layout(1536, 1024, control=True) == (1, False)
     with pytest.raises(ValueError):
-        tmk._lanes_per_block(4096, 16, control=True)
+        tmk.block_layout(4096, 16, control=True)
 
 
 def test_control_path_never_falls_back_to_cpu():

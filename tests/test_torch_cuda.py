@@ -287,6 +287,49 @@ def test_kernels_match_plain_on_admission_stress(T, pes_delta, control_,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("control_,trace", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+@pytest.mark.parametrize("T,V", [(1024, 400), (512, 3000)])
+def test_kernels_match_plain_on_a_large_fleet(T, V, control_, trace):
+    # (1024, 400): a lane takes a block of its own with its VMs' task sets
+    # in shared memory; (512, 3000): the task sets live in global scratch
+    dev = _card()
+    shared = megakernel.block_layout(T, V, control_, trace)[1]
+    assert shared == ((T, V) == (1024, 400))
+    kinds = mr_stress.CONTROL_KINDS if control_ else mr_stress.OPEN_KINDS
+    lanes, max_pes = mr_stress.stress_lanes(len(kinds), T, seed=T + V,
+                                            control=control_, V=V)
+    x = [torch.tensor(a, device=dev)
+         for a in lanes[:28 if control_ else 13 + trace]]
+    got = megakernel.mr_epoch(*x, max_pes=max_pes, control=control_,
+                              trace=trace)
+    want = megakernel.mr_epoch_plain(*x, max_pes=max_pes, control=control_,
+                                     trace=trace)
+    for leaf, a, b in zip(megakernel.state_leaves(control_, trace), want,
+                          got):
+        assert torch.equal(_bits(a), _bits(b)), leaf
+    assert int((got[4] < 5e29).sum()) > T       # tasks finished
+
+
+@pytest.mark.cuda
+def test_kernels_raise_value_error_past_their_ceiling():
+    dev = _card()
+    for T, control_ in ((4352, False), (2873, True)):
+        lanes, max_pes = mr_stress.stress_lanes(1, T, seed=1,
+                                                control=control_, V=9)
+        x = [torch.tensor(a, device=dev) for a in lanes[:28 if control_
+                                                        else 13]]
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            megakernel.mr_epoch(*x, max_pes=max_pes, control=control_)
+    x = [torch.tensor(a, device=dev)
+         for a in mr_stress.schedule_lanes(1, 6386, seed=1, V=9)]
+    before = kernel.mr_schedule.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        kernel.mr_schedule(*x)
+    assert kernel.mr_schedule.launches == before
+
+
+@pytest.mark.cuda
 def test_traced_driver_on_card_matches_cpu():
     dev = _card()
     cols = _control_cols(256, 16, 9)
@@ -320,6 +363,37 @@ def test_schedule_kernel_matches_plain_on_card(T):
     assert kernel.mr_schedule.launches == before + 2
     for name, a, b in zip(("start", "finish"), want, got):
         assert torch.equal(_bits(a), _bits(b)), f"ops.schedule {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [12, 40, 70])
+def test_schedule_kernel_matches_plain_on_admission_stress(T):
+    # one, two and three task-set words per VM
+    dev = _card()
+    x = [torch.tensor(a, device=dev)
+         for a in mr_stress.schedule_lanes(256, T, seed=T)]
+    before = kernel.mr_schedule.launches
+    got = kernel.mr_schedule(*x)
+    assert kernel.mr_schedule.launches == before + 1
+    want = kernel.mr_schedule_plain(*x)
+    for name, a, b in zip(("start", "finish"), want, got):
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V", [(2048, 9), (1024, 1500)])
+def test_schedule_kernel_matches_plain_on_long_lanes(T, V):
+    # (2048, 9): task sets in shared memory; (1024, 1500): in global
+    # scratch
+    dev = _card()
+    assert kernel.block_layout(T, V)[1] == (V == 9)
+    x = [torch.tensor(a, device=dev)
+         for a in mr_stress.schedule_lanes(10, T, seed=T + V, V=V)]
+    got = kernel.mr_schedule(*x)
+    want = kernel.mr_schedule_plain(*x)
+    for name, a, b in zip(("start", "finish"), want, got):
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert int((got[1] < 5e29).sum()) > T       # tasks finished
 
 
 # ---------------------------------------------------------------------------
@@ -485,4 +559,5 @@ def test_serving_on_card_matches_cpu(name):
             wkv_kernel.wkv6_scan.launches - counts[1])
     assert grew == ((cfg.n_layers, 0) if name == "yi-6b"
                     else (0, 3 * cfg.n_layers))
+
 

@@ -174,15 +174,68 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 def test_kernel_shared_memory_layout():
     # the C source's lane_smem_bytes and the wrapper's agree, at one, two
-    # and three task-set words per VM
+    # and three task-set words per VM, with the VMs' task sets in shared
+    # memory and in global scratch
     src = (tmk.__file__.rsplit("/", 1)[0] + "/csrc/mr_epoch.cu")
     text = open(src).read()
-    assert "(53 * T + 20 * V + 4 * V * W + 12 * W + 15) / 16 * 16" in text
+    assert "const int vw = shared_sets ? V * W : 0;" in text
+    assert "(53 * T + 20 * V + 4 * vw + 12 * W + 15) / 16 * 16" in text
     for T, Vv in ((8, 1), (64, 16), (70, 9)):
         W = (T + 31) // 32
-        want = (53 * T + 20 * Vv + 4 * Vv * W + 12 * W + 15) // 16 * 16
-        assert tmk.lane_smem_bytes(T, Vv) == want
-        assert tmk.lane_smem_bytes(T, Vv, trace=True) == want
-    assert tmk._lanes_per_block(64, 16) == 2
+        for shared in (True, False):
+            vw = Vv * W if shared else 0
+            want = (53 * T + 20 * Vv + 4 * vw + 12 * W + 15) // 16 * 16
+            assert tmk.lane_smem_bytes(T, Vv, shared_sets=shared) == want
+            assert tmk.lane_smem_bytes(T, Vv, trace=True,
+                                       shared_sets=shared) == want
+    assert tmk.block_layout(64, 16) == (2, True)
     with pytest.raises(ValueError):
-        tmk._lanes_per_block(8192, 16)
+        tmk.block_layout(8192, 16)
+
+
+# The per-lane shared memory of the kernels' first design, which kept
+# no per-VM task sets: bytes per task, per VM and fixed, against a 200 KB
+# limit.  Every shape it took must still be taken.
+_FIRST_LANE_BYTES = {(False, False): (60, 20, 4), (False, True): (60, 20, 4),
+                     (True, False): (91, 50, 8), (True, True): (93, 52, 8)}
+_FIRST_LIMIT = 200 * 1024
+
+
+def _first_design_takes(T, Vv, control, trace):
+    per_t, per_v, fixed = _FIRST_LANE_BYTES[(control, trace)]
+    return (per_t * T + per_v * Vv + fixed + 15) // 16 * 16 <= _FIRST_LIMIT
+
+
+def _largest(fits):
+    """The largest T >= 1 with ``fits(T)`` (fits is monotone), or 0."""
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("Vv", [1, 9, 41, 53, 256, 400, 512, 1024])
+@pytest.mark.parametrize("control,trace", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+def test_block_layout_takes_every_shape_of_the_first_design(control, trace,
+                                                            Vv):
+    first = _largest(lambda T: _first_design_takes(T, Vv, control, trace))
+    ceiling = _largest(lambda T: tmk.lane_smem_bytes(
+        T, Vv, control, trace, shared_sets=False) <= tmk.SMEM_PER_BLOCK)
+    assert ceiling >= first > 0
+    ts = sorted({1, 8, 64, 1024, first // 2, first - 1, first, ceiling})
+    for T in ts:
+        if not _first_design_takes(T, Vv, control, trace) and T != ceiling:
+            continue
+        lanes, shared = tmk.block_layout(T, Vv, control, trace)
+        assert 1 <= lanes <= 2
+        with_sets = tmk.lane_smem_bytes(T, Vv, control, trace)
+        # the sets stay in shared memory while the lane fits with them
+        assert shared == (with_sets <= tmk.SMEM_PER_BLOCK)
+        per_lane = tmk.lane_smem_bytes(T, Vv, control, trace, shared)
+        assert lanes * per_lane <= tmk.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tmk.block_layout(ceiling + 1, Vv, control, trace)

@@ -4,6 +4,9 @@
   mode, on the reference's own seeded grids (``tests/test_kernels.py``:
   ``_random_batch``, made by the JAX encoder), both sched policies and all
   bindings mixed: ``start`` and ``finish`` bitwise.
+* The same on lanes built to stress space-shared admission
+  (``mr_stress.schedule_lanes``: one VM, ties and signed zeros in the
+  ready times, fractional and zero PE counts, tasks bound out of range).
 * The port's ``ops.schedule`` against the engine oracle ``schedule_ref``
   at the reference's tolerance (rtol 1e-4, atol 1e-2, as
   ``tests/test_kernels.py`` holds the Pallas kernel), and the paper's Table
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import mr_stress
 from repro.core import sweep as jsweep
 from repro.kernels.mr_sched import kernel as jk
 from repro.kernels.mr_sched import ops as jops
@@ -132,3 +136,57 @@ def test_wrapper_takes_plain_version_on_cpu_and_never_falls_back():
                                    pad_vms=9, device="cpu")
         tops.schedule(jobs2._replace(
             job_length=jobs2.job_length.repeat(1, 2)))
+
+
+@pytest.mark.parametrize("T", [12, 40])
+def test_plain_matches_pallas_on_admission_stress(T):
+    lanes = mr_stress.schedule_lanes(20, T, seed=T)
+    want = jk.mr_schedule(*lanes, tile=4, interpret=True)
+    got = tk.mr_schedule_plain(*(torch.tensor(x) for x in lanes))
+    for name, a, b in zip(("start", "finish"), want, got):
+        np.testing.assert_array_equal(b.numpy().view(np.int32),
+                                      np.asarray(a).view(np.int32),
+                                      err_msg=name)
+    assert (np.asarray(want[1])[lanes[4] != 0] < 1e29).any()
+
+
+def test_kernel_shared_memory_layout():
+    # the C source's lane_smem_bytes and the wrapper's agree, at one, two
+    # and three task-set words per VM, with the VMs' task sets in shared
+    # memory and in global scratch
+    src = tk.__file__.rsplit("/", 1)[0] + "/csrc/mr_schedule.cu"
+    text = open(src).read()
+    assert "const int vw = shared_sets ? V * W : 0;" in text
+    assert "(36 * T + 20 * V + 4 * vw + 12 * W + 15) / 16 * 16" in text
+    for T, V in ((8, 1), (64, 16), (70, 9)):
+        W = (T + 31) // 32
+        for shared in (True, False):
+            vw = V * W if shared else 0
+            assert tk.lane_smem_bytes(T, V, shared) \
+                == (36 * T + 20 * V + 4 * vw + 12 * W + 15) // 16 * 16
+    assert tk.block_layout(64, 9) == (2, True)
+    assert tk.block_layout(2048, 9) == (2, True)
+    assert tk.block_layout(2048, 700) == (2, False)
+
+
+def _first_design_launches(T, V):
+    """Whether the first design of the kernel launched this shape: 4 lanes
+    of ``43 T + 24 V + 4`` bytes in the block's 232,448."""
+    return 4 * ((43 * T + 24 * V + 4 + 15) // 16 * 16) <= 232_448
+
+
+@pytest.mark.parametrize("V", [1, 9, 100, 400, 1024, 2400])
+def test_block_layout_takes_every_shape_of_the_first_design(V):
+    first = max(T for T in range(1, 1400) if _first_design_launches(T, V))
+    ceiling = max(T for T in range(1, 7000)
+                  if tk.lane_smem_bytes(T, V, False) <= 232_448)
+    assert ceiling >= first
+    if V == 9:
+        assert first == 1346 and ceiling >= 2048
+    for T in sorted({1, 8, 64, first // 2, first, ceiling}):
+        lanes, shared = tk.block_layout(T, V)
+        assert shared == (tk.lane_smem_bytes(T, V) <= 232_448)
+        assert 1 <= lanes <= 2
+        assert lanes * tk.lane_smem_bytes(T, V, shared) <= 232_448
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tk.block_layout(ceiling + 1, V)

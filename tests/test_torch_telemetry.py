@@ -206,3 +206,22 @@ def test_trace_scenario_multi_job_raises():
     out, tr = _failure_trace()
     assert tr.n_lanes == 1 and int(tr.dropped_events[0]) == 0
     assert out.finish.shape[0] == 1
+
+
+def test_core_exports_the_reference_names():
+    """``repro_torch.core`` re-exports every public name of ``repro.core``
+    but those of modules not ported yet (the streamed sweep, the LM
+    workload bridge, the sequential oracle)."""
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    unported = {"StreamedSweep", "ChipSpec", "StepCost", "refsim",
+                "workload"}
+    missing = set(jcore.__all__) - unported - set(tcore.__all__)
+    assert not missing
+    from repro_torch.core import (RunReport, TraceResult, TraceSpec,
+                                  trace_scenario)
+    assert TraceSpec is tcore.telemetry.TraceSpec
+    assert TraceResult is tcore.telemetry.TraceResult
+    assert RunReport is tcore.telemetry.RunReport
+    assert trace_scenario is tcore.telemetry.trace_scenario
+    assert all(hasattr(tcore, name) for name in tcore.__all__)
