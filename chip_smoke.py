@@ -81,7 +81,8 @@ each printing one line of numbers:
               prefill shape (B 4, S = T = 2048, 32/4 heads, head_dim 128)
               f32 and bf16, causal and with a 512 window; wkv6 on the kernel
               tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
-              non-zero initial state, y and the final state.
+              non-zero initial state, y at 1e-4 and the final state
+              bitwise.
 11. serve dense — yi-6b at full width (random f32 weights from a seeded
               generator on the card), 4 prompts of 2048 seeded tokens
               through ``prefill(attn_impl="flash")`` and 32 greedy
@@ -97,7 +98,9 @@ each printing one line of numbers:
               ``attn_impl="dense"`` and each decode step's logits match
               ``forward`` over prompt + generated tokens.
 12. serve rwkv — rwkv6-3b the same way: wkv6's count must rise by 32 per
-              prefill and 32 per decode step; in f32 the prefill logits
+              prefill and 32 per decode step; the kernel's device time
+              (``launch_ms``) on layer 0's prefill inputs and on a decode
+              step's (T = 1), beside its bound; in f32 the prefill logits
               match the plain ``_wkv_scan`` path on the card, decode matches
               ``forward``.
 
@@ -1211,6 +1214,7 @@ def phase_cpu(m, control=False, seed=5):
 LM_BATCH = 4             # requests served at once
 LM_PROMPT = 2048         # prompt tokens per request
 LM_DECODE = 32           # greedy decode steps after the prefill
+LM_ROUNDS = 11           # launch_ms rounds of wkv6's prefill and decode
 BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM, dense bf16 tensor cores (same)
 FA_CHECK_SHAPES = [
     # (B, S, T, Hq, Hkv, Dh, causal, window, dtypes)
@@ -1233,8 +1237,10 @@ WKV_CHECK_SHAPES = [(2, 3, 96, 16), (1, 2, 64, 8), (2, 1, 40, 4),
 # (summation order, tests/test_kernels.py's tolerance); in bfloat16 2 bf16
 # ulps of |want| + 1e-4 (the output's rounding after the tensor cores'
 # summation order and the hi/lo split of p; the 1e-4 floor is for outputs
-# that cancel near zero); wkv6 1e-4 (atol = rtol) on y and the state, which
-# both forms return in float32 whatever the inputs' type.
+# that cancel near zero); wkv6 1e-4 (atol = rtol) on y, which both forms
+# return in float32 whatever the inputs' type (the kernel adds y's sum in
+# partial sums over row groups), and its final state bitwise (the same
+# elementwise multiply and add per entry in both).
 FA_TOL = {"float32": 2e-6, "bfloat16": (2, 1e-4)}   # bf16: (ulps, atol)
 WKV_TOL = 1e-4
 # f32-activation serving checks at full width (atol = rtol): the same
@@ -1322,12 +1328,15 @@ def phase_lm_kernels(dev, seed=0):
             rkv = [torch.from_numpy(a).to(dev, dt) for a in (r, k, v)]
             got = wk.wkv6_scan(*rkv, w, u, s0)
             want = wk.wkv6_scan_plain(*rkv, w, u, s0)
-            for what, a, b in zip(("y", "state"), got, want):
-                try:
-                    worst_wkv = max(worst_wkv, _close(a, b, WKV_TOL)[0])
-                except AssertionError as e:
-                    raise AssertionError(f"wkv6 {dt} {(B, H, T, hs)} "
-                                         f"{what}: {e}") from None
+            try:
+                worst_wkv = max(worst_wkv, _close(got[0], want[0],
+                                                  WKV_TOL)[0])
+            except AssertionError as e:
+                raise AssertionError(f"wkv6 {dt} {(B, H, T, hs)} y: {e}"
+                                     ) from None
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"wkv6 {dt} {(B, H, T, hs)}: the final "
+                                     f"state differs from the plain version's")
     return worst_fa, worst_wkv, worst_ulps
 
 
@@ -1535,16 +1544,21 @@ def phase_serve(name, dev, seed):
             u = p0["mixer"]["u"].float()
             H, hs = ssm._rwkv_dims(cfg)
             s0 = torch.zeros((LM_BATCH, H, hs, hs), device=dev)
+            # a decode step's inputs are contiguous (B, 1, H, hs) products
+            r1, k1, v1, w1 = (x[:, :1].contiguous() for x in (r, k, v, w))
             run = lambda: wk.wkv6_scan(r, k, v, w, u, s0)            # noqa
             plain = lambda: wk.wkv6_scan_plain(r, k, v, w, u, s0)    # noqa
-            step = lambda: wk.wkv6_scan(r[:, :1], k[:, :1], v[:, :1],  # noqa
-                                        w[:, :1], u, s0)
+            step = lambda: wk.wkv6_scan(r1, k1, v1, w1, u, s0)       # noqa
             out["lib_ms"] = None
             out["bound"] = wkv6_bound_ms(r, w, s0)
-            out["k_ms"] = cuda_ms(run, 10)
+            run(), step()                          # warm up
+            rounds = [launch_ms([run, step]) for _ in range(LM_ROUNDS)]
+            out["k_times"], out["step_times"] = (list(x) for x in
+                                                 zip(*rounds))
+            out["k_ms"] = float(np.median(out["k_times"]))
+            out["step_ms"] = float(np.median(out["step_times"]))
             out["p_ms"] = cuda_ms(plain, 1)
-            out["step_ms"] = cuda_ms(step, 20)
-            del r, k, v, w
+            del r, k, v, w, r1, k1, v1, w1
         del h, logits
 
         # where one prefill and one decode step spend the card's time
@@ -1587,11 +1601,18 @@ def serve_line(label, name, r) -> str:
     ops_per_s = (BF16_TENSOR_OPS_PER_S if name == "yi-6b"
                  else FP32_OPS_PER_S)
     rate = b_ops / r["k_ms"] * ops_per_s / 1e12   # function ops / time
-    extra = (f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
-             f"{r['lib_ms']:.4f} ms on the same tensors (kernel / SDPA "
-             f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
-             f"{r['lib_err']})" if r["lib_ms"] is not None else
-             f"one decode step's launch (T = 1) {r['step_ms']:.4f} ms")
+    if "k_times" in r:
+        ktime = (f"{r['k_ms']:.4f} ms device per launch (launch_ms, median "
+                 f"(min, max) of {len(r['k_times'])}: "
+                 f"{spread(r['k_times'])})")
+        extra = (f"one decode step's launch (T = 1) {r['step_ms']:.4f} ms "
+                 f"device ({spread(r['step_times'])})")
+    else:
+        ktime = f"{r['k_ms']:.4f} ms"
+        extra = (f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
+                 f"{r['lib_ms']:.4f} ms on the same tensors (kernel / SDPA "
+                 f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
+                 f"{r['lib_err']})")
     return (f"{label}: {name} at full width, "
           f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
           f"{r['init_s']:.2f} s; {LM_BATCH} x {LM_PROMPT}-token prompts "
@@ -1602,12 +1623,13 @@ def serve_line(label, name, r) -> str:
           f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
           f"tokens {r['gen']}; {kname} launches {r['launches']} "
           f"(other LM kernel {r['other_launches']}); on layer 0's "
-          f"prefill inputs: kernel {r['k_ms']:.4f} ms ({rate:.1f} "
+          f"prefill inputs: kernel {ktime} ({rate:.1f} "
           f"TFLOP/s of the function's operations, {bound / r['k_ms']:.4f} "
           f"of the bound), plain "
           f"{r['p_ms']:.4f} ms, {extra}, bound {bound:.4f} ms "
           f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
-          f"{b_ops:.4f} ms) | f32 activations: prefill logits vs "
+          f"{b_ops:.4f} ms), kernel / bound {r['k_ms'] / bound:.2f} | f32 "
+          f"activations: prefill logits vs "
           + ("attn_impl='dense'" if name == "yi-6b"
              else "the plain _wkv_scan path")
           + f" max |diff| {r['prefill_err'][0]} (share of tol "
@@ -1820,7 +1842,7 @@ def main() -> int:
           f"wkv6_scan_plain "
           f"on {2 * len(WKV_CHECK_SHAPES)} cases (tests' WKV_SHAPES and "
           f"rwkv6-3b's (4, 40, 2048, 64), non-zero s0, r/k/v f32 and bf16), "
-          f"y and final state, max_abs_err {worst_wkv} (tol {WKV_TOL}), "
+          f"y max_abs_err {worst_wkv} (tol {WKV_TOL}), final state bitwise, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 11. and 12. serving yi-6b and rwkv6-3b at full width

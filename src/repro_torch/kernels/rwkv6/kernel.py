@@ -6,7 +6,8 @@ in the model layout ``(B, T, H, hs)``::
 It replaces the JAX package's Pallas kernel ``kernels/rwkv6/kernel.py:
 _kernel`` (via ``wkv6_bhts``), which ``models/ssm.py`` names as the
 production path of ``_wkv_scan``; with ``s0`` and the final state it serves
-prefill (T = S) and every decode step (T = 1).  Two forms, one op sequence:
+prefill (T = S) and every decode step (T = 1).  Two forms, one state
+update bit for bit (the kernel adds y's sum over i in partial sums):
 
 * :func:`wkv6_scan_plain` — plain PyTorch, any device: ``_wkv_scan``'s step
   in a Python loop over T, f32 state.
