@@ -11,7 +11,14 @@ each printing one line of numbers:
 
 1. device   — the card's name and power limit (``nvidia-smi``), torch/CUDA.
 2. build    — every CUDA kernel of the port, one ``nvcc`` per source, in
-              parallel, with ``ptxas`` register/shared-memory lines.
+              parallel, with ``ptxas`` register/shared-memory lines; then
+              ``costmodel.default_cost_model()`` on the card (cached in
+              ``src/repro_torch/kernels/_build/costmodel.json`` beside the
+              kernel builds unless ``$REPRO_TORCH_COSTMODEL_PATH`` names a
+              file, else measured):
+              its source must be ``measured`` or ``cache``, and its three
+              coefficients are printed beside the card's name and power
+              limit.  Every later ``run()`` prices with it.
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               seeded grids of 2048 lanes at T = 8, 32 and 64: every carry leaf
               bitwise, and a run split at ``epoch_limit`` bitwise against one
@@ -63,7 +70,19 @@ each printing one line of numbers:
 8. report   — ``SweepPlan.run(device="cuda", report=True)`` on the open-loop
               grid: metrics bitwise phase 4's, the report's cells add up to
               the grid and its dispatches to the launches counted.
-9. schedule — ``ops.schedule`` (the ``mr_schedule`` kernel) on the open-loop
+9. compact  — active-lane compaction on the tail-heavy quarter of phase
+              4's grid (16,384 cells, T = 64) and on phase 6's 65,536
+              closed-loop cells, full size: ``run(compact="auto")`` and
+              ``run(compact=4)`` with ``report=True``, every metric,
+              ``n_epochs`` and ``realized_epochs`` bitwise the dense
+              ``run()`` on the card, the report's census (order pulls ==
+              compactions, count pulls == rounds + one per bucket, launches
+              == rounds); ``engine.simulate_batch_arrays_compact`` lean and
+              ``legacy=True`` on the largest bucket, bitwise the dense
+              ``simulate_batch_arrays``; wall times and scenarios/s of
+              dense, auto and pinned runs (median and spread of 3 passes
+              in turn), recorded, not claimed.
+10. schedule — ``ops.schedule`` (the ``mr_schedule`` kernel) on the open-loop
               grid's cells it models (a static fleet, no priorities): its
               makespans against phase 4's at the reference's tolerance
               (rtol 1e-4, atol 1e-2), each bucket's schedule bitwise the
@@ -73,7 +92,7 @@ each printing one line of numbers:
               and on long lanes (T = 2048 on 9 VMs; T = 1024 on 1500
               VMs, whose task sets live in global scratch).
 
-10. lm kernels — ``flash_attention`` and ``wkv6`` against their plain
+11. lm kernels — ``flash_attention`` and ``wkv6`` against their plain
               versions on the card at stated tolerances (flash: f32 at 2e-6,
               summation order; bf16, the tensor-core path, at 2 bf16 ulps +
               1e-4, its worst case in ulps printed):
@@ -83,7 +102,7 @@ each printing one line of numbers:
               tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
               non-zero initial state, y at 1e-4 and the final state
               bitwise.
-11. serve dense — yi-6b at full width (random f32 weights from a seeded
+12. serve dense — yi-6b at full width (random f32 weights from a seeded
               generator on the card), 4 prompts of 2048 seeded tokens
               through ``prefill(attn_impl="flash")`` and 32 greedy
               ``decode_step``s in bf16: flash's launch count must rise by 32
@@ -97,7 +116,7 @@ each printing one line of numbers:
               kernel).  In f32 activations the prefill logits match
               ``attn_impl="dense"`` and each decode step's logits match
               ``forward`` over prompt + generated tokens.
-12. serve rwkv — rwkv6-3b the same way: wkv6's count must rise by 32 per
+13. serve rwkv — rwkv6-3b the same way: wkv6's count must rise by 32 per
               prefill and 32 per decode step; the kernel's device time
               (``launch_ms``) on layer 0's prefill inputs and on a decode
               step's (T = 1), beside its bound; in f32 the prefill logits
@@ -765,6 +784,14 @@ def times_line(what, r):
             f"{spread(r['power'])} W")
 
 
+def sweep_plan(cols, pad_tasks=None):
+    """A one-axis plan over the cells of a column set."""
+    from repro_torch.core import sweep
+    n = len(cols["n_maps"])
+    return sweep.product(sweep.Axis(("cell",), tuple(
+        (i,) for i in range(n)), cols)).replace(pad_tasks=pad_tasks)
+
+
 def phase_main(cols, dev, control=False, pad_tasks=None):
     """Drive ``SweepPlan.run(device=dev)`` on the grid twice (the
     kernels' launch counts zeroed just before the first run and read just
@@ -772,11 +799,10 @@ def phase_main(cols, dev, control=False, pad_tasks=None):
     version on every bucket, then time the kernel (:func:`kernel_times`),
     its plain version and the layers bucket by bucket.  Returns the measurements."""
     import torch
-    from repro_torch.core import engine, sweep
+    from repro_torch.core import engine
     from repro_torch.kernels.mr_sched import megakernel, ops
     n = len(cols["n_maps"])
-    plan = sweep.product(sweep.Axis(("cell",), tuple(
-        (i,) for i in range(n)), cols)).replace(pad_tasks=pad_tasks)
+    plan = sweep_plan(cols, pad_tasks)
     megakernel.mr_epoch.launches = 0
     megakernel.mr_epoch.control_launches = 0
     torch.cuda.synchronize()
@@ -1042,6 +1068,153 @@ def phase_report(m, dev):
     return rep
 
 
+COMPACT_K = 4            # the pinned compaction interval of phase 9
+COMPACT_PASSES = 3       # timed passes of each path in phase 9
+
+
+def phase_costmodel(dev):
+    """``costmodel.default_cost_model()`` on the card: cached in the
+    checkout beside the kernel builds (``src/repro_torch/kernels/_build/
+    costmodel.json`` unless ``$REPRO_TORCH_COSTMODEL_PATH`` names another
+    file), else measured now.  It must come from the card (``measured``
+    or ``cache``), never from the fallback constants."""
+    from repro_torch.core import costmodel
+    os.environ.setdefault(costmodel.ENV_PATH, os.path.join(
+        ROOT, "src", "repro_torch", "kernels", "_build",
+        "costmodel.json"))
+    t0 = time.perf_counter()
+    cm = costmodel.default_cost_model(device=dev)
+    if cm.source not in ("measured", "cache"):
+        costmodel.measure(device=dev)       # raises what the default hid
+        raise AssertionError(f"cost model source {cm.source!r}")
+    if cm.device != costmodel.device_key(dev) or not (
+            cm.dispatch_us > 0 and cm.epoch_lane_us > 0 and cm.sync_us > 0):
+        raise AssertionError(f"cost model not of this card: {cm}")
+    return cm, time.perf_counter() - t0
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32 and b.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def phase_compact(plan, dev, control=False):
+    """``run(compact="auto")`` and ``run(compact=COMPACT_K)`` on a grid
+    against its dense ``run()`` on the card (the ``mr_epoch`` launch
+    counts zeroed just before each run and read just after): every metric,
+    per-lane ``n_epochs`` and ``realized_epochs`` bitwise; the report's
+    census (order pulls == compactions, count pulls == rounds + one per
+    bucket, launches == rounds); then ``engine.simulate_batch_arrays_
+    compact(legacy=True)`` and the lean loop on the grid's largest bucket,
+    bitwise the dense ``simulate_batch_arrays``, the legacy loop with the
+    lean loop's compactions and rounds and a mask pull per round.  Wall
+    times: ``COMPACT_PASSES`` passes of each path in turn."""
+    import torch
+    from repro_torch.core import engine, sweep
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    counter = "control_launches" if control else "launches"
+
+    def run(**kw):
+        for c in mk.LAUNCH_COUNTERS:
+            setattr(mk.mr_epoch, c, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plan.run(device=dev, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, getattr(mk.mr_epoch, counter)
+
+    dense, _, _ = run()
+    walls = {"dense": [], "auto": [], "pinned": []}
+    reps = {}
+    for _ in range(COMPACT_PASSES):
+        for name, kw in (("dense", {}), ("auto", {"compact": "auto"}),
+                         ("pinned", {"compact": COMPACT_K})):
+            out, wall, launches = run(report=True, **kw)
+            walls[name].append(wall)
+            res, rep = out
+            if launches < 1:
+                raise AssertionError(f"{name}: mr_epoch never launched")
+            for k in dense.metrics:
+                if not same_bits(dense[k], res[k]):
+                    raise AssertionError(f"run({kw}) differs from the "
+                                         f"dense run: {k}")
+            if kw:
+                rounds = sum(b.compact_rounds for b in rep.buckets)
+                if rep.compaction_syncs != sum(b.compactions
+                                               for b in rep.buckets):
+                    raise AssertionError(f"{name}: syncs != compactions")
+                if rep.scalar_syncs != rounds + rep.n_buckets:
+                    raise AssertionError(f"{name}: scalar syncs != rounds "
+                                         "+ one per bucket")
+                if rep.dispatches != rounds or launches != rounds:
+                    raise AssertionError(f"{name}: launches != rounds")
+            reps[name] = rep
+    # the legacy and lean loops on the largest bucket
+    cols, pad_t, pad_v = plan._compiled()
+    groups = sweep._bucket_groups(cols, pad_t, pad_v, "auto", None,
+                                  device=dev)
+    idx, gcols, statics, tb, vb = max(groups, key=lambda g: len(g[0]))
+    batch = sweep.grid_arrays(gcols, pad_tasks=tb, pad_vms=vb,
+                              static_params=statics, device=dev)
+    want, rz = engine.simulate_batch_arrays(batch, control=control)
+    loops = {}
+    for legacy in (False, True):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, grz = engine.simulate_batch_arrays_compact(
+            batch, k=COMPACT_K, control=control, legacy=legacy, stats=st)
+        torch.cuda.synchronize()
+        loops[legacy] = (st, time.perf_counter() - t0)
+        for name, a, b in zip(engine.SimOutput._fields, want, got):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"legacy={legacy}: {name} differs")
+        if grz != rz:
+            raise AssertionError(f"legacy={legacy}: realized_epochs")
+    lean, legacy = loops[False][0], loops[True][0]
+    if not (lean["syncs"] == lean["compactions"] > 0
+            and lean["scalar_syncs"] == lean["dispatches"] + 1
+            and legacy["compactions"] == lean["compactions"]
+            and legacy["dispatches"] == lean["dispatches"]
+            and legacy["syncs"] >= legacy["dispatches"]):
+        raise AssertionError(f"bucket census: lean {lean}, legacy {legacy}")
+    from repro_torch.core import costmodel
+    k_auto = costmodel.default_cost_model(device=dev).compact_interval(
+        len(idx), tb)
+    return dict(n=plan.size, walls=walls, reps=reps, bucket=(len(idx), tb),
+                loops=loops, realized=int(dense["realized_epochs"].max()),
+                k_auto=k_auto)
+
+
+def compact_line(label, r) -> str:
+    n = r["n"]
+    med = {k: float(np.median(v)) for k, v in r["walls"].items()}
+    auto, pinned = r["reps"]["auto"], r["reps"]["pinned"]
+    (lean, t_lean), (legacy, t_legacy) = r["loops"][False], r["loops"][True]
+    return (
+        f"compact: {label}, {n} cells in {auto.n_buckets} buckets: every "
+        f"metric, n_epochs and realized_epochs (max {r['realized']}) "
+        f"bitwise the dense run's for compact='auto' and "
+        f"compact={COMPACT_K}; wall median (min, max) of "
+        f"{COMPACT_PASSES} passes: dense {spread(r['walls']['dense'])} s "
+        f"({n / med['dense']:.0f} scenarios/s), auto "
+        f"{spread(r['walls']['auto'])} s ({n / med['auto']:.0f} "
+        f"scenarios/s, {med['auto'] / med['dense']!r} of dense), "
+        f"k={COMPACT_K} {spread(r['walls']['pinned'])} s "
+        f"({n / med['pinned']:.0f} scenarios/s, "
+        f"{med['pinned'] / med['dense']!r} of dense) | census auto: "
+        f"launches {auto.dispatches}, order pulls {auto.compaction_syncs}, "
+        f"count pulls {auto.scalar_syncs}; k={COMPACT_K}: launches "
+        f"{pinned.dispatches}, order pulls {pinned.compaction_syncs}, count "
+        f"pulls {pinned.scalar_syncs} | largest bucket ({r['bucket'][0]} "
+        f"cells, T={r['bucket'][1]}, auto K {r['k_auto']}), "
+        f"k={COMPACT_K}: lean loop "
+        f"{t_lean!r} s {json.dumps(lean)}, legacy loop {t_legacy!r} s "
+        f"{json.dumps(legacy)}, both bitwise simulate_batch_arrays")
+
+
 def phase_schedule(m, dev):
     """``ops.schedule`` over the main grid's cells ``mr_schedule`` models
     (a static fleet: lease windows ``[0, 1e30)``, no spin-up, zero
@@ -1208,7 +1381,7 @@ def phase_cpu(m, control=False, seed=5):
 
 
 # ---------------------------------------------------------------------------
-# Phases 10-12: the LM serving path (flash_attention, wkv6)
+# Phases 11-13: the LM serving path (flash_attention, wkv6)
 # ---------------------------------------------------------------------------
 
 LM_BATCH = 4             # requests served at once
@@ -1466,7 +1639,7 @@ def phase_serve(name, dev, seed):
     """Serve ``LM_BATCH`` prompts of ``LM_PROMPT`` seeded tokens through
     ``prefill`` and ``LM_DECODE`` greedy ``decode_step``s of the full-width
     config ``name`` (random weights from a seeded generator on the card),
-    phases 11 (yi-6b) and 12 (rwkv6-3b).  Returns the measurements."""
+    phases 12 (yi-6b) and 13 (rwkv6-3b).  Returns the measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -1678,6 +1851,17 @@ def main() -> int:
               and not ln.endswith("0 bytes spill stores, 0 bytes spill loads")]
     if spills:
         raise AssertionError(f"a kernel spills registers: {spills}")
+    cm, cm_s = phase_costmodel(dev)
+    from repro_torch.core import costmodel
+    n, maps = costmodel.PROBE_CUDA[:2]
+    floor = 2e-6 / (n * (maps + 1))          # twice the noise floor
+    print(f"costmodel: default_cost_model() on {smi}: source {cm.source}, "
+          f"dispatch_us {cm.dispatch_us!r}, epoch_lane_us "
+          f"{cm.epoch_lane_us!r} ("
+          + ("above" if cm.epoch_lane_us > floor else "near")
+          + f" the floor of a slope lost in the noise), sync_us "
+          f"{cm.sync_us!r} ({cm.device}, {cm_s:.2f} s; file "
+          f"{os.environ['REPRO_TORCH_COSTMODEL_PATH']})", flush=True)
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1812,7 +1996,18 @@ def main() -> int:
           f"{rep.compile_cache_misses} / hits {rep.compile_cache_hits}, "
           f"wall {rep.wall_s:.3f} s, device {rep.device}", flush=True)
 
-    # 9. mr_schedule on the cells it models
+    # 9. active-lane compaction on the open-loop grid's tail-heavy quarter
+    # and on the closed-loop grid, against their dense runs
+    compiled = m["plan"]._compiled()[0]
+    tail = {k: v[3 * N_CELLS // 4:] for k, v in compiled.items()}
+    tail_plan = sweep_plan(tail, pad_tasks=64)
+    print(compact_line("open-loop grid's tail-heavy quarter",
+                       phase_compact(tail_plan, dev)), flush=True)
+    print(compact_line("closed-loop grid",
+                       phase_compact(c["plan"], dev, control=True)),
+          flush=True)
+
+    # 10. mr_schedule on the cells it models
     s = phase_schedule(m, dev)
     print(f"schedule: ops.schedule on the {s['n']} open-loop cells with a "
           f"static fleet and no priorities, {s['buckets']} buckets: makespan "
@@ -1828,7 +2023,7 @@ def main() -> int:
     print(times_line("mr_schedule, static-fleet cells (epochs: distinct "
                      "event instants)", s["times"]), flush=True)
 
-    # 10. the LM kernels against their plain versions
+    # 11. the LM kernels against their plain versions
     t0 = time.perf_counter()
     worst_fa, worst_wkv, worst_ulps = phase_lm_kernels(dev)
     n_fa = sum(len(c[-1]) for c in FA_CHECK_SHAPES)
@@ -1845,7 +2040,7 @@ def main() -> int:
           f"y max_abs_err {worst_wkv} (tol {WKV_TOL}), final state bitwise, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 11. and 12. serving yi-6b and rwkv6-3b at full width
+    # 12. and 13. serving yi-6b and rwkv6-3b at full width
     lm = {}
     for label, name in (("serve dense", "yi-6b"), ("serve rwkv", "rwkv6-3b")):
         r = lm[name] = phase_serve(name, dev, seed=0)

@@ -5,9 +5,12 @@ loop).
   Table I–III presets;
 * :mod:`~repro_torch.core.engine` — batch encoding, ``mr_epoch`` stepping,
   metrics;
-* :mod:`~repro_torch.core.sweep` — declarative scenario sweeps.
+* :mod:`~repro_torch.core.sweep` — declarative scenario sweeps;
+* :mod:`~repro_torch.core.costmodel` — the measured cost model that
+  prices bucket splits and the compaction interval.
 """
-from . import control, elasticity, engine, network, storage, sweep, telemetry
+from . import (control, costmodel, elasticity, engine, network, storage,
+               sweep, telemetry)
 from .config import (JOB_BIG, JOB_MEDIUM, JOB_SMALL, JOB_TYPES, VM_LARGE,
                      VM_MEDIUM, VM_SMALL, VM_TYPES, BindingPolicy,
                      DatacenterSpec, JobSpec, NetworkSpec, Scenario,
@@ -16,12 +19,12 @@ from .control import ControlPolicy, ControlSpec, DeadlinePolicy
 from .elasticity import ArrivalProcess, ElasticitySpec
 from .engine import JobMetrics, ScenarioArrays, ScenarioMetrics, SimOutput
 from .storage import Placement, StorageSpec
-from .sweep import Axis, SweepPlan, SweepResult
+from .sweep import Axis, StreamedSweep, SweepPlan, SweepResult
 from .telemetry import RunReport, TraceResult, TraceSpec, trace_scenario
 
 __all__ = [
-    "control", "elasticity", "engine", "network", "storage", "sweep",
-    "telemetry",
+    "control", "costmodel", "elasticity", "engine", "network", "storage",
+    "sweep", "telemetry",
     "Scenario", "VMSpec", "JobSpec", "NetworkSpec", "DatacenterSpec",
     "StorageSpec", "Placement", "SchedPolicy", "BindingPolicy",
     "ElasticitySpec", "ArrivalProcess", "ControlSpec", "ControlPolicy",
@@ -29,6 +32,6 @@ __all__ = [
     "VM_SMALL", "VM_MEDIUM", "VM_LARGE", "VM_TYPES",
     "JOB_SMALL", "JOB_MEDIUM", "JOB_BIG", "JOB_TYPES",
     "paper_scenario", "JobMetrics", "ScenarioArrays", "ScenarioMetrics",
-    "SimOutput", "Axis", "SweepPlan", "SweepResult",
+    "SimOutput", "Axis", "SweepPlan", "SweepResult", "StreamedSweep",
     "TraceSpec", "TraceResult", "RunReport", "trace_scenario",
 ]

@@ -4,8 +4,9 @@ The JAX package's event-epoch engine, open-loop lowering, written on a
 leading lane dimension in place of ``vmap``.  A batch of encoded scenarios
 (:class:`ScenarioArrays`, every leaf ``[N, ...]``) is stepped to completion
 by the ``mr_epoch`` kernel (``kernels.mr_sched.epoch_schedule``: the CUDA
-kernel on the card, its plain PyTorch version on the CPU) and reduced by
-:func:`job_metrics` / :func:`scenario_metrics`.
+kernel on the card, its plain PyTorch version on the CPU), or by
+:func:`simulate_batch_arrays_compact` in chunks over the still-active
+lanes, and reduced by :func:`job_metrics` / :func:`scenario_metrics`.
 
 Every float op keeps the JAX package's op sequence, one rounding per op, so
 schedules are bitwise equal to the reference.  Sums run in one fixed order
@@ -553,6 +554,70 @@ def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
                              control=control)
     realized = int(out.n_epochs.max()) if out.n_epochs.numel() else 0
     return (out, realized, buffers) if trace else (out, realized)
+
+
+def _take_lanes(tree, idx: torch.Tensor) -> tuple:
+    """Gather a lane subset of a tuple of lane-led tensors (``None``
+    entries stay ``None``)."""
+    return tuple(None if x is None else x.index_select(0, idx) for x in tree)
+
+
+def _put_lanes(store, idx: torch.Tensor, sub) -> tuple:
+    """Scatter a lane subset back into a copy of the dense store (distinct
+    indices, so the write order cannot matter)."""
+    return tuple(None if s is None else s.index_copy(0, idx, x)
+                 for s, x in zip(store, sub))
+
+
+def _put_lanes_donated(store, idx: torch.Tensor, sub) -> tuple:
+    """:func:`_put_lanes` into the store itself (``index_copy_``): the
+    port's counterpart of the reference's donated scatter.  The caller
+    owns the store and reads no other reference to it."""
+    for s, x in zip(store, sub):
+        if s is not None:
+            s.index_copy_(0, idx, x)
+    return tuple(store)
+
+
+def simulate_batch_arrays_compact(
+        batch: ScenarioArrays, *, k: int | str = "auto", floor: int = 8,
+        cost_model=None, control: bool | None = None, trace: bool = False,
+        trace_events: int | None = None, stats: dict | None = None,
+        donate: bool = True, legacy: bool = False,
+        backend: str | None = None, max_pes: int | None = None):
+    """:func:`simulate_batch_arrays` with active-lane compaction
+    (DESIGN.md §9).
+
+    Every ``k`` epochs the still-active lanes are gathered into a
+    power-of-two working set (at least ``floor`` lanes) and the kernel
+    resumes on those alone, so a batch whose tail is 40 lanes steps 64,
+    not 2048 (``kernels.mr_sched.ops.epoch_schedule_compact``).  Each lane
+    runs to its own end by its own data, so the result is the dense run's
+    bit for bit, per-lane ``n_epochs`` and ``realized_epochs`` included.
+    ``k="auto"`` takes the interval from the cost model (``cost_model``,
+    default :func:`costmodel.default_cost_model` of the batch's device).
+
+    Returns ``(SimOutput, realized_epochs)``, or under ``trace=True``
+    ``(SimOutput, realized_epochs, TraceBuffers)`` with ``trace_events``
+    event rows per lane (default: the worst case).  ``stats`` (a dict,
+    updated in place) counts ``syncs``, ``scalar_syncs``, ``compactions``
+    and ``dispatches``.  ``donate=True`` scatters into the carry store in
+    place.  ``legacy=True`` runs the reference's A/B loop: the whole
+    activity mask crosses to the host every round, the lanes are ordered
+    there, and the store is never updated in place.
+    """
+    from ..kernels.mr_sched.ops import _compact
+    if control is None:
+        control = _control_active(batch)
+    out, st = _compact(
+        batch, k=k, backend=backend, max_pes=max_pes, floor=floor,
+        cost_model=cost_model, control=control, trace=trace,
+        trace_events=trace_events, stats=stats, donate=donate,
+        legacy=legacy, device=None, what="simulate_batch_arrays_compact")
+    realized = int(out.n_epochs.max()) if out.n_epochs.numel() else 0
+    if trace:
+        return out, realized, _trace_of(st[-len(TraceBuffers._fields):])
+    return out, realized
 
 
 def job_metrics(sc: ScenarioArrays, out: SimOutput) -> JobMetrics:

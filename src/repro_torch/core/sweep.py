@@ -6,8 +6,10 @@
 * :func:`zip_` / :func:`product` — compose axes into a :class:`SweepPlan`;
 * :meth:`SweepPlan.run` — encode the plan into :class:`ScenarioArrays`
   batches (one per shape bucket), step them through the ``mr_epoch``
-  kernel and return a labelled :class:`SweepResult` (with a
-  :class:`~repro_torch.core.telemetry.RunReport` under ``report=True``);
+  kernel (densely, or compacted to the still-active lanes) and return a
+  labelled :class:`SweepResult` (with a
+  :class:`~repro_torch.core.telemetry.RunReport` under ``report=True``),
+  or stream it to a parquet file (:class:`StreamedSweep`);
 * :func:`stack_scenarios` — encode and stack ``Scenario`` objects into one
   batch.
 
@@ -698,59 +700,146 @@ class SweepPlan:
 
         ``backend="cuda"`` steps the batches through the CUDA ``mr_epoch``
         kernel (the default on the card), ``"torch"`` through its plain
-        version (the default on the CPU).  ``cost_model`` overrides the
-        bucket-split coefficients (default: the JAX package's fallback
-        constants, see :mod:`costmodel`).
+        version (the default on the CPU).  ``cost_model`` prices bucket
+        splits and the compaction interval (default:
+        :func:`costmodel.default_cost_model` of ``device``, measured once
+        and cached; pin one for the same decisions on every host).
+
+        ``compact`` turns on active-lane compaction (DESIGN.md §9): every
+        K epochs the still-active lanes of a bucket (of a chunk under
+        ``chunk``) are gathered into a power-of-two working set and the
+        kernel resumes on those alone.  ``"auto"`` (or ``True``) takes K
+        from the cost model, an int pins it.  Every metric, per-lane
+        ``n_epochs`` and ``realized_epochs`` are the dense run's bit for
+        bit.
+
+        ``stream_to`` (with ``chunk``) appends each chunk's long-form
+        :meth:`SweepResult.to_table` rows to one parquet file instead of
+        keeping the metrics in host memory, and returns a
+        :class:`StreamedSweep` (needs the optional ``pyarrow``).
 
         A plan that names any closed-loop column (``_CONTROL_PARAMS``:
         failures, reserves, the control and deadline policies, preemption)
         runs the kernel's control lowering; the choice follows the columns,
         not their values, as in the reference.
 
-        ``report=True`` returns ``(SweepResult, RunReport)``: one
+        ``report=True`` returns ``(result, RunReport)``: one
         :class:`~repro_torch.core.telemetry.BucketReport` per dispatched
-        bucket (per chunk under ``chunk=``) with its ``mr_epoch`` launches
-        and wall time, and the run's totals.  It changes no metric.
+        bucket (per chunk under ``chunk=``) with its ``mr_epoch`` launches,
+        its compaction syncs and wall time, the run's totals and the cost
+        model (resolved once, up front).  It changes no metric.
 
-        Not ported yet, each raising ``NotImplementedError``: ``mesh=``
-        (ROADMAP A8), ``compact=`` (A4) and ``stream_to=`` (A3).
+        ``mesh=`` (multi-device sweeps) is ROADMAP slice A8 and raises
+        ``NotImplementedError``.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "run(mesh=...): multi-device sweeps are ROADMAP slice A8")
-        if compact is not None and compact is not False:
-            raise NotImplementedError(
-                "run(compact=...): active-lane compaction is ROADMAP "
-                "slice A4")
-        if stream_to is not None:
-            raise NotImplementedError(
-                "run(stream_to=...): the streamed parquet export is the "
-                "rest of ROADMAP slice A3")
         if chunk is not None and chunk < 1:
             raise ValueError(f"run: chunk must be >= 1, got {chunk}")
+        compact = _check_compact(compact)
         from ..kernels.mr_sched.ops import resolve_backend
         dev = torch.device(device)
         backend = resolve_backend(backend, dev)
         buckets = None
         if report:
+            # one calibration prices the schedule and the report
+            cost_model = cost_model or costmodel_mod.default_cost_model(
+                device=dev)
             t0, libs0 = time.perf_counter(), _library_loads()
             buckets = []
-        cols, pad_tasks, pad_vms = self._compiled()
-        control = bool(_CONTROL_PARAMS & set(cols))
-        metrics, n_jobs = _execute_grid(cols, self.size, pad_tasks, pad_vms,
-                                        bucket, chunk, backend, cost_model,
-                                        dev, control, report=buckets)
-        shaped = {
-            name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
-                   else m.reshape(self.shape + (n_jobs,)))
-            for name, m in metrics.items()}
-        result = SweepResult(axis_names=tuple(d.names for d in self.dims),
-                             axis_labels=tuple(d.labels for d in self.dims),
-                             metrics=shaped, n_jobs=n_jobs)
+        if stream_to is not None:
+            if chunk is None:
+                raise ValueError(
+                    "run: stream_to= needs chunk= (the streamed write "
+                    "appends one chunk of cells at a time)")
+            result = self._run_streaming(stream_to, chunk, bucket, backend,
+                                         compact, cost_model, dev, buckets)
+        else:
+            cols, pad_tasks, pad_vms = self._compiled()
+            metrics, n_jobs = _execute_grid(
+                cols, self.size, pad_tasks, pad_vms, bucket, chunk, backend,
+                cost_model, dev, bool(_CONTROL_PARAMS & set(cols)),
+                report=buckets, compact=compact)
+            shaped = {
+                name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
+                       else m.reshape(self.shape + (n_jobs,)))
+                for name, m in metrics.items()}
+            result = SweepResult(
+                axis_names=tuple(d.names for d in self.dims),
+                axis_labels=tuple(d.labels for d in self.dims),
+                metrics=shaped, n_jobs=n_jobs)
         if buckets is None:
             return result
-        return result, _finish_report(buckets, self.size, backend,
+        return result, _finish_report(buckets, self.size, backend, compact,
                                       cost_model, dev, libs0, t0)
+
+    def _run_streaming(self, path, chunk: int, bucket, backend, compact,
+                       cost, device, report=None) -> "StreamedSweep":
+        """Chunked execute + parquet append (see :meth:`run`)."""
+        try:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+        except ImportError as e:
+            raise ImportError(
+                "run(stream_to=...) needs the optional pyarrow dependency; "
+                "without it use run(chunk=...) and to_table()") from e
+        cols, pad_tasks, pad_vms = self._compiled()
+        control = bool(_CONTROL_PARAMS & set(cols))
+        N, shape = self.size, self.shape
+        axis_names = tuple(d.names for d in self.dims)
+        axis_labels = tuple(d.labels for d in self.dims)
+        writer, n_rows, n_chunks = None, 0, 0
+        try:
+            for lo in range(0, N, chunk):
+                hi = min(lo + chunk, N)
+                sub = {k: v[lo:hi] for k, v in cols.items()}
+                metrics, n_jobs = _execute_grid(
+                    sub, hi - lo, pad_tasks, pad_vms, bucket, None, backend,
+                    cost, device, control, report=report, compact=compact)
+                table = pa.table(_long_form_columns(
+                    axis_names, axis_labels, shape, metrics, n_jobs, lo, hi))
+                # provenance rides in the file's schema metadata; schema
+                # equality ignores metadata, so later chunks append as is
+                table = table.replace_schema_metadata(
+                    {**(table.schema.metadata or {}),
+                     **telemetry.parquet_metadata()})
+                if writer is None:
+                    writer = pq.ParquetWriter(path, table.schema)
+                writer.write_table(table)
+                n_rows += table.num_rows
+                n_chunks += 1
+        finally:
+            if writer is not None:
+                writer.close()
+        return StreamedSweep(path=str(path), n_cells=N, n_rows=n_rows,
+                             n_chunks=n_chunks)
+
+
+def _check_compact(compact):
+    """Normalise the ``compact`` knob: None/False off, True -> 'auto',
+    'auto' or a positive int interval pass through."""
+    if compact is None or compact is False:
+        return None
+    if compact is True:
+        return "auto"
+    if compact == "auto" or (isinstance(compact, (int, np.integer))
+                             and compact >= 1):
+        return compact
+    raise ValueError(
+        f"run: compact must be None, False, True, 'auto', or an int "
+        f">= 1; got {compact!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedSweep:
+    """Summary of a ``run(chunk=..., stream_to=...)`` export: the grid's
+    metrics live in the parquet file at ``path`` (long-form ``to_table``
+    columns), not in host memory."""
+    path: str
+    n_cells: int
+    n_rows: int
+    n_chunks: int
 
 
 def _library_loads() -> tuple[int, int]:
@@ -762,23 +851,23 @@ def _library_loads() -> tuple[int, int]:
     return _LIB_CACHE["hits"], _LIB_CACHE["misses"]
 
 
-def _finish_report(buckets, n_cells: int, backend: str, cost, device,
-                   libs0, t0) -> "telemetry.RunReport":
+def _finish_report(buckets, n_cells: int, backend: str, compact, cost,
+                   device, libs0, t0) -> "telemetry.RunReport":
     """Assemble the :class:`telemetry.RunReport` of one ``run()``."""
     hits, misses = (a - b for a, b in zip(_library_loads(), libs0))
-    model = cost or costmodel_mod.fallback_cost_model()
     return telemetry.RunReport(
         n_cells=n_cells, n_buckets=len(buckets), backend=backend,
-        compact=None, buckets=buckets,
+        compact=compact, buckets=buckets,
         compile_cache_hits=hits, compile_cache_misses=misses,
-        # no encoder cache (grid_arrays encodes batch-native every call) and
-        # no compaction (ROADMAP A4): these read 0
+        # no encoder cache: grid_arrays encodes batch-native every call
         encoder_cache_hits=0, encoder_cache_misses=0,
-        compaction_syncs=0, scalar_syncs=0,
+        compaction_syncs=sum(b.compact_syncs for b in buckets),
+        scalar_syncs=sum(b.compact_scalar_syncs for b in buckets),
         dispatches=sum(b.dispatches for b in buckets),
-        cost_model={"dispatch_us": model.dispatch_us,
-                    "epoch_lane_us": model.epoch_lane_us,
-                    "source": "fallback" if cost is None else "caller"},
+        cost_model={"dispatch_us": cost.dispatch_us,
+                    "epoch_lane_us": cost.epoch_lane_us,
+                    "sync_us": cost.sync_us,
+                    "device": cost.device, "source": cost.source},
         device=costmodel_mod.device_key(device),
         provenance=dict(telemetry.provenance()),
         wall_s=time.perf_counter() - t0)
@@ -786,30 +875,39 @@ def _finish_report(buckets, n_cells: int, backend: str, cost, device,
 
 def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
                   pad_vms: int, bucket, chunk, backend, cost, device,
-                  control: bool = False, report: list | None = None
-                  ) -> tuple[dict[str, np.ndarray], int]:
+                  control: bool = False, report: list | None = None,
+                  compact=None) -> tuple[dict[str, np.ndarray], int]:
     """Bucket + simulate ``N`` flattened cells; returns ``(metrics,
     n_jobs)`` with per-job columns ``[N, n_jobs]`` and per-scenario ones
     ``[N]``.  ``report`` (a list, appended in place) collects one
     :class:`telemetry.BucketReport` per dispatched bucket."""
     from ..kernels.mr_sched.megakernel import total_launches
-    groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost)
+    if compact is not None and cost is None:
+        cost = costmodel_mod.default_cost_model(device=device)
+    groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost,
+                            device=device)
     parts = []
     for idx, gcols, statics, tb, vb in groups:
+        stats = {"syncs": 0, "scalar_syncs": 0, "compactions": 0,
+                 "dispatches": 0}
         w0, l0 = time.perf_counter(), total_launches()
         parts.append((idx, *_run_cells(gcols, len(idx), tb, vb, statics,
-                                       chunk, backend, device, control)))
+                                       chunk, backend, device, control,
+                                       compact, cost, stats)))
         if report is not None:
-            model = cost or costmodel_mod.fallback_cost_model()
             report.append(telemetry.BucketReport(
                 cells=len(idx), pad_tasks=tb, pad_vms=vb, backend=backend,
                 control=control, statics=dict(statics or {}),
                 # the modelled lane-epoch saving vs running these cells at
                 # the grid cap, which _bucket_groups weighed against
                 # dispatch_us (None: the bucket is at the cap)
-                split_gain_us=(model.split_gain_us(len(idx), tb, pad_tasks)
+                split_gain_us=(cost.split_gain_us(len(idx), tb, pad_tasks)
                                if tb < pad_tasks else None),
                 dispatches=total_launches() - l0,
+                compact_syncs=stats["syncs"],
+                compact_scalar_syncs=stats["scalar_syncs"],
+                compactions=stats["compactions"],
+                compact_rounds=stats["dispatches"],
                 wall_s=time.perf_counter() - w0))
     n_jobs = int(parts[0][1]["makespan"].shape[-1])
     metrics: dict[str, np.ndarray] = {}
@@ -844,7 +942,8 @@ def _pad_cells(cols: dict[str, np.ndarray], n: int) -> dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
-                   bucket, cost: costmodel_mod.CostModel | None = None
+                   bucket, cost: costmodel_mod.CostModel | None = None, *,
+                   device=None
                    ) -> list[tuple[np.ndarray, dict[str, np.ndarray],
                                    dict[str, int] | None, int, int]]:
     """Partition grid cells into padded-shape buckets (DESIGN.md §6).
@@ -854,7 +953,8 @@ def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
     split per combination when every combination fills 64 cells; task
     paddings round up to powers of two and a run of cells stands alone
     when the cost model's split gain beats one dispatch; each bucket's
-    VM padding is its own ``n_vms`` max rounded up likewise.
+    VM padding is its own ``n_vms`` max rounded up likewise.  ``cost``
+    defaults to :func:`costmodel.default_cost_model` of ``device``.
     """
     N = len(next(iter(cols.values())))
     all_idx = np.arange(N)
@@ -863,7 +963,7 @@ def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
     if bucket is not True and bucket != "auto":
         raise ValueError(
             f"run: bucket must be 'auto', True, or False; got {bucket!r}")
-    cost = cost or costmodel_mod.fallback_cost_model()
+    cost = cost or costmodel_mod.default_cost_model(device=device)
     need_t = (cols["n_maps"].astype(np.int64)
               + cols["n_reduces"].astype(np.int64))
     need_v = cols["n_vms"].astype(np.int64)
@@ -927,6 +1027,14 @@ def _bucket_groups(cols: dict[str, np.ndarray], pad_tasks: int, pad_vms: int,
     return groups
 
 
+def _host_metrics(batch, out):
+    """Job and scenario metrics of one stepped batch, on the host."""
+    host = lambda t: {k: v.cpu().numpy()                       # noqa: E731
+                      for k, v in t._asdict().items()}
+    return (host(job_metrics(batch, out)),
+            host(scenario_metrics(batch, out)))
+
+
 def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes,
                control=False):
     """Encode, step and reduce one batch of cells; host-side results."""
@@ -935,30 +1043,46 @@ def _run_batch(cols, pad_tasks, pad_vms, statics, backend, device, max_pes,
                         static_params=statics, device=device)
     out = epoch_schedule(batch, backend=backend, max_pes=max_pes,
                          control=control)
-    jm = job_metrics(batch, out)
-    sm = scenario_metrics(batch, out)
-    host = lambda t: {k: v.cpu().numpy()                       # noqa: E731
-                      for k, v in t._asdict().items()}
-    return host(jm), host(sm), int(out.n_epochs.max())
+    return (*_host_metrics(batch, out), int(out.n_epochs.max()))
+
+
+def _run_compact(cols, pad_tasks, pad_vms, statics, backend, device,
+                 max_pes, control, k, cost, stats):
+    """:func:`_run_batch` with the epoch loop compacted to the
+    still-active lanes (``ops.epoch_schedule_compact``, interval ``k``)."""
+    from ..kernels.mr_sched.ops import epoch_schedule_compact
+    batch = grid_arrays(cols, pad_tasks=pad_tasks, pad_vms=pad_vms,
+                        static_params=statics, device=device)
+    out, realized = epoch_schedule_compact(
+        batch, k=k, backend=backend, max_pes=max_pes, cost_model=cost,
+        control=control, stats=stats)
+    return (*_host_metrics(batch, out), realized)
 
 
 def _run_cells(cols: dict[str, np.ndarray], n: int, pad_tasks: int,
                pad_vms: int, statics: dict[str, int] | None, chunk, backend,
-               device, control=False):
-    """Encode + simulate one bucket's cells; returns host-side
-    ``(job metrics, scenario metrics, realized_epochs[n])``."""
+               device, control=False, compact=None, cost=None, stats=None):
+    """Encode + simulate one bucket's cells, compacted per bucket (per
+    chunk under ``chunk``) when ``compact`` is set; returns host-side
+    ``(job metrics, scenario metrics, realized_epochs[n])``.  ``stats``
+    collects the compacted loop's counts."""
     max_pes = max(int(np.ceil(float(np.max(cols["vm_pes"])))), 1)
+    if compact is None:
+        run = partial(_run_batch, control=control)
+    else:
+        run = partial(_run_compact, control=control, k=compact, cost=cost,
+                      stats=stats)
     if chunk is None:
-        jm, sm, rz = _run_batch(cols, pad_tasks, pad_vms, statics, backend,
-                                device, max_pes, control)
+        jm, sm, rz = run(cols, pad_tasks, pad_vms, statics, backend, device,
+                         max_pes)
         return jm, sm, np.full(n, rz, np.int32)
     parts, realized = [], np.empty(n, np.int32)
     for lo in range(0, n, chunk):
         part = _pad_cells({k: v[lo:lo + chunk] for k, v in cols.items()},
                           min(chunk, n))
         take = min(chunk, n - lo)
-        jm, sm, rz = _run_batch(part, pad_tasks, pad_vms, statics, backend,
-                                device, max_pes, control)
+        jm, sm, rz = run(part, pad_tasks, pad_vms, statics, backend, device,
+                         max_pes)
         parts.append(({k: v[:take] for k, v in jm.items()},
                       {k: v[:take] for k, v in sm.items()}))
         realized[lo:lo + take] = rz

@@ -333,8 +333,12 @@ class BucketReport:
     split_gain_us: float | None      # cost-model gain that justified the
     #                                  split (None: base shape bucket)
     dispatches: int = 0              # mr_epoch kernel launches
-    compact_syncs: int = 0           # always 0: no compaction until ROADMAP A4
-    compact_scalar_syncs: int = 0    # always 0: no compaction until A4
+    compact_syncs: int = 0           # active-first order pulls (one per
+    #                                  compaction)
+    compact_scalar_syncs: int = 0    # still-active count pulls (one per
+    #                                  round, plus one per compacted run)
+    compactions: int = 0             # working-set gathers
+    compact_rounds: int = 0          # chunk steps of the compacted loop
     wall_s: float = 0.0              # wall time executing this bucket
 
 
@@ -344,7 +348,8 @@ class RunReport:
     n_cells: int
     n_buckets: int
     backend: str
-    compact: object                  # the run's compact request (None)
+    compact: object                  # the run's compact request (None:
+    #                                  dense; "auto" or the pinned K)
     buckets: list[BucketReport]
     compile_cache_hits: int          # kernel libraries already loaded when
     #                                  the run asked for them
@@ -352,10 +357,11 @@ class RunReport:
     #                                  with nvcc) during the run
     encoder_cache_hits: int          # always 0: grid_arrays has no cache
     encoder_cache_misses: int        # always 0 (as above)
-    compaction_syncs: int            # always 0: no compaction until A4
-    scalar_syncs: int                # always 0: no compaction until A4
+    compaction_syncs: int            # order pulls over every bucket
+    scalar_syncs: int                # still-active count pulls
     dispatches: int                  # total mr_epoch kernel launches
-    cost_model: dict                 # bucket-split coefficients + source
+    cost_model: dict                 # the three coefficients, device and
+    #                                  source
     device: str
     provenance: dict
     wall_s: float

@@ -9,19 +9,26 @@ reference's exact op sequence; the event loop runs in a kernel:
   windows, no priorities), returns ``(start, finish)``;
 * :func:`epoch_schedule` / :func:`epoch_trace` — ``mr_epoch``, returns a
   :class:`~repro_torch.core.engine.SimOutput` (and under trace the time
-  series, or the whole :class:`~repro_torch.core.telemetry.TraceBuffers`).
+  series, or the whole :class:`~repro_torch.core.telemetry.TraceBuffers`);
+* :func:`epoch_schedule_compact` — the same kernel stepped in resumable
+  chunks over a working set of the still-active lanes, gathered again
+  whenever it halves (DESIGN.md §9).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core import network, storage
-from ...core.control import failover_targets
-from ...core.engine import (ScenarioArrays, SimOutput, _sim_output,
-                            _trace_caps, _trace_of)
+from ...core.control import DeadlinePolicy, failover_targets
+from ...core.engine import (ScenarioArrays, SimOutput, _lane_bound,
+                            _put_lanes, _put_lanes_donated, _sim_output,
+                            _take_lanes, _trace_caps, _trace_of)
 from ...core.telemetry import TraceBuffers
+from ...core.util import pow2_pad, validate_pow2_floor
 from .kernel import mr_schedule, mr_schedule_plain
-from .megakernel import TRACE_LEAVES, initial_state, mr_epoch, mr_epoch_plain
+from .megakernel import (_BIG, TRACE_LEAVES, initial_state, mr_epoch,
+                         mr_epoch_plain)
 
 F32, I32 = torch.float32, torch.int32
 BACKENDS = ("cuda", "torch")
@@ -137,42 +144,59 @@ def resolve_backend(backend: str | None, device: torch.device) -> str:
     return backend
 
 
-def _step(batch: ScenarioArrays, backend, max_pes, control: bool,
-          trace: bool, trace_events, device):
-    """Run ``mr_epoch`` over a batch: ``(SimOutput, final carry)``."""
+def _prepare(batch: ScenarioArrays, backend, max_pes, control: bool,
+             trace: bool, device, what: str):
+    """``(batch, step, max_pes, lane data, task_vm2)`` of one run: the
+    batch on its device, the kernel or its plain version, and the lane
+    data in ``mr_epoch``'s order (the control tensors, or an open-loop
+    trace's ``vm_valid``, after the 13 open-loop ones)."""
     if device is not None:
         batch = ScenarioArrays(*(x.to(device) for x in batch))
     backend = resolve_backend(backend, batch.task_vm.device)
     if batch.job_length.shape[1] != 1:
-        raise ValueError("epoch_schedule: the kernel steps one job per lane "
+        raise ValueError(f"{what}: the kernel steps one job per lane "
                          f"(J=1), got J={batch.job_length.shape[1]}")
     if max_pes is None:
         max_pes = batch_max_pes(batch)
     step = mr_epoch if backend == "cuda" else mr_epoch_plain
     task_vm2, refetch = control_derived(batch)
     lanes = kernel_inputs(batch)
-    ctl = ()
     if control:
-        ctl = control_lane_data(batch, task_vm2, refetch)
+        lanes = lanes + control_lane_data(batch, task_vm2, refetch)
     elif trace:
-        ctl = (batch.vm_valid.to(I32).contiguous(),)
-    state = None
-    if trace:
-        N, T = batch.task_vm.shape
-        V = batch.vm_mips.shape[1]
-        state = initial_state(lanes[0], lanes[2], lanes[3], lanes[4],
-                              lanes[9], lanes[10],
-                              ctl[3] if control else None,
-                              *_trace_caps(T, V, control, True, trace_events))
-    st = step(*lanes, *ctl, state=state, max_pes=max_pes, control=control,
-              trace=trace)
+        lanes = lanes + (batch.vm_valid.to(I32).contiguous(),)
+    return batch, step, max_pes, lanes, task_vm2
+
+
+def _initial(batch: ScenarioArrays, lanes, control: bool, trace: bool,
+             trace_events):
+    """The t=0 carry of a run over ``lanes`` (:func:`_prepare`)."""
+    T, V = batch.task_vm.shape[1], batch.vm_mips.shape[1]
+    caps = _trace_caps(T, V, control, trace, trace_events) or (None, None)
+    return initial_state(lanes[0], lanes[2], lanes[3], lanes[4], lanes[9],
+                         lanes[10], lanes[16] if control else None, *caps)
+
+
+def _output(batch: ScenarioArrays, st, task_vm2, control: bool) -> SimOutput:
+    """The :class:`SimOutput` of a final carry."""
     carry = None
     if control:
         carry = (st[8] != 0, st[9], st[10], st[11][:, 0], st[12] != 0,
                  st[13], st[14][:, 0])
-    out = _sim_output(batch, st[3], st[4], st[5], st[7][:, 0], task_vm2,
-                      carry)
-    return out, st
+    return _sim_output(batch, st[3], st[4], st[5], st[7][:, 0], task_vm2,
+                       carry)
+
+
+def _step(batch: ScenarioArrays, backend, max_pes, control: bool,
+          trace: bool, trace_events, device):
+    """Run ``mr_epoch`` over a batch: ``(SimOutput, final carry)``."""
+    batch, step, max_pes, lanes, task_vm2 = _prepare(
+        batch, backend, max_pes, control, trace, device, "epoch_schedule")
+    state = (_initial(batch, lanes, control, True, trace_events)
+             if trace else None)
+    st = step(*lanes, state=state, max_pes=max_pes, control=control,
+              trace=trace)
+    return _output(batch, st, task_vm2, control), st
 
 
 def epoch_schedule(batch: ScenarioArrays, *, backend: str | None = None,
@@ -210,3 +234,232 @@ def epoch_trace(batch: ScenarioArrays, *, backend: str | None = None,
     out, st = _step(batch, backend, max_pes, control, True, trace_events,
                     device)
     return out, _trace_of(st[-len(TRACE_LEAVES):])
+
+
+# ---------------------------------------------------------------------------
+# Active-lane compaction (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+def _active_lanes(valid, finish, shed=None, n_epochs=None, bound=None):
+    """The lanes the kernel would still step (bool ``[N]``): a valid task
+    is unfinished, not counting shed tasks (``shed``, the control carry's
+    leaf: they never finish), and under control (``bound``) the lane's
+    ``n_epochs`` is below its own epoch bound."""
+    unfin = (valid != 0) & (finish >= _BIG / 2)
+    if shed is not None:
+        unfin &= shed == 0
+    act = unfin.any(dim=1)
+    if bound is not None:
+        act &= n_epochs[:, 0] < bound
+    return act
+
+
+def _state_activity(valid, finish, shed=None, n_epochs=None, bound=None):
+    """The still-active lane count (a 0-d device tensor: the one scalar a
+    round pulls) and the stable active-first order of the lanes (pulled
+    only on rounds that compact); arguments as :func:`_active_lanes`."""
+    act = _active_lanes(valid, finish, shed, n_epochs, bound)
+    return act.sum(dtype=I32), torch.argsort((~act).to(torch.uint8),
+                                             stable=True)
+
+
+def _host_bound(batch: ScenarioArrays, control: bool) -> int:
+    """Epochs that run every lane of the batch to its end: the batch-wide
+    worst case of the additive per-lane bound."""
+    T, V = batch.task_vm.shape[1], batch.vm_mips.shape[1]
+    bound = 2 * T + 2
+    if control:
+        if bool((batch.vm_valid & (batch.vm_fail < _BIG / 2)).any()):
+            bound += 2 * T + V
+        if bool(((batch.deadline_policy == int(DeadlinePolicy.SHED))
+                 & (batch.task_valid & (batch.task_deadline < _BIG / 2)
+                    ).any(dim=1)).any()):
+            bound += T + 1
+        if bool((batch.preempt != 0).any()):
+            bound += 2 * T
+    return bound
+
+
+def _compact(batch: ScenarioArrays, *, k, backend, max_pes, floor: int,
+             cost_model, control: bool, trace: bool, trace_events,
+             stats: dict | None, donate: bool, legacy: bool, device,
+             what: str):
+    """The compacted loop: ``(SimOutput, final carry)``.
+
+    A host loop steps the working set in chunks of ``k`` epochs through
+    the resumable kernel (``state`` in and out, ``epoch_limit``).  When
+    the still-active count, padded to a power of two (at least
+    ``floor``), falls below the working set, the active lanes (padded
+    with finished ones, which the kernel leaves as they are) are gathered
+    from the lane data and the dense carry store, and the advanced carry
+    is scattered back by lane index before the next gather.  The kernel
+    steps each lane by its own data to its own end, so the result is the
+    dense run's bit for bit, per-lane ``n_epochs`` included.
+
+    The lean loop pulls one scalar per round, the order only on rounds
+    that compact, and with ``donate`` scatters into the store in place.
+    ``legacy`` pulls the whole activity mask every round, orders the lanes
+    on the host and never updates the store in place."""
+    if stats is None:
+        stats = {}
+    for key in ("syncs", "scalar_syncs", "compactions", "dispatches"):
+        stats.setdefault(key, 0)
+    validate_pow2_floor(floor)
+    batch, step, max_pes, lanes, task_vm2 = _prepare(
+        batch, backend, max_pes, control, trace, device, what)
+    N, T = batch.task_vm.shape
+    dev = batch.task_vm.device
+    bound = _host_bound(batch, control)
+    if k == "auto":
+        from ...core import costmodel as costmodel_mod
+        cm = cost_model or costmodel_mod.default_cost_model(device=dev)
+        k = cm.compact_interval(N, T)
+    if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
+        raise ValueError(f"{what}: k must be an int >= 1 or 'auto', got "
+                         f"{k!r}")
+    k = int(k)
+    state = _initial(batch, lanes, control, trace, trace_events)
+    # ready0 (lane data 2) only seeds the t=0 carry: chunks resume
+    data = lanes[:2] + lanes[3:]
+    lane_bound = _lane_bound(batch) if control else None
+
+    def args(data_, state_, bound_):
+        """:func:`_active_lanes`'s arguments for a working set."""
+        return (data_[3], state_[4], state_[12] if control else None,
+                state_[7], bound_)
+
+    def chunk(data_, state_, limit):
+        stats["dispatches"] += 1
+        return step(data_[0], data_[1], None, *data_[2:], state=state_,
+                    max_pes=max_pes, epoch_limit=limit, control=control,
+                    trace=trace)
+
+    loop = _compact_loop_legacy if legacy else _compact_loop_lean
+    st = loop(data, state, lane_bound, N, bound, k, floor, args, chunk,
+              stats, donate, dev)
+    return _output(batch, st, task_vm2, control), st
+
+
+def _compact_loop_lean(data, state, lane_bound, N, bound, k, floor,
+                       args, chunk, stats, donate, dev):
+    """One scalar pull per round; the order crosses to the host only on
+    rounds that compact.  ``store`` stays ``None`` until the first
+    compaction (``cur`` is the whole batch in lane order until then);
+    afterwards it holds every lane outside ``idx``."""
+    store, cur_data, cur, cur_bound = None, data, state, lane_bound
+    idx = np.arange(N)
+    idx_dev = None
+    n_act_dev, order_dev = _state_activity(*args(cur_data, cur, cur_bound))
+    n_act = int(n_act_dev)
+    stats["scalar_syncs"] += 1
+    total = 0
+    while total < bound and n_act:
+        pad = pow2_pad(n_act, cap=len(idx), floor=floor)
+        if pad < len(idx):
+            order = order_dev[:pad].cpu().numpy()
+            stats["syncs"] += 1
+            if store is None:
+                store = cur
+            else:
+                store = (_put_lanes_donated if donate else _put_lanes)(
+                    store, idx_dev, cur)
+            idx = idx[order]
+            idx_dev = torch.as_tensor(idx, device=dev)
+            cur_data = _take_lanes(data, idx_dev)
+            cur = _take_lanes(store, idx_dev)
+            if lane_bound is not None:
+                cur_bound = lane_bound.index_select(0, idx_dev)
+            stats["compactions"] += 1
+        limit = min(k, bound - total)
+        cur = chunk(cur_data, cur, limit)
+        total += limit
+        n_act_dev, order_dev = _state_activity(
+            *args(cur_data, cur, cur_bound))
+        n_act = int(n_act_dev)
+        stats["scalar_syncs"] += 1
+    if store is None:
+        return cur
+    return (_put_lanes_donated if donate else _put_lanes)(store, idx_dev,
+                                                          cur)
+
+
+def _compact_loop_legacy(data, state, lane_bound, N, bound, k, floor,
+                         args, chunk, stats, donate, dev):
+    """The A/B comparator: the whole activity mask crosses to the host
+    every round and the order is made there; the store is never updated
+    in place."""
+    del donate
+    store, cur_data, cur, cur_bound = state, data, state, lane_bound
+    idx = np.arange(N)
+    idx_dev = torch.as_tensor(idx, device=dev)
+    total = 0
+    while total < bound:
+        act = _active_lanes(*args(cur_data, cur, cur_bound)).cpu()
+        act = act.numpy()
+        stats["syncs"] += 1
+        n_act = int(act.sum())
+        if n_act == 0:
+            break
+        pad = pow2_pad(n_act, cap=len(idx), floor=floor)
+        if pad < len(idx):
+            store = _put_lanes(store, idx_dev, cur)
+            order = np.concatenate([np.nonzero(act)[0],
+                                    np.nonzero(~act)[0]])[:pad]
+            idx = idx[order]
+            idx_dev = torch.as_tensor(idx, device=dev)
+            cur_data = _take_lanes(data, idx_dev)
+            cur = _take_lanes(store, idx_dev)
+            if lane_bound is not None:
+                cur_bound = lane_bound.index_select(0, idx_dev)
+            stats["compactions"] += 1
+        limit = min(k, bound - total)
+        cur = chunk(cur_data, cur, limit)
+        total += limit
+    return _put_lanes(store, idx_dev, cur)
+
+
+def epoch_schedule_compact(batch: ScenarioArrays, *, k="auto",
+                           backend: str | None = None,
+                           max_pes: int | None = None, floor: int = 8,
+                           cost_model=None, control: bool = False,
+                           trace: bool = False, stats: dict | None = None,
+                           donate: bool = True, device=None):
+    """Active-lane compaction over ``mr_epoch`` (DESIGN.md §9): the
+    compacted twin of :func:`epoch_schedule`.
+
+    The batch steps in chunks of ``k`` epochs through the resumable kernel
+    (``state`` in and out, ``epoch_limit``).  After each chunk one scalar,
+    the still-active lane count, crosses to the host.  When that count,
+    padded to a power of two (at least ``floor``), is below the working
+    set, the active lanes are gathered front first into a smaller working
+    set (lane data and carry, ``index_select``) and the carry of the old
+    one goes back into the dense store by lane index (``index_copy_``, in
+    place under ``donate``, out of place otherwise).  The kernel steps
+    each lane by its own data to its own end, so the result is the dense
+    path's bit for bit, per-lane ``n_epochs`` included, under control as
+    well (a lane's result never depends on its batch mates, ROADMAP C6).
+    The host bound is the batch's worst case of the additive per-lane
+    epoch bound; under control a lane leaves the working set at its own
+    bound.
+
+    ``k="auto"`` takes the interval from the cost model (``cost_model``,
+    default :func:`~repro_torch.core.costmodel.default_cost_model` of the
+    batch's device).  ``trace=True`` carries the six trace leaves through
+    the gathers (each lane keeps its rows, its capacity and its ``ev_n``)
+    and returns ``(SimOutput, realized, ts)``; otherwise ``(SimOutput,
+    realized)``, ``realized`` the batch's largest ``n_epochs``.
+
+    ``stats`` (a dict, updated in place) counts ``syncs`` (order pulls,
+    one per compaction), ``scalar_syncs`` (one per round, plus the first
+    check), ``compactions`` and ``dispatches`` (chunk steps).
+    ``backend``/``device`` as in :func:`epoch_schedule`.
+    """
+    out, st = _compact(
+        batch, k=k, backend=backend, max_pes=max_pes, floor=floor,
+        cost_model=cost_model, control=control, trace=trace,
+        trace_events=0, stats=stats, donate=donate, legacy=False,
+        device=device, what="epoch_schedule_compact")
+    realized = int(out.n_epochs.max()) if out.n_epochs.numel() else 0
+    if trace:
+        return out, realized, _trace_of(st[-len(TRACE_LEAVES):]).ts
+    return out, realized

@@ -47,6 +47,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import sweep as tsweep
 from repro_torch.kernels.mr_sched import megakernel as tmk
 from repro_torch.kernels.mr_sched import ops as tops
+from torch_costpin import pinned_cost_cache  # noqa: F401  (autouse)
 
 V = 9
 KINDS = ("control", "deadline", "reserves", "failover_locality")

@@ -9,7 +9,10 @@ instantiations of ``mr_epoch`` (open loop and control, untraced and traced)
 and ``mr_schedule`` are held against their plain PyTorch versions on the
 card, bit for bit (``mr_epoch`` also on lanes built to stress admission,
 ``mr_stress``), and the sweep and traced paths on the card against the
-same paths on the CPU.  The LM kernels (``flash_attention``, ``wkv6``) are
+same paths on the CPU; compacted stepping (``run(compact=...)``,
+``simulate_batch_arrays_compact``) on the card bit for bit against the dense
+run, open loop, closed loop and traced, and ``costmodel.measure()`` on the
+card.  The LM kernels (``flash_attention``, ``wkv6``) are
 held against their plain versions (flash: float32 at 2e-6, summation
 order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6's y at
 1e-4 and its final state bitwise), and the reduced yi-6b and rwkv6-3b
@@ -21,7 +24,7 @@ import torch
 
 import mr_stress
 from repro_torch import configs
-from repro_torch.core import control, engine, sweep
+from repro_torch.core import control, costmodel, engine, sweep
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.mr_sched import kernel, megakernel, ops
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
@@ -140,10 +143,12 @@ def test_sweep_on_card_matches_cpu():
     cols = _cols(384, 24, 7)
     plan = sweep.product(sweep.Axis(("cell",), tuple(
         (i,) for i in range(384)), cols))
+    # one pinned calibration: the same buckets on both devices
+    cm = costmodel.fallback_cost_model()
     before = megakernel.mr_epoch.launches
-    card = plan.run(device=dev)
+    card = plan.run(device=dev, cost_model=cm)
     assert megakernel.mr_epoch.launches > before
-    cpu = plan.run(device="cpu")
+    cpu = plan.run(device="cpu", cost_model=cm)
     for k in cpu.metric_names:
         np.testing.assert_array_equal(card[k].view(np.int32),
                                       cpu[k].view(np.int32), err_msg=k)
@@ -198,14 +203,83 @@ def test_control_sweep_on_card_matches_cpu():
     cols = _control_cols(384, 24, 5)
     plan = sweep.product(sweep.Axis(("cell",), tuple(
         (i,) for i in range(384)), cols))
+    cm = costmodel.fallback_cost_model()
     before = megakernel.mr_epoch.control_launches
-    card = plan.run(device=dev)
+    card = plan.run(device=dev, cost_model=cm)
     assert megakernel.mr_epoch.control_launches > before
-    cpu = plan.run(device="cpu")
+    cpu = plan.run(device="cpu", cost_model=cm)
     for k in cpu.metric_names:
         np.testing.assert_array_equal(card[k].view(np.int32),
                                       cpu[k].view(np.int32), err_msg=k)
     assert card["failures_injected"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control_,trace", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_compacted_equals_dense_on_card(control_, trace):
+    dev = _card()
+    T = 32
+    cols = _control_cols(512, T, 11) if control_ else _cols(512, T, 11)
+    batch = sweep.grid_arrays(cols, pad_tasks=T, pad_vms=9, device=dev)
+    dense = engine.simulate_batch_arrays(batch, control=control_,
+                                         trace=trace)
+    for k, legacy in ((1, False), (4, False), (4, True)):
+        st = {}
+        before = megakernel.total_launches()
+        comp = engine.simulate_batch_arrays_compact(
+            batch, k=k, control=control_, trace=trace, legacy=legacy,
+            stats=st)
+        assert megakernel.total_launches() - before == st["dispatches"]
+        assert st["compactions"] > 0
+        if not legacy:
+            assert st["syncs"] == st["compactions"]
+            assert st["scalar_syncs"] == st["dispatches"] + 1
+        for name, a, b in zip(engine.SimOutput._fields, dense[0], comp[0]):
+            assert torch.equal(_bits(a), _bits(b)), f"k={k} {name}"
+        assert dense[1] == comp[1]
+        if trace:
+            for name, a, b in zip(dense[2]._fields, dense[2], comp[2]):
+                assert torch.equal(_bits(a), _bits(b)), f"k={k} {name}"
+
+
+@pytest.mark.cuda
+def test_run_compact_on_card_matches_dense():
+    dev = _card()
+    cols = _control_cols(384, 24, 9)
+    plan = sweep.product(sweep.Axis(("cell",), tuple(
+        (i,) for i in range(384)), cols))
+    cm = costmodel.fallback_cost_model()
+    dense = plan.run(device=dev, cost_model=cm)
+    for compact in ("auto", 2):
+        res, rep = plan.run(device=dev, cost_model=cm, compact=compact,
+                            report=True)
+        for k in dense.metric_names:
+            np.testing.assert_array_equal(res[k].view(np.int32),
+                                          dense[k].view(np.int32),
+                                          err_msg=f"{compact}: {k}")
+        assert rep.compaction_syncs == sum(b.compactions
+                                           for b in rep.buckets)
+        assert rep.scalar_syncs == rep.dispatches + rep.n_buckets
+
+
+@pytest.mark.cuda
+def test_measure_on_card():
+    dev = _card()
+    before = megakernel.mr_epoch.launches
+    cm = costmodel.measure(reps=3, device=dev)
+    assert megakernel.mr_epoch.launches > before
+    assert cm.source == "measured"
+    assert cm.device == costmodel.device_key(dev) \
+        == f"cuda:{torch.cuda.get_device_name(dev)}"
+    assert cm.dispatch_us > 0 and cm.sync_us > 0
+    # well above the floor that stands in for a slope lost in the noise
+    n, maps, _, k_hi = costmodel.PROBE_CUDA
+    assert cm.epoch_lane_us > 2e-6 / (n * (maps + 1))
+    assert 1 <= cm.compact_interval(2048, 32) <= 64
+    # the probe lanes outlast the largest chunk the slope times
+    out = ops.epoch_schedule(costmodel._probe_batch(2, maps, dev))
+    assert int(out.n_epochs.min()) > k_hi
 
 
 def _trace_inputs(batch, control_):

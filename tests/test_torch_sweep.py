@@ -3,8 +3,9 @@
 Each grid is built through both packages' declarative API and run by JAX
 ``plan.run()`` and by the port's ``plan.run(backend="torch",
 device="cpu")`` (the ``mr_epoch`` plain version), with ``bucket="auto"``
-and ``bucket=False``.  Both runs price bucket splits with the same fallback
-cost model, so the buckets and ``realized_epochs`` agree.  Integer metrics
+and ``bucket=False``.  Both runs price bucket splits with the JAX package's
+fallback coefficients, passed to each, so the buckets and
+``realized_epochs`` agree.  Integer metrics
 and ``realized_epochs`` are exact; float metrics bitwise, except the sums
 over tasks, held to ``rtol=1e-6`` (ROADMAP C5: XLA:CPU vectorises some
 fused reductions into another summation order).
@@ -15,9 +16,11 @@ import torch
 
 from repro.core import costmodel as jcost
 from repro.core import sweep as jsweep
+from repro_torch.core import costmodel as tcost
 from repro_torch.core import sweep as tsweep
 from repro_torch.kernels.mr_sched import megakernel as tmk
 from repro_torch.kernels.mr_sched import ops as tops
+from torch_costpin import pinned_cost_cache  # noqa: F401  (autouse)
 
 ORDER_SENSITIVE = frozenset({
     "avg_exec", "map_avg_exec", "reduce_avg_exec", "vm_cost",
@@ -101,15 +104,18 @@ def test_run_matches_reference(grid, bucket):
     want = GRIDS[grid](jsweep).run(bucket=bucket,
                                    cost_model=jcost.fallback_cost_model())
     got = GRIDS[grid](tsweep).run(bucket=bucket, backend="torch",
-                                  device="cpu")
+                                  device="cpu",
+                                  cost_model=tcost.fallback_cost_model())
     assert_results_match(want, got, f"{grid}/{bucket}")
     assert got["realized_epochs"].max() >= 2
 
 
 def test_chunked_run_matches_unchunked():
     plan = _mixed(tsweep, n=96, seed=3)
-    whole = plan.run(backend="torch", device="cpu")
-    parts = plan.run(chunk=40, backend="torch", device="cpu")
+    fallback = tcost.fallback_cost_model()
+    whole = plan.run(backend="torch", device="cpu", cost_model=fallback)
+    parts = plan.run(chunk=40, backend="torch", device="cpu",
+                     cost_model=fallback)
     for k in whole.metric_names:
         if k != "realized_epochs":      # a per-chunk count by design
             np.testing.assert_array_equal(whole[k], parts[k], err_msg=k)
@@ -117,7 +123,8 @@ def test_chunked_run_matches_unchunked():
 
 def test_select_coord_and_table_match_reference():
     want = _table4(jsweep).run(cost_model=jcost.fallback_cost_model())
-    got = _table4(tsweep).run(backend="torch", device="cpu")
+    got = _table4(tsweep).run(backend="torch", device="cpu",
+                              cost_model=tcost.fallback_cost_model())
     for sel in ({"n_maps": 4}, {"network_delay": False},
                 {"n_maps": 8, "network_delay": True}):
         a, b = want.select(**sel), got.select(**sel)
@@ -134,13 +141,9 @@ def test_select_coord_and_table_match_reference():
         4250.0 / (np.arange(1, 11) + 1), rtol=1e-4)
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    ({"mesh": object()}, "A8"), ({"compact": True}, "A4"),
-    ({"stream_to": "x.parquet", "chunk": 4}, "A3"),
-    ({"report": True, "compact": True}, "A4")])
+@pytest.mark.parametrize("kw,slice_", [({"mesh": object()}, "A8")])
 def test_unported_run_options_raise(kw, slice_):
-    # report=True is ported (test_torch_telemetry.py); with an unported
-    # option beside it the option still raises
+    # compact= and stream_to= are ported (test_torch_compaction.py)
     with pytest.raises(NotImplementedError, match=slice_):
         _table4(tsweep).run(device="cpu", **kw)
 

@@ -28,6 +28,7 @@ from repro_torch.core import telemetry as ttel
 from repro_torch.kernels.mr_sched import megakernel as tmk
 
 from test_torch_trace import _scenarios
+from torch_costpin import pinned_cost_cache  # noqa: F401  (autouse)
 
 
 def _failure_trace():
@@ -153,7 +154,10 @@ def test_run_report_is_observational(control):
     assert rep.backend == "torch" and rep.device == "cpu"
     assert rep.compaction_syncs == rep.scalar_syncs == 0
     assert rep.encoder_cache_hits == rep.encoder_cache_misses == 0
-    assert rep.cost_model["source"] == "fallback"
+    # report=True resolves the default (here the pinned cache file) up front
+    assert rep.cost_model["source"] == "cache"
+    assert rep.cost_model["dispatch_us"] == \
+        tcost.fallback_cost_model().dispatch_us
     assert rep.provenance == ttel.provenance()
     assert rep.wall_s > 0 and all(b.wall_s > 0 for b in rep.buckets)
     json.loads(rep.to_json())
@@ -179,7 +183,7 @@ def test_run_report_counts_launches(monkeypatch):
     assert rep.n_buckets > 1
     assert rep.dispatches == tmk.total_launches() - before == rep.n_buckets
     assert all(b.dispatches == 1 for b in rep.buckets)
-    assert rep.cost_model["source"] == "caller"
+    assert rep.cost_model["source"] == "static"     # built by the caller
     base = plan.run(device="cpu")
     for f in base.metric_names:
         np.testing.assert_array_equal(base[f], res[f], err_msg=f)
@@ -210,12 +214,11 @@ def test_trace_scenario_multi_job_raises():
 
 def test_core_exports_the_reference_names():
     """``repro_torch.core`` re-exports every public name of ``repro.core``
-    but those of modules not ported yet (the streamed sweep, the LM
-    workload bridge, the sequential oracle)."""
+    but those of modules not ported yet (the LM workload bridge, the
+    sequential oracle)."""
     import repro.core as jcore
     import repro_torch.core as tcore
-    unported = {"StreamedSweep", "ChipSpec", "StepCost", "refsim",
-                "workload"}
+    unported = {"ChipSpec", "StepCost", "refsim", "workload"}
     missing = set(jcore.__all__) - unported - set(tcore.__all__)
     assert not missing
     from repro_torch.core import (RunReport, TraceResult, TraceSpec,
@@ -224,4 +227,12 @@ def test_core_exports_the_reference_names():
     assert TraceResult is tcore.telemetry.TraceResult
     assert RunReport is tcore.telemetry.RunReport
     assert trace_scenario is tcore.telemetry.trace_scenario
+    from repro_torch.core import StreamedSweep, costmodel
+    assert StreamedSweep is tcore.sweep.StreamedSweep
+    assert costmodel is tcore.costmodel
+    for name in ("CostModel", "default_cost_model", "fallback_cost_model",
+                 "load_cost_model", "save_cost_model", "measure",
+                 "device_key", "SCHEMA_VERSION", "ENV_PATH",
+                 "COMPACT_INTERVAL_MIN", "COMPACT_INTERVAL_MAX"):
+        assert hasattr(jcore.costmodel, name) and hasattr(costmodel, name)
     assert all(hasattr(tcore, name) for name in tcore.__all__)
