@@ -123,9 +123,33 @@ each printing one line of numbers:
               match the plain ``_wkv_scan`` path on the card, decode matches
               ``forward``.
 
+14. multijob — the engine's own epoch body (no kernel: plain tensor ops
+              on the card), which steps every batch with more than one job
+              per lane: a 16,384-lane open-loop and a 16,384-lane
+              closed-loop batch of the smart-city family
+              (``multijob_scenarios``: 2-4 jobs of the paper's sizes per
+              lane, staggered submits, mixed fleets of 4-16 VMs, both
+              policies, all bindings, storage, lease windows with Poisson
+              arrivals; closed loop: failures with AUTOSCALE reserves,
+              SHED/BOOST deadlines, preemption), 4,096 distinct scenarios
+              each encoded by ``sweep.stack_scenarios`` at T 64, J 4, V 16
+              and tiled x4, through ``engine.simulate_batch_arrays``
+              untraced and traced: no ``mr_epoch`` launch, traced
+              ``SimOutput`` bitwise the untraced one, no event dropped,
+              every lane within its epoch bound, metrics finite, under
+              control each mechanism fired; ``simulate_batch_arrays_
+              compact`` at K = 4 and ``"auto"`` bitwise dense; 2048 lanes
+              and their trace buffers bitwise the same body on the CPU.
+              Encode, step and metrics wall, lanes/s, realized epochs, step
+              ms per epoch and the card's busy share of a profiled window;
+              recorded, not claimed.
+
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
-``mr_schedule`` against their plain versions, bitwise.  float32 products run
+``mr_schedule`` against their plain versions, bitwise, and runs the engine
+body (``backend="engine"``) on its single-job grids, open and control,
+bitwise the ``mr_epoch`` kernel on every ``SimOutput`` field, its wall
+beside the kernel's device time on the same batches.  float32 products run
 in full float32 (TF32 off for matmuls and cuDNN).
 
 Then one JSON line describing each kernel, the ``nvidia-smi`` line, and as
@@ -135,7 +159,9 @@ checkout.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -159,6 +185,13 @@ SCHEDULE_LONG = ((2048, 9), (1024, 1500))  # (T, V) of long mr_schedule lanes
 TRACE_PASSES = 11        # alternating untraced/traced passes of phase 7
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores (same)
+ENGINE_LANES = 16384     # lanes of each phase-14 multi-job batch
+# distinct scenarios among them, tiled x4: the host encodes one scenario
+# at a time, and 16,384 took 66-74 s per batch on the card's host
+ENGINE_DISTINCT = 4096
+ENGINE_SHAPE = (64, 4, 16)  # (T, J, V) padding of the phase-14 batches
+ENGINE_CPU = 2048        # distinct lanes of each batch re-run on the CPU
+ENGINE_PROFILED = 64     # epochs of each batch run under torch.profiler
 KINDS = ("mixed_policies", "locality", "elastic", "tailheavy")
 CONTROL_KINDS = ("control", "deadline", "reserves", "failover_locality")
 CONTROL_RATE = 0.0005       # per-VM failure rate of the closed-loop kinds
@@ -359,6 +392,97 @@ def fit_tasks(cols, T):
     return cols
 
 
+MJ_JOB_KINDS = ("JOB_SMALL", "JOB_MEDIUM", "JOB_BIG")
+MJ_VM_KINDS = ("small", "medium", "large")
+MJ_SHAPES = ("plain", "priority", "storage", "elastic")
+
+
+def multijob_scenario(core, rng, *, control=False, max_jobs=4, max_maps=12,
+             max_reduces=3, vms=(4, 16)):
+    """One seeded multi-job scenario of the smart-city family, built from
+    ``core``'s config classes (``repro.core`` or ``repro_torch.core``: the
+    draws come from ``rng`` alone, so both packages get the same scenario).
+
+    A fleet of mixed VM types runs 2 to ``max_jobs`` MapReduce jobs of the
+    paper's Table III sizes (as ``examples/smart_city.py`` Part 1 mixes
+    its three IoT feeds), 2 to ``max_maps`` maps and 1 to 3 reduces each,
+    submits staggered over 0-1800 s, either scheduling policy, any of the
+    four bindings.  A lane takes one of four shapes: plain, per-job
+    priorities, storage on (LOCALITY, skewed placement, replication 1-3),
+    or lease windows with Poisson job arrivals.  ``control=True`` adds the
+    closed loop of Parts 5 and 6: seeded VM failures with AUTOSCALE
+    reserves, SHED or BOOST deadlines, preemption."""
+    shape = MJ_SHAPES[int(rng.integers(0, len(MJ_SHAPES)))]
+    n_jobs = int(rng.integers(2, max_jobs + 1))
+    n_vms = int(rng.integers(vms[0], vms[1] + 1))
+    submits = np.sort(rng.random(n_jobs) * 1800.0)
+    if shape == "elastic":
+        submits = core.elasticity.arrival_times(
+            n_jobs, rate=1.0 / 600.0, process="poisson",
+            seed=int(rng.integers(0, 2**31)))
+    jobs = []
+    for j in range(n_jobs):
+        base = getattr(core, MJ_JOB_KINDS[int(rng.integers(0, 3))])
+        kw = dict(name=f"feed{j}", n_maps=int(rng.integers(2, max_maps + 1)),
+                  n_reduces=int(rng.integers(1, max_reduces + 1)),
+                  submit_time=float(submits[j]))
+        if shape == "priority":
+            kw["priority"] = float(rng.integers(0, 3))
+        if control and rng.random() < 0.7:
+            kw["deadline"] = float(submits[j]) + float(
+                rng.uniform(3000.0, 15000.0))
+        jobs.append(dataclasses.replace(base, **kw))
+    fleet = []
+    for v in range(n_vms):
+        spec = core.VM_TYPES[MJ_VM_KINDS[int(rng.integers(0, 3))]]
+        if shape == "elastic":
+            spec = dataclasses.replace(
+                spec, lease_start=float(rng.choice([0.0, 0.0, 300.0])),
+                lease_stop=(math.inf if rng.random() < 0.6
+                            else float(rng.uniform(4000.0, 40000.0))))
+        fleet.append(spec)
+    kw = dict(sched_policy=core.SchedPolicy(int(rng.integers(0, 2))),
+              binding_policy=core.BindingPolicy(int(rng.integers(0, 4))))
+    if shape == "storage":
+        kw["storage"] = core.StorageSpec(
+            enabled=True, replication=int(rng.integers(1, 4)),
+            placement=core.Placement.SKEWED,
+            seed=int(rng.integers(0, 2**31)))
+        kw["binding_policy"] = core.BindingPolicy.LOCALITY
+    if shape == "elastic":
+        kw["elasticity"] = core.ElasticitySpec(
+            spinup_delay=float(rng.choice([0.0, 30.0, 120.0])),
+            billing_granularity=60.0)
+    if control:
+        n_res = int(rng.integers(0, min(3, n_vms - 1) + 1))
+        for v in range(n_vms - n_res, n_vms):
+            fleet[v] = dataclasses.replace(fleet[v], autoscale=True)
+        if rng.random() < 0.5:
+            kw["sched_policy"] = core.SchedPolicy.SPACE_SHARED
+        # reserves only where AUTOSCALE can open them, as in Part 5
+        policy = 1 if n_res else int(rng.integers(0, 2))
+        kw["control"] = core.ControlSpec(
+            policy=core.ControlPolicy(policy),
+            failure_rate=float(rng.choice([0.0, 1e-4, 3e-4, 1e-3])),
+            failure_seed=int(rng.integers(0, 2**31)),
+            repair_delay=float(rng.choice([300.0, 900.0, 3600.0])),
+            redispatch_delay=float(rng.choice([0.0, 10.0])),
+            queue_threshold=float(rng.choice([1.0, 2.0, 4.0])),
+            busy_threshold=float(rng.choice([0.25, 0.5])),
+            deadline_policy=core.DeadlinePolicy(int(rng.integers(0, 3))),
+            deadline_slack=float(rng.choice([0.0, 300.0, 1200.0])),
+            preempt=bool(rng.random() < 0.5),
+            preempt_resume=bool(rng.random() < 0.5))
+    return core.Scenario(vms=tuple(fleet), jobs=tuple(jobs), **kw)
+
+
+def multijob_scenarios(core, n, seed, **kw):
+    """``n`` seeded scenarios (keyword arguments as
+    :func:`multijob_scenario`)."""
+    rng = np.random.default_rng(seed)
+    return [multijob_scenario(core, rng, **kw) for _ in range(n)]
+
+
 def bits(x):
     """A tensor's raw bits, so equality is bitwise (-0.0 != 0.0)."""
     import torch
@@ -477,6 +601,176 @@ def phase_control_kernels(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
         checked += lanes
     w, c = check_stress(device, control=True, seed=seed + 100)
     return max(worst, w), checked + c, totals
+
+
+def phase_engine_j1(device, lanes=KERNEL_LANES, ts=KERNEL_TS, seed=0):
+    """The engine body on phase 3's single-job grids (the lane sets of the
+    open-loop and control ``mr_epoch`` checks): ``engine.
+    simulate_batch_arrays(backend="engine")`` bitwise the kernel path's
+    ``SimOutput`` on every field.  Returns one row per grid: ``(T,
+    control, engine wall s, mr_epoch device ms, realized epochs)``, the
+    kernel timed with :func:`launch_ms` (median of 3)."""
+    import torch
+    from repro_torch.core import engine, sweep
+    from repro_torch.kernels.mr_sched import megakernel, ops
+    rows = []
+    for control in (False, True):
+        for T in ts:
+            cols = (mixed_control_columns(lanes, seed + 100 + T, T) if control
+                    else mixed_columns(lanes, seed + T, T))
+            batch = sweep.grid_arrays(fit_tasks(cols, T), pad_tasks=T,
+                                      pad_vms=9, device=device)
+            kern, _ = engine.simulate_batch_arrays(batch, control=control)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            body, realized = engine.simulate_batch_arrays(
+                batch, control=control, backend="engine")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            compare(engine.SimOutput._fields, body, kern,
+                    f"T={T}: engine body vs mr_epoch"
+                    + (" control" if control else ""))
+            inputs = ops.kernel_inputs(batch) + (
+                ops.control_lane_data(batch) if control else ())
+            max_pes = ops.batch_max_pes(batch)
+            k_ms = float(np.median(launch_ms([lambda: megakernel.mr_epoch(
+                *inputs, max_pes=max_pes, control=control)] * 3)))
+            rows.append((T, control, wall, k_ms, realized))
+    return rows
+
+
+def multijob_batch(control, seed, device):
+    """A phase-14 batch: :data:`ENGINE_DISTINCT` seeded smart-city
+    scenarios (:func:`multijob_scenarios`) encoded by ``sweep.stack_scenarios``
+    at :data:`ENGINE_SHAPE`, tiled to :data:`ENGINE_LANES` lanes."""
+    import repro_torch.core as core
+    from repro_torch.core import engine, sweep
+    T, J, V = ENGINE_SHAPE
+    batch = sweep.stack_scenarios(
+        multijob_scenarios(core, ENGINE_DISTINCT, seed, control=control),
+        device=device, pad_tasks=T, pad_jobs=J, pad_vms=V)
+    reps = ENGINE_LANES // ENGINE_DISTINCT
+    if reps > 1:
+        batch = engine.ScenarioArrays(*(
+            x.repeat(reps, *([1] * (x.dim() - 1))) for x in batch))
+    return batch
+
+
+def phase_multijob(dev, control, seed):
+    """Phase 14 on one batch: encode, the engine body through
+    ``engine.simulate_batch_arrays`` untraced and traced (no ``mr_epoch``
+    launch), metrics, compaction at K = 4 and ``"auto"``, and
+    :data:`ENGINE_CPU` lanes again on the CPU; every check raises.
+    Returns the measurements."""
+    import torch
+    from repro_torch.core import costmodel, engine
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    fields = engine.SimOutput._fields
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    batch = multijob_batch(control, seed, dev)
+    sync()
+    r = dict(encode=time.perf_counter() - t0)
+    N, T = batch.task_valid.shape
+    before = mk.total_launches()
+    t0 = time.perf_counter()
+    out, realized = engine.simulate_batch_arrays(batch)
+    sync()
+    r["step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jm = engine.to_numpy(engine.job_metrics(batch, out))
+    sm = engine.to_numpy(engine.scenario_metrics(batch, out))
+    r["metrics"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_t, realized_t, buf = engine.simulate_batch_arrays(batch, trace=True)
+    sync()
+    r["traced"] = time.perf_counter() - t0
+    if mk.total_launches() != before:
+        raise AssertionError("a multi-job batch launched mr_epoch")
+    compare(fields, out_t, out, "multi-job: traced vs untraced")
+    if realized_t != realized:
+        raise AssertionError("multi-job: traced realized_epochs differ")
+    r["events"] = int(buf.ev_n.sum())
+    if int((buf.ev_n > buf.ev_t.shape[1]).sum()):
+        raise AssertionError("multi-job: the default event log dropped")
+    bound = engine._lane_bound(batch) if control else 2 * T + 2
+    if bool((out.n_epochs > bound).any()):
+        raise AssertionError("multi-job: n_epochs above the lane bound")
+    valid = batch.job_valid.cpu().numpy()
+    for k, v in jm.items():
+        if v.shape != valid.shape or not np.isfinite(v[valid]).all():
+            raise AssertionError(f"multi-job: job metric {k} not finite")
+    for k, v in sm.items():
+        if v.shape != (N,) or not np.isfinite(v).all():
+            raise AssertionError(f"multi-job: scenario metric {k}")
+    r["totals"] = {k: int(sm[k].sum()) for k in (
+        "failures_injected", "tasks_redispatched", "scale_events",
+        "shed_tasks", "preemptions")}
+    if control:
+        idle = [k for k, v in r["totals"].items() if not v > 0]
+        if idle:
+            raise AssertionError(f"multi-job: the batch never fired {idle}")
+    r["compact"] = {}
+    cm = costmodel.default_cost_model(device=dev)
+    for k in (4, "auto"):
+        st = {}
+        t0 = time.perf_counter()
+        oc, rc = engine.simulate_batch_arrays_compact(batch, k=k, stats=st)
+        sync()
+        r["compact"][k] = (time.perf_counter() - t0, st)
+        compare(fields, oc, out, f"multi-job: compact k={k} vs dense")
+        if rc != realized:
+            raise AssertionError(f"multi-job: compact k={k} realized")
+    r["auto_k"] = cm.compact_interval(N, T)
+    # the card's busy share of the first epochs (setup excluded)
+    inv, c0 = engine._epoch_setup(batch, control=control)
+    wall, kinds = device_breakdown(lambda: engine._drive(
+        batch, inv, c0, ENGINE_PROFILED, control=control, trace=False))
+    if not kinds:
+        raise AssertionError("multi-job: the profiler saw no device time")
+    r["profiled"] = (wall, sum(kinds.values()))
+    idx = torch.arange(0, ENGINE_DISTINCT,
+                       max(1, ENGINE_DISTINCT // ENGINE_CPU),
+                       device=dev)[:ENGINE_CPU]
+    sub = engine.ScenarioArrays(*(x.index_select(0, idx).cpu()
+                                  for x in batch))
+    t0 = time.perf_counter()
+    oc, _, bc = engine.simulate_batch_arrays(sub, trace=True)
+    r["cpu"] = time.perf_counter() - t0
+    compare(fields, oc, [x.index_select(0, idx).cpu() for x in out],
+            "multi-job: CPU vs card")
+    compare(bc._fields, bc, [x.index_select(0, idx).cpu() for x in buf],
+            "multi-job: CPU trace vs card")
+    r.update(n=N, T=T, realized=realized, n_cpu=len(idx))
+    return r
+
+
+def multijob_line(label, r) -> str:
+    """Phase 14's line of numbers for one batch."""
+    T, J, V = ENGINE_SHAPE
+    c4, ca = r["compact"][4], r["compact"]["auto"]
+    return (f"multijob: {label} batch, {r['n']} lanes ({ENGINE_DISTINCT} "
+            f"distinct smart-city scenarios tiled x"
+            f"{ENGINE_LANES // ENGINE_DISTINCT}, T {T}, J {J}, V {V}) through "
+            f"engine.simulate_batch_arrays (engine body, 0 mr_epoch "
+            f"launches): encode {r['encode']!r} s, step {r['step']!r} s over "
+            f"{r['realized']} realized epochs "
+            f"({1e3 * r['step'] / max(r['realized'], 1)!r} ms per epoch), "
+            f"metrics {r['metrics']!r} s, "
+            f"{r['n'] / (r['step'] + r['metrics'])!r} lanes/s (step + "
+            f"metrics); traced {r['traced']!r} s "
+            f"({r['traced'] / r['step']!r}x untraced), SimOutput bitwise "
+            f"untraced, 0 of {r['events']} events dropped; compact K=4 "
+            f"{c4[0]!r} s ({c4[1]['dispatches']} rounds, "
+            f"{c4[1]['compactions']} compactions), auto (K {r['auto_k']}) "
+            f"{ca[0]!r} s ({ca[1]['dispatches']} rounds, "
+            f"{ca[1]['compactions']} compactions), both bitwise dense; "
+            f"{r['n_cpu']} lanes and their trace bitwise on the CPU "
+            f"({r['cpu']!r} s); profiled first {ENGINE_PROFILED} epochs: "
+            f"wall {r['profiled'][0]!r} s, device busy "
+            f"{r['profiled'][1]!r} s "
+            f"({r['profiled'][1] / r['profiled'][0]!r} of the wall) | "
+            + ", ".join(f"{k} {v}" for k, v in r["totals"].items()))
 
 
 def vm_valid_lane(batch):
@@ -1898,6 +2192,16 @@ def main() -> int:
           f"max_abs_err {worst_s}, {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    t0 = time.perf_counter()
+    rows = phase_engine_j1(dev)
+    print(f"kernels: engine body (backend=\"engine\") bitwise == mr_epoch on "
+          f"every SimOutput field, {KERNEL_LANES} lanes per grid at T="
+          f"{list(KERNEL_TS)}, open and control | "
+          + "; ".join(f"{'control' if c else 'open'} T={T}: engine wall "
+                      f"{w!r} s over {e} epochs, mr_epoch device {k!r} ms "
+                      f"({1e3 * w / k!r}x)" for T, c, w, k, e in rows)
+          + f", {time.perf_counter() - t0:.2f} s", flush=True)
+
     # 4. main path, open loop.  pad_tasks=64 caps the buckets at the next
     # power of two above the 41-task tail-heavy cells (T = 4 .. 64)
     m = phase_main(mixed_columns(N_CELLS, seed=12), dev, pad_tasks=64)
@@ -2051,6 +2355,12 @@ def main() -> int:
                   f"launch (bf16 tensor-core kernel {r['k_ms']:.4f} ms)",
                   flush=True)
         print(serve_line(label, name, r), flush=True)
+
+    # 14. multi-job scenarios through the engine body
+    for label, control, seed in (("open-loop", False, 14),
+                                 ("closed-loop", True, 15)):
+        print(multijob_line(label, phase_multijob(dev, control, seed)),
+              flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

@@ -1,21 +1,25 @@
 """Scenario encoding, batch stepping and metrics on torch tensors.
 
-The JAX package's event-epoch engine, open-loop lowering, written on a
-leading lane dimension in place of ``vmap``.  A batch of encoded scenarios
-(:class:`ScenarioArrays`, every leaf ``[N, ...]``) is stepped to completion
-by the ``mr_epoch`` kernel (``kernels.mr_sched.epoch_schedule``: the CUDA
-kernel on the card, its plain PyTorch version on the CPU), or by
-:func:`simulate_batch_arrays_compact` in chunks over the still-active
-lanes, and reduced by :func:`job_metrics` / :func:`scenario_metrics`.
+The JAX package's event-epoch engine, written on a leading lane dimension
+in place of ``vmap``.  A batch of encoded scenarios (:class:`ScenarioArrays`,
+every leaf ``[N, ...]``) is stepped to completion and reduced by
+:func:`job_metrics` / :func:`scenario_metrics`.  Single-job batches step
+through the ``mr_epoch`` kernel (``kernels.mr_sched.epoch_schedule``: the
+CUDA kernel on the card, its plain PyTorch version on the CPU); batches
+with more than one job column step through the engine's own epoch body
+(:func:`simulate_arrays`: the reference's ``_epoch_step`` with its T×T
+admission rank, in plain tensor ops on the batch's device, open loop,
+``control`` and ``trace`` lowerings).  Either runs densely
+(:func:`simulate_batch_arrays`) or in chunks over the still-active lanes
+(:func:`simulate_batch_arrays_compact`).
 
 Every float op keeps the JAX package's op sequence, one rounding per op, so
 schedules are bitwise equal to the reference.  Sums run in one fixed order
 (:func:`_sum`, :func:`_fold`), never through a library reduction whose order
-depends on the device, so a run on the card and one on the CPU give the same
-bits.  Batches with closed-loop inputs (failures, autoscale reserves,
-deadline policies, preemption) step through the kernel's control lowering.
-The JAX engine's own XLA formulation of the epoch body (``_epoch_step``
-with its T×T admission rank) is ROADMAP slice A2.
+depends on the device, and the reference's products with 0/1 matrices are
+gathers and integer counts, so a run on the card and one on the CPU give
+the same bits.  Batches with closed-loop inputs (failures, autoscale
+reserves, deadline policies, preemption) step through the control lowering.
 """
 from __future__ import annotations
 
@@ -24,11 +28,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import elasticity, storage
+from . import elasticity, network, storage
 from .config import BindingPolicy, Scenario, base_task_lengths_f32
-from .control import DeadlinePolicy, scenario_control
-from .telemetry import (N_TS_COLS, TraceBuffers, event_capacity,
-                        timeseries_capacity)
+from .control import (ControlPolicy, DeadlinePolicy, earliest_finish,
+                      failover_targets, scenario_control)
+from .telemetry import (EV_FINISH, EV_KILL, EV_PREEMPT, EV_SCALE_CLOSE,
+                        EV_SCALE_OPEN, EV_SHED, EV_START, N_TS_COLS,
+                        TraceBuffers, event_capacity, timeseries_capacity)
+from .util import fma32, validate_pow2_floor
 
 _BIG = 1e30          # stand-in for +inf that survives arithmetic
 _TIME_EPS = 1e-6     # relative tie window for simultaneous events
@@ -522,21 +529,677 @@ def _trace_of(leaves) -> TraceBuffers:
                         ev_vm=ev_vm, ev_n=ev_n[:, 0])
 
 
+# ---------------------------------------------------------------------------
+# The engine's own epoch body (any number of jobs per lane)
+# ---------------------------------------------------------------------------
+
+# lanes one pass of the engine body steps at once, as a budget on N * T^2:
+# the admission rank compares every pair of a lane's tasks, so each of its
+# [N, T, T] masks takes N * T^2 bytes (134 MB at the budget)
+LANE_BUDGET = 1 << 27
+# epochs the engine body runs on the card between two looks at whether any
+# lane is still active (each look waits for the card); finished lanes are
+# frozen, so the steps past the end change nothing
+CHECK_EVERY_CUDA = 4
+
+
+class _Carry(NamedTuple):
+    """The engine body's event-loop state, every leaf led by the lane dim.
+
+    The control leaves are ``None`` unless the ``control`` flag is on, the
+    trace leaves unless ``trace`` is.  The trace buffers hold one row
+    (``ts``) and one column (``ev_*``) past their capacity, which take the
+    writes that do not fit, so that no epoch has to ask the device how many
+    do; :func:`_engine_trace` drops them."""
+    time: torch.Tensor       # f32[N]
+    rem: torch.Tensor        # f32[N, T] remaining MI
+    running: torch.Tensor    # bool[N, T]
+    start: torch.Tensor      # f32[N, T]
+    finish: torch.Tensor     # f32[N, T]
+    ready: torch.Tensor      # f32[N, T]
+    maps_left: torch.Tensor  # i32[N, J]
+    epoch: torch.Tensor      # i32[N] realized event epochs of the lane
+    hit: torch.Tensor | None = None        # bool[N, T] killed at least once
+    vm_open: torch.Tensor | None = None    # f32[N, V] realized lease open
+    vm_close: torch.Tensor | None = None   # f32[N, V] realized lease close
+    n_scale: torch.Tensor | None = None    # i32[N] autoscale events
+    shed: torch.Tensor | None = None       # bool[N, T] deadline-shed
+    n_evict: torch.Tensor | None = None    # i32[N, T] preemptions per task
+    work_lost: torch.Tensor | None = None  # f32[N] discarded progress (MI)
+    ts: torch.Tensor | None = None         # f32[N, C + 1, 8] time series
+    ev_t: torch.Tensor | None = None       # f32[N, E + 1] event times
+    ev_kind: torch.Tensor | None = None    # i32[N, E + 1] kinds (-1 empty)
+    ev_task: torch.Tensor | None = None    # i32[N, E + 1] task (-1 scale)
+    ev_vm: torch.Tensor | None = None      # i32[N, E + 1] VM
+    ev_n: torch.Tensor | None = None       # i32[N] events attempted
+
+
+class _EpochInv(NamedTuple):
+    """Per-lane quantities every epoch reads, led by the lane dim.
+
+    The reference's one-hot task→VM and task→job matrices become gather
+    indices: ``vm_idx`` (the bound VM, clamped into ``[0, V)``) with
+    ``vm_in`` (whether it is in range: a one-hot row outside is all zero),
+    and ``job_idx``.  The control leaves (``None`` unless ``control``) are
+    the failover slot and its gathers and the failure/restore instants of
+    both slots."""
+    shuffle: torch.Tensor    # f32[N, J]
+    task_pes: torch.Tensor   # f32[N, T] vm_pes[task_vm]
+    vm_idx: torch.Tensor     # i64[N, T]
+    vm_in: torch.Tensor      # bool[N, T]
+    job_idx: torch.Tensor    # i64[N, T]
+    is_space: torch.Tensor   # bool[N]
+    avail_t: torch.Tensor    # f32[N, T] bound VM's admission opening
+    close_t: torch.Tensor    # f32[N, T] bound VM's lease stop
+    bound: torch.Tensor      # i32[N] the lane's epoch bound
+    task_len: torch.Tensor | None = None   # f32[N, T] (kill reset)
+    task_vm2: torch.Tensor | None = None   # i32[N, T] failover binding
+    vm_idx2: torch.Tensor | None = None    # i64[N, T]
+    vm_in2: torch.Tensor | None = None     # bool[N, T]
+    task_pes2: torch.Tensor | None = None  # f32[N, T]
+    refetch: torch.Tensor | None = None    # f32[N, T] re-replication fetch
+    fail1: torch.Tensor | None = None      # f32[N, T] vm_fail[task_vm]
+    rest1: torch.Tensor | None = None      # f32[N, T] vm_restore[task_vm]
+    fail2: torch.Tensor | None = None      # f32[N, T] vm_fail[task_vm2]
+    rest2: torch.Tensor | None = None      # f32[N, T] vm_restore[task_vm2]
+
+
+def _slot(vm: torch.Tensor, V: int):
+    """``(gather index, in range)`` of a task→VM binding."""
+    return vm.clamp(0, V - 1).long(), (vm >= 0) & (vm < V)
+
+
+def _at(per: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each task's entry of a per-VM (or per-job) row, as the reference's
+    indexing gives it (an index outside the row clamps)."""
+    return torch.gather(per, 1, idx)
+
+
+def _onehot_at(per_vm: torch.Tensor, idx: torch.Tensor,
+               inside: torch.Tensor) -> torch.Tensor:
+    """Each task's VM's value as the reference's one-hot product gives it:
+    0 for a VM outside ``[0, V)``, and ``+0.0`` where the value is
+    ``-0.0`` (a sum that starts from zero)."""
+    g = torch.gather(per_vm, 1, idx) + 0.0
+    return torch.where(inside, g, torch.zeros_like(g))
+
+
+def _count_per(idx: torch.Tensor, mask: torch.Tensor, width: int,
+               inside: torch.Tensor | None = None) -> torch.Tensor:
+    """The exact count of the set tasks per VM (or job), i32 ``[N, width]``:
+    the reference's 0/1 product, as an integer scatter."""
+    if inside is not None:
+        mask = mask & inside
+    out = torch.zeros((idx.shape[0], width), dtype=I32, device=idx.device)
+    return out.scatter_add_(1, idx, mask.to(I32))
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """The reference's float sum of a 0/1 row: an exact count, f32."""
+    return mask.sum(dim=1, dtype=I32).to(F32)
+
+
+def _active_lanes(valid, finish, shed=None, n_epochs=None, bound=None):
+    """The lanes still to step (bool ``[N]``): a valid task is unfinished,
+    not counting shed tasks (``shed``: they never finish), and where
+    ``bound`` is given the lane's ``n_epochs`` (``[N, 1]``) is below its
+    own epoch bound.  Shared by the engine body and the ``mr_epoch``
+    compaction loop."""
+    unfin = (valid != 0) & (finish >= _BIG / 2)
+    if shed is not None:
+        unfin &= shed == 0
+    act = unfin.any(dim=1)
+    if bound is not None:
+        act &= n_epochs[:, 0] < bound
+    return act
+
+
+def _lane_active(sc: ScenarioArrays, c: _Carry,
+                 inv: _EpochInv) -> torch.Tensor:
+    """A lane still takes epochs: unfinished work below its epoch bound."""
+    return _active_lanes(sc.task_valid, c.finish, c.shed, c.epoch[:, None],
+                         inv.bound)
+
+
+def _epoch_setup(sc: ScenarioArrays, *, control: bool = False,
+                 trace: tuple[int, int] | None = None
+                 ) -> tuple[_EpochInv, _Carry]:
+    """Derived quantities and the t=0 carry of a batch (the reference's
+    ``_epoch_setup``).  ``trace`` is the ``(time-series rows, event-log
+    rows)`` capacity pair, ``None`` without a trace."""
+    N, T = sc.task_valid.shape
+    J, V = sc.job_length.shape[1], sc.vm_mips.shape[1]
+    dev = sc.task_vm.device
+    col = lambda x: x[:, None]                                 # noqa: E731
+    n_maps_f = sc.job_n_maps.to(F32)
+    stage_in = network.transfer_delay(col(sc.kappa_in), sc.job_data, n_maps_f,
+                                      col(sc.net_bw), col(sc.net_enabled))
+    shuffle = network.transfer_delay(col(sc.kappa_shuffle), sc.job_data,
+                                     n_maps_f, col(sc.net_bw),
+                                     col(sc.net_enabled))
+    task_len = task_lengths(sc)
+    fetch = storage.remote_fetch_delay(sc.block_vm, sc.block_size, sc.task_vm,
+                                       col(sc.kappa_in), col(sc.net_bw),
+                                       col(sc.net_enabled))
+    job_idx = sc.task_job.clamp(0, J - 1).long()
+    is_map = sc.task_valid & ~sc.task_is_reduce
+    ready0 = torch.where(is_map, _at(sc.job_submit + stage_in, job_idx)
+                         + fetch, torch.full_like(fetch, _BIG))
+    vm_idx, vm_in = _slot(sc.task_vm, V)
+    if control:
+        bound = _lane_bound(sc)
+    else:
+        bound = torch.full((N,), 2 * T + 2, dtype=I32, device=dev)
+    inv = _EpochInv(
+        shuffle=shuffle, task_pes=_at(sc.vm_pes, vm_idx), vm_idx=vm_idx,
+        vm_in=vm_in, job_idx=job_idx, is_space=sc.sched_policy == 1,
+        avail_t=_at(sc.vm_start + col(sc.spinup_delay), vm_idx),
+        close_t=_at(sc.vm_stop, vm_idx), bound=bound)
+    ft = torch.full((N, T), _BIG, dtype=F32, device=dev)
+    c0 = _Carry(time=torch.zeros(N, dtype=F32, device=dev), rem=task_len,
+                running=torch.zeros((N, T), dtype=torch.bool, device=dev),
+                start=ft, finish=ft.clone(), ready=ready0,
+                maps_left=_count_per(job_idx, is_map, J),
+                epoch=torch.zeros(N, dtype=I32, device=dev))
+    if control:
+        task_vm2 = failover_targets(sc.task_vm, sc.vm_valid, sc.vm_auto,
+                                    sc.block_vm)
+        vm_idx2, vm_in2 = _slot(task_vm2, V)
+        inv = inv._replace(
+            task_len=task_len, task_vm2=task_vm2, vm_idx2=vm_idx2,
+            vm_in2=vm_in2, task_pes2=_at(sc.vm_pes, vm_idx2),
+            refetch=storage.remote_fetch_delay(
+                sc.block_vm, sc.block_size, task_vm2, col(sc.kappa_in),
+                col(sc.net_bw), col(sc.net_enabled)),
+            fail1=_at(sc.vm_fail, vm_idx), rest1=_at(sc.vm_restore, vm_idx),
+            fail2=_at(sc.vm_fail, vm_idx2), rest2=_at(sc.vm_restore, vm_idx2))
+        c0 = c0._replace(
+            hit=torch.zeros((N, T), dtype=torch.bool, device=dev),
+            vm_open=torch.where(sc.vm_auto, torch.full_like(sc.vm_start, _BIG),
+                                sc.vm_start),
+            vm_close=sc.vm_stop.clone(),
+            n_scale=torch.zeros(N, dtype=I32, device=dev),
+            shed=torch.zeros((N, T), dtype=torch.bool, device=dev),
+            n_evict=torch.zeros((N, T), dtype=I32, device=dev),
+            work_lost=torch.zeros(N, dtype=F32, device=dev))
+    if trace is not None:
+        C, E = trace
+        c0 = c0._replace(
+            ts=torch.zeros((N, C + 1, N_TS_COLS), dtype=F32, device=dev),
+            ev_t=torch.zeros((N, E + 1), dtype=F32, device=dev),
+            ev_kind=torch.full((N, E + 1), -1, dtype=I32, device=dev),
+            ev_task=torch.full((N, E + 1), -1, dtype=I32, device=dev),
+            ev_vm=torch.full((N, E + 1), -1, dtype=I32, device=dev),
+            ev_n=torch.zeros(N, dtype=I32, device=dev))
+    return inv, c0
+
+
+def _ahead(same_vm, prio, key, earlier, urg=None):
+    """``[N, i, j]``: task j is on task i's VM and the space-shared
+    admission takes it first, by (urgency desc, priority desc, eligible
+    time asc, index asc)."""
+    pi, pj = prio[:, :, None], prio[:, None, :]
+    ki, kj = key[:, :, None], key[:, None, :]
+    first = (pj > pi) | ((pj == pi) & ((kj < ki) | ((kj == ki) & earlier)))
+    if urg is not None:
+        ui, uj = urg[:, :, None], urg[:, None, :]
+        first = (uj > ui) | ((uj == ui) & first)
+    return same_vm & first
+
+
+def _epoch_step(sc: ScenarioArrays, inv: _EpochInv, c: _Carry,
+                act: torch.Tensor, *, control: bool = False,
+                trace: bool = False) -> _Carry:
+    """Advance every lane one event epoch (the reference's ``_epoch_step``,
+    batch-native).  Each leaf of a lane that ``act`` marks finished keeps
+    its value, so a lane stops at its own end whatever its batch mates do
+    (ROADMAP C6), and ``epoch`` counts the lane's own epochs.
+
+    Rates follow from the per-VM counts of running tasks; the next event is
+    the earliest completion, lease-gated arrival (and under control VM
+    failure); completions inside the ``1e-6`` tie window fire together; a
+    job's last map releases its reduces after the shuffle delay; arrivals
+    start at once on time-shared lanes and by the T×T ``(priority,
+    eligible time, index)`` rank into the free PEs on space-shared ones.
+    ``control`` adds the AUTOSCALE hook at the opening clock, the
+    ``[fail, restore)`` gates, failure kills with failover, SHED at the
+    arrival candidate and at the admission instant, preemption, the BOOST
+    urgency tier and the shed-orphan rule; ``trace`` records the epoch's
+    time-series row and its events (in place, in the buffers' spare slots
+    where they do not fit).  No op reads a value back to the host."""
+    N, T = sc.task_valid.shape
+    J, V = sc.job_length.shape[1], sc.vm_mips.shape[1]
+    dev = c.rem.device
+    valid, is_red, prio = sc.task_valid, sc.task_is_reduce, sc.task_prio
+    zt = torch.zeros_like(c.rem)
+    big_t = torch.full_like(c.rem, _BIG)
+    now = c.time[:, None]
+    tidx = torch.arange(T, device=dev)
+    earlier = (tidx[None, :] < tidx[:, None])[None]      # [1, i, j]: j < i
+    is_space = inv.is_space[:, None]
+    if control:
+        hit = c.hit
+        vm_idx = torch.where(hit, inv.vm_idx2, inv.vm_idx)
+        vm_in = torch.where(hit, inv.vm_in2, inv.vm_in)
+        task_pes = torch.where(hit, inv.task_pes2, inv.task_pes)
+        f_t = torch.where(hit, inv.fail2, inv.fail1)
+        r_t = torch.where(hit, inv.rest2, inv.rest1)
+        cur_vm = torch.where(hit, inv.task_vm2, sc.task_vm)
+    else:
+        vm_idx, vm_in, task_pes = inv.vm_idx, inv.vm_in, inv.task_pes
+        cur_vm = sc.task_vm
+    same_vm = cur_vm[:, :, None] == cur_vm[:, None, :]
+
+    def vm_counts(mask):
+        return _count_per(vm_idx, mask, V, vm_in).to(F32)
+
+    def oh(per_vm):
+        return _onehot_at(per_vm, vm_idx, vm_in)
+
+    if control:
+        # the control hook at the epoch's opening clock
+        pol_on = sc.control_policy == int(ControlPolicy.AUTOSCALE)
+        unfinished = valid & (c.finish >= _BIG / 2) & ~c.shed
+        qdepth = _count(unfinished & (c.start >= _BIG / 2) & (c.ready <= now))
+        busy_v = vm_counts(c.running) > 0.5
+        open_v = sc.vm_valid & (c.vm_open + sc.spinup_delay[:, None] <= now) \
+            & (now < c.vm_close)
+        n_open = _count(open_v)
+        busy_frac = _count(open_v & busy_v) / torch.clamp(n_open, min=1.0)
+        trigger = pol_on & (qdepth > sc.ctl_queue) & (busy_frac >= sc.ctl_busy)
+        reserve = sc.vm_valid & sc.vm_auto
+        unopened = reserve & (c.vm_open >= _BIG / 2)
+        vidx = torch.arange(V, dtype=I32, device=dev)
+        first = torch.where(unopened, vidx, V + 1).amin(dim=1)
+        open_mask = trigger[:, None] & unopened & (vidx == first[:, None])
+        close_mask = pol_on[:, None] & reserve & (c.vm_open < _BIG / 2) \
+            & (now < c.vm_close) & (vm_counts(unfinished) < 0.5)
+        now_v = now.expand_as(c.vm_open)
+        vm_open = torch.where(open_mask, now_v, c.vm_open)
+        vm_close = torch.where(close_mask, now_v, c.vm_close)
+        n_scale = c.n_scale + open_mask.sum(dim=1, dtype=I32) \
+            + close_mask.sum(dim=1, dtype=I32)
+        avail_t = oh(vm_open + sc.spinup_delay[:, None])
+        close_t = oh(vm_close)
+        mips_t = oh(sc.vm_mips)
+        dl_shed = (sc.deadline_policy == int(DeadlinePolicy.SHED))[:, None]
+        dl_boost = (sc.deadline_policy == int(DeadlinePolicy.BOOST))[:, None]
+        pre_on = ((sc.preempt != 0) & inv.is_space)[:, None]
+        res_on = (sc.preempt_resume != 0)[:, None]
+    else:
+        avail_t, close_t = inv.avail_t, inv.close_t
+
+    n_on_vm = vm_counts(c.running)
+    share = sc.vm_mips * torch.minimum(torch.ones_like(sc.vm_mips), sc.vm_pes
+                                       / torch.clamp(n_on_vm, min=1.0))
+    r = torch.where(c.running, oh(share), zt)
+    eta = torch.where(c.running, now + c.rem / torch.clamp(r, min=1e-30),
+                      big_t)
+    not_started = valid & ~c.running & (c.finish >= _BIG / 2) \
+        & (c.start >= _BIG / 2)
+    elig = torch.maximum(c.ready, avail_t)
+    if control:
+        def gate(x):
+            """Slide an instant inside its VM's down window to the restore
+            edge."""
+            return torch.where((x >= f_t) & (x < r_t), r_t, x)
+
+        elig = gate(elig)
+        cand_t = gate(torch.maximum(elig, now.expand_as(elig)))
+        evaluable = not_started & (elig < _BIG / 2)
+        shed_c = c.shed | (dl_shed & evaluable & (cand_t < close_t)
+                           & (earliest_finish(cand_t, c.rem, mips_t)
+                              > sc.task_deadline))
+    else:
+        cand_t = torch.maximum(elig, now.expand_as(elig))
+    has_slot = (task_pes - oh(n_on_vm)) > 0.5
+    if control:
+        # a pending task that strictly outranks an evictable running task
+        # on its VM defines an arrival even with no free slot
+        evictable = c.running & (c.n_evict < 2)
+        prey = same_vm & evictable[:, None, :] \
+            & (prio[:, :, None] > prio[:, None, :])
+        can_pre = pre_on & prey.any(dim=2)
+        arr = torch.where(not_started & ~shed_c
+                          & (~is_space | has_slot | can_pre)
+                          & (cand_t < close_t), cand_t, big_t)
+    else:
+        arr = torch.where(not_started & (~is_space | has_slot)
+                          & (cand_t < close_t), cand_t, big_t)
+    t_next = torch.minimum(eta.amin(dim=1), arr.amin(dim=1))
+    if control:
+        fail_ev = torch.where(sc.vm_valid & (sc.vm_fail > now), sc.vm_fail,
+                              torch.full_like(sc.vm_fail, _BIG))
+        t_next = torch.minimum(t_next, fail_ev.amin(dim=1))
+    live = t_next < _BIG / 2
+    tn = t_next[:, None]
+    # XLA:CPU fuses the reference's ``t_next + 1e-6 * max(t_next, 1)`` and
+    # ``rem - (t_next - time) * r`` into one FMA each: one rounding
+    thr = fma32(torch.full_like(t_next, _TIME_EPS),
+                torch.clamp(t_next, min=1.0), t_next)[:, None]
+    dt = (t_next - c.time)[:, None].expand_as(c.rem)
+    rem = torch.where(c.running, fma32(-dt, r, c.rem), c.rem)
+
+    # completions, then each job's map phase releases its reduces
+    done_now = live[:, None] & c.running & (eta <= thr)
+    finish = torch.where(done_now, tn.expand_as(c.finish), c.finish)
+    running = c.running & ~done_now
+    rem = torch.where(done_now, zt, rem)
+    maps_left = c.maps_left - _count_per(inv.job_idx, done_now & ~is_red, J)
+    phase_done = (maps_left == 0) & (c.maps_left > 0)
+    red_ready = torch.where(phase_done, tn + inv.shuffle,
+                            torch.full_like(inv.shuffle, _BIG))
+    ready = torch.where(is_red & _at(phase_done, inv.job_idx),
+                        _at(red_ready, inv.job_idx), c.ready)
+    start_base = c.start
+    if control:
+        # failure kills, after completions: the first hit moves the task to
+        # its failover slot and pays the re-replication fetch
+        fired = live[:, None] & (f_t > now) & (f_t <= tn)
+        affected = valid & fired & (finish >= _BIG / 2) & ~shed_c
+        first_hit = affected & ~hit
+        lost_fail = torch.where(affected, inv.task_len - rem, zt)
+        rem = torch.where(affected, inv.task_len, rem)
+        running = running & ~affected
+        start_base = torch.where(affected, big_t, start_base)
+        ready = torch.where(affected, torch.maximum(
+            ready, f_t + sc.redispatch_delay[:, None]), ready)
+        ready = torch.where(first_hit, ready + inv.refetch, ready)
+        hit = hit | first_hit
+
+    eligible = live[:, None] & not_started & (elig <= thr) & (tn < close_t)
+    done_v = vm_counts(done_now)
+    if control:
+        eligible = eligible & ~((tn >= f_t) & (tn < r_t))
+        # SHED again at the admission instant
+        efin_t = earliest_finish(tn.expand_as(c.rem), c.rem, mips_t)
+        shed_t = shed_c | (dl_shed & evaluable & (tn < close_t)
+                           & (efin_t > sc.task_deadline))
+        eligible = eligible & ~shed_t
+        # preemption: on each full space-shared VM the weakest evictable
+        # running task (lowest priority, latest index) loses its PE to an
+        # eligible task that strictly outranks it
+        vic_cand = pre_on & running & (c.n_evict < 2)
+        full = (task_pes - oh(n_on_vm - done_v)) <= 0.5
+        beats = same_vm & vic_cand[:, :, None] & eligible[:, None, :] \
+            & (prio[:, None, :] > prio[:, :, None])
+        cand_e = vic_cand & full & beats.any(dim=2)
+        weaker = same_vm & cand_e[:, None, :] & (
+            (prio[:, None, :] < prio[:, :, None])
+            | ((prio[:, None, :] == prio[:, :, None])
+               & earlier.transpose(1, 2)))
+        evicted = cand_e & ~weaker.any(dim=2)
+        restart = evicted & ~res_on
+        lost_evict = torch.where(restart, inv.task_len - rem, zt)
+        e_first = evicted & ~hit
+        rem = torch.where(restart, inv.task_len, rem)
+        running = running & ~evicted
+        start_base = torch.where(evicted, big_t, start_base)
+        ready = torch.where(evicted, torch.maximum(
+            ready, (tn + sc.redispatch_delay[:, None]).expand_as(ready)),
+            ready)
+        ready = torch.where(e_first, ready + inv.refetch, ready)
+        hit = hit | e_first
+        n_evict = c.n_evict + evicted.to(I32)
+        work_lost = c.work_lost + _sum(lost_fail) + _sum(lost_evict)
+        free_after = task_pes - oh(n_on_vm - done_v - vm_counts(evicted))
+        # BOOST: urgent pending tasks outrank every other task
+        urg = (dl_boost & evaluable
+               & (efin_t + sc.deadline_slack[:, None] >= sc.task_deadline)
+               ).to(F32)
+        ahead = _ahead(same_vm, prio, elig, earlier, urg)
+    else:
+        free_after = task_pes - oh(n_on_vm - done_v)
+        ahead = _ahead(same_vm, prio, elig, earlier)
+    rank = (ahead & eligible[:, None, :]).sum(dim=2, dtype=I32).to(F32)
+    start_now = eligible & (~is_space | (rank < free_after))
+    start = torch.where(start_now, tn.expand_as(start_base), start_base)
+    running = running | start_now
+    time = torch.where(live, t_next, c.time)
+    new = dict(time=time, rem=rem, running=running, start=start,
+               finish=finish, ready=ready, maps_left=maps_left)
+    if control:
+        # a job with a shed map can never finish its map phase: its
+        # pending reduces are shed too, so they end the lane
+        job_dead = _count_per(inv.job_idx, shed_t & ~is_red, J) > 0
+        shed = shed_t | (valid & is_red & _at(job_dead, inv.job_idx)
+                         & (finish >= _BIG / 2) & ~running)
+        new.update(hit=hit, vm_open=vm_open, vm_close=vm_close,
+                   n_scale=n_scale, shed=shed, n_evict=n_evict,
+                   work_lost=work_lost)
+    if trace:
+        if control:
+            new_shed = shed & ~c.shed
+            vals = (qdepth, busy_frac, n_open, _count(affected),
+                    _count(new_shed), _count(evicted))
+            tv = now.expand(N, V)
+            tt = tn.expand(N, T)
+            log = ((open_mask, tv, EV_SCALE_OPEN, None),
+                   (close_mask, tv, EV_SCALE_CLOSE, None),
+                   (done_now, tt, EV_FINISH, cur_vm),
+                   (affected, f_t, EV_KILL, cur_vm),
+                   (evicted, tt, EV_PREEMPT, cur_vm),
+                   (start_now, tt, EV_START, cur_vm),
+                   (new_shed, time[:, None].expand(N, T), EV_SHED, cur_vm))
+        else:
+            # the control hook's observables over the static lease windows
+            open_v = sc.vm_valid \
+                & (sc.vm_start + sc.spinup_delay[:, None] <= now) \
+                & (now < sc.vm_stop)
+            n_open = _count(open_v)
+            zero = torch.zeros_like(n_open)
+            vals = (_count(valid & (c.finish >= _BIG / 2)
+                           & (c.start >= _BIG / 2) & (c.ready <= now)),
+                    _count(open_v & (vm_counts(c.running) > 0.5))
+                    / torch.clamp(n_open, min=1.0), n_open, zero, zero, zero)
+            tt = tn.expand(N, T)
+            log = ((done_now, tt, EV_FINISH, cur_vm),
+                   (start_now, tt, EV_START, cur_vm))
+        _record(c, act, time, vals, log)
+    def keep(x, old):
+        """The new value on an active lane, the old one on a finished."""
+        return torch.where(act if x.dim() == 1 else act[:, None], x, old)
+
+    return c._replace(epoch=c.epoch + act.to(I32),
+                      **{k: keep(v, getattr(c, k)) for k, v in new.items()})
+
+
+def _record(c: _Carry, act, time, vals, log) -> None:
+    """Write one epoch's trace into the carry's buffers in place: each
+    active lane's time-series row at its epoch index, and its events at its
+    cursor in ``log`` order, ``(mask, t, kind, vm)`` per group (``vm=None``:
+    a per-VM group, whose task is -1).  A write that does not fit, or of an
+    inactive lane, lands in the spare row or column; ``ev_n`` counts every
+    event.  The reference adds rows through one-hot products: each slot is
+    written at most once, and ``+ 0.0`` gives the product's ``+0.0`` for a
+    ``-0.0``."""
+    N, C1, _ = c.ts.shape
+    E = c.ev_t.shape[1] - 1
+    row = torch.where(act & (c.epoch < C1 - 1), c.epoch,
+                      C1 - 1).long()[:, None, None].expand(N, 1, N_TS_COLS)
+    vals = torch.stack((time, *vals[:3], act.to(F32), *vals[3:]), dim=1)
+    c.ts.scatter_(1, row, vals[:, None, :] + 0.0)
+    mask = torch.cat([m for m, *_ in log], dim=1) & act[:, None]
+    dev = mask.device
+    t_all = torch.cat([t for _, t, _, _ in log], dim=1) + 0.0
+    kind = torch.cat([torch.full(m.shape, k, dtype=I32, device=dev)
+                      for m, _, k, _ in log], dim=1)
+    task = torch.cat([torch.full(m.shape, -1, dtype=I32, device=dev)
+                      if vm is None else
+                      torch.arange(m.shape[1], dtype=I32,
+                                   device=dev).expand(N, -1)
+                      for m, _, _, vm in log], dim=1)
+    vm = torch.cat([torch.arange(m.shape[1], dtype=I32,
+                                 device=dev).expand(N, -1)
+                    if v is None else v.to(I32) for m, _, _, v in log], dim=1)
+    mi = mask.to(I32)
+    pos = c.ev_n[:, None] + torch.cumsum(mi, dim=1, dtype=I32) - mi
+    slot = torch.where(mask & (pos < E), pos, E).long()
+    for buf, src in zip((c.ev_t, c.ev_kind, c.ev_task, c.ev_vm),
+                        (t_all, kind, task, vm)):
+        buf.scatter_(1, slot, src)
+    c.ev_n.add_(mi.sum(dim=1, dtype=I32))
+
+
+def _drive(sc: ScenarioArrays, inv: _EpochInv, c: _Carry, limit: int, *,
+           control: bool, trace: bool) -> _Carry:
+    """Step a batch up to ``limit`` epochs, or until no lane is active.
+    Whether any lane is, is the one value read back to the host: every
+    epoch on the CPU, every :data:`CHECK_EVERY_CUDA` epochs on the card."""
+    every = CHECK_EVERY_CUDA if c.rem.is_cuda else 1
+    act = _lane_active(sc, c, inv)
+    n = 0
+    while n < limit and bool(act.any()):
+        for _ in range(min(every, limit - n)):
+            c = _epoch_step(sc, inv, c, act, control=control, trace=trace)
+            act = _lane_active(sc, c, inv)
+            n += 1
+    return c
+
+
+def _engine_output(sc: ScenarioArrays, inv: _EpochInv, c: _Carry
+                   ) -> SimOutput:
+    """The :class:`SimOutput` of an engine-body carry."""
+    if c.hit is None:
+        task_vm2 = failover_targets(sc.task_vm, sc.vm_valid, sc.vm_auto,
+                                    sc.block_vm)
+        ctl = None
+    else:
+        task_vm2 = inv.task_vm2
+        ctl = (c.hit, c.vm_open, c.vm_close, c.n_scale, c.shed, c.n_evict,
+               c.work_lost)
+    return _sim_output(sc, c.start, c.finish, c.ready, c.epoch, task_vm2, ctl)
+
+
+def _engine_trace(c: _Carry) -> TraceBuffers:
+    """The trace buffers of an engine-body carry, spare slots dropped."""
+    return TraceBuffers(*(x[:, :-1].contiguous() for x in
+                          (c.ts, c.ev_t, c.ev_kind, c.ev_task, c.ev_vm)),
+                        ev_n=c.ev_n)
+
+
+def _lane_chunks(batch: ScenarioArrays):
+    """The batch cut into runs of lanes within :data:`LANE_BUDGET`."""
+    N, T = batch.task_valid.shape
+    step = max(1, LANE_BUDGET // max(T * T, 1))
+    if N <= step:
+        yield batch
+        return
+    for a in range(0, N, step):
+        yield ScenarioArrays(*(x[a:a + step] for x in batch))
+
+
+def _cat(parts: list, cls):
+    """Join the per-chunk NamedTuples of :func:`_lane_chunks` lane-wise."""
+    if len(parts) == 1:
+        return parts[0]
+    return cls(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def _engine_batch(batch: ScenarioArrays, *, control: bool, trace: bool,
+                  trace_events: int | None, run):
+    """Run the engine body over a batch, chunk by chunk: ``run(sub, inv,
+    c0, host_bound)`` steps one chunk's carry.  Returns ``(SimOutput,
+    TraceBuffers or None)``."""
+    T, V = batch.task_valid.shape[1], batch.vm_mips.shape[1]
+    caps = _trace_caps(T, V, control, trace, trace_events)
+    outs, traces = [], []
+    for sub in _lane_chunks(batch):
+        inv, c0 = _epoch_setup(sub, control=control, trace=caps)
+        host_bound = int(inv.bound.max()) if sub.task_valid.shape[0] else 0
+        c = run(sub, inv, c0, host_bound)
+        outs.append(_engine_output(sub, inv, c))
+        if trace:
+            traces.append(_engine_trace(c))
+    return _cat(outs, SimOutput), (_cat(traces, TraceBuffers) if trace
+                                   else None)
+
+
+def simulate_arrays(batch: ScenarioArrays, *, control: bool | None = None,
+                    trace: bool = False, trace_events: int | None = None):
+    """Run a batch through the engine's own epoch body, each lane to its
+    own end: the reference's per-lane ``simulate_arrays`` under ``vmap``,
+    for any number of jobs per lane.
+
+    ``control`` picks the closed-loop lowering (default: whether the batch
+    encodes any closed-loop input).  A lane stops when no valid task is
+    unfinished (shed tasks aside) or at its epoch bound (``2T + 2`` open
+    loop, :func:`_lane_bound` under control).  Returns the
+    :class:`SimOutput`; under ``trace=True`` ``(SimOutput,
+    TraceBuffers)``, with ``trace_events`` event rows per lane (default:
+    the worst case).  The traced schedule is bitwise the untraced one.
+    Batches are stepped in runs of lanes within :data:`LANE_BUDGET`;
+    lanes are independent, so the cut changes no bit.
+    """
+    if control is None:
+        control = _control_active(batch)
+    out, buffers = _engine_batch(
+        batch, control=control, trace=trace, trace_events=trace_events,
+        run=lambda sc, inv, c, n: _drive(sc, inv, c, n, control=control,
+                                         trace=trace))
+    return (out, buffers) if trace else out
+
+
+def _engine_compact(batch: ScenarioArrays, *, k: int, floor: int,
+                    control: bool, trace: bool, trace_events, stats: dict,
+                    donate: bool, legacy: bool):
+    """:func:`simulate_arrays` through the compaction loop of
+    ``kernels.mr_sched.ops`` (the reference's ``_step_epoch_chunk`` and
+    its host loops): the working set steps ``k`` epochs at a time, and the
+    still-active lanes are gathered into a smaller one whenever it halves.
+    Returns ``(SimOutput, TraceBuffers or None)``."""
+    from ..kernels.mr_sched.ops import _compact_loop_lean, _compact_loop_legacy
+    nb = len(ScenarioArrays._fields)
+    f = _Carry._fields
+    i_fin, i_shed, i_ep = f.index("finish"), f.index("shed"), f.index("epoch")
+    i_valid = ScenarioArrays._fields.index("task_valid")
+
+    def args(data, state, bound):
+        return (data[i_valid], state[i_fin],
+                state[i_shed] if control else None, state[i_ep][:, None],
+                bound)
+
+    def chunk(data, state, limit):
+        stats["dispatches"] += 1
+        return tuple(_drive(ScenarioArrays(*data[:nb]),
+                            _EpochInv(*data[nb:]), _Carry(*state), limit,
+                            control=control, trace=trace))
+
+    def run(sc, inv, c0, host_bound):
+        loop = _compact_loop_legacy if legacy else _compact_loop_lean
+        st = loop(tuple(sc) + tuple(inv), tuple(c0), inv.bound,
+                  sc.task_valid.shape[0], host_bound, k, floor, args, chunk,
+                  stats, donate, sc.task_valid.device)
+        return _Carry(*st)
+
+    return _engine_batch(batch, control=control, trace=trace,
+                         trace_events=trace_events, run=run)
+
+
+def _wants_engine(batch: ScenarioArrays, backend: str | None) -> bool:
+    """Whether a batch steps through the engine body: it has more than one
+    job column, or the caller asks for ``backend="engine"``."""
+    return backend == "engine" or batch.job_length.shape[1] != 1
+
+
 def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
                           backend: str | None = None,
                           max_pes: int | None = None, trace: bool = False,
                           trace_events: int | None = None):
-    """Step a batch of single-job scenarios to completion.
+    """Step a batch of scenarios to completion.
 
-    The epoch loop runs in the ``mr_epoch`` kernel
+    Single-job batches run their epoch loop in the ``mr_epoch`` kernel
     (``kernels.mr_sched.epoch_schedule``): ``backend="cuda"`` launches the
     CUDA kernel (tensors on the card), ``"torch"`` runs its plain version;
-    ``None`` picks by the batch's device.  ``control`` picks the
+    ``None`` picks by the batch's device.  A batch with more than one job
+    column, or any batch under ``backend="engine"``, steps through the
+    engine's own epoch body (:func:`simulate_arrays`, plain tensor ops on
+    the batch's device; ``max_pes`` does not apply).  ``control`` picks the
     closed-loop lowering (default: whether the batch encodes any
     closed-loop input, :func:`_control_active`).  Returns ``(SimOutput,
     realized_epochs)``, the latter the batch's largest per-lane count.
 
-    ``trace=True`` runs the trace instantiation and returns ``(SimOutput,
+    ``trace=True`` runs the trace lowering and returns ``(SimOutput,
     realized_epochs, TraceBuffers)``: the per-epoch time series and the
     event log of every lane, ``trace_events`` rows each (default: the
     worst case, so none is dropped).  The schedule is bitwise the untraced
@@ -545,7 +1208,11 @@ def simulate_batch_arrays(batch: ScenarioArrays, *, control: bool | None = None,
     from ..kernels.mr_sched.ops import epoch_trace, epoch_schedule
     if control is None:
         control = _control_active(batch)
-    if trace:
+    if _wants_engine(batch, backend):
+        res = simulate_arrays(batch, control=control, trace=trace,
+                              trace_events=trace_events)
+        out, buffers = res if trace else (res, None)
+    elif trace:
         out, buffers = epoch_trace(batch, backend=backend, max_pes=max_pes,
                                    control=control,
                                    trace_events=trace_events)
@@ -589,13 +1256,16 @@ def simulate_batch_arrays_compact(
     (DESIGN.md §9).
 
     Every ``k`` epochs the still-active lanes are gathered into a
-    power-of-two working set (at least ``floor`` lanes) and the kernel
+    power-of-two working set (at least ``floor`` lanes) and stepping
     resumes on those alone, so a batch whose tail is 40 lanes steps 64,
-    not 2048 (``kernels.mr_sched.ops.epoch_schedule_compact``).  Each lane
-    runs to its own end by its own data, so the result is the dense run's
-    bit for bit, per-lane ``n_epochs`` and ``realized_epochs`` included.
-    ``k="auto"`` takes the interval from the cost model (``cost_model``,
-    default :func:`costmodel.default_cost_model` of the batch's device).
+    not 2048: through the resumable ``mr_epoch`` kernel
+    (``kernels.mr_sched.ops.epoch_schedule_compact``), or through the
+    engine body for a batch with more than one job column or under
+    ``backend="engine"``.  Each lane runs to its own end by its own data,
+    so the result is the dense run's bit for bit, per-lane ``n_epochs``
+    and ``realized_epochs`` included.  ``k="auto"`` takes the interval
+    from the cost model (``cost_model``, default
+    :func:`costmodel.default_cost_model` of the batch's device).
 
     Returns ``(SimOutput, realized_epochs)``, or under ``trace=True``
     ``(SimOutput, realized_epochs, TraceBuffers)`` with ``trace_events``
@@ -606,18 +1276,32 @@ def simulate_batch_arrays_compact(
     activity mask crosses to the host every round, the lanes are ordered
     there, and the store is never updated in place.
     """
-    from ..kernels.mr_sched.ops import _compact
+    from ..kernels.mr_sched.ops import _compact, _compact_interval
     if control is None:
         control = _control_active(batch)
-    out, st = _compact(
-        batch, k=k, backend=backend, max_pes=max_pes, floor=floor,
-        cost_model=cost_model, control=control, trace=trace,
-        trace_events=trace_events, stats=stats, donate=donate,
-        legacy=legacy, device=None, what="simulate_batch_arrays_compact")
+    if _wants_engine(batch, backend):
+        if stats is None:
+            stats = {}
+        for key in ("syncs", "scalar_syncs", "compactions", "dispatches"):
+            stats.setdefault(key, 0)
+        validate_pow2_floor(floor)
+        N, T = batch.task_valid.shape
+        k = _compact_interval(k, cost_model, N, T, batch.task_vm.device,
+                              "simulate_batch_arrays_compact")
+        out, buffers = _engine_compact(
+            batch, k=k, floor=floor, control=control, trace=trace,
+            trace_events=trace_events, stats=stats, donate=donate,
+            legacy=legacy)
+    else:
+        out, st = _compact(
+            batch, k=k, backend=backend, max_pes=max_pes, floor=floor,
+            cost_model=cost_model, control=control, trace=trace,
+            trace_events=trace_events, stats=stats, donate=donate,
+            legacy=legacy, device=None, what="simulate_batch_arrays_compact")
+        if trace:
+            buffers = _trace_of(st[-len(TraceBuffers._fields):])
     realized = int(out.n_epochs.max()) if out.n_epochs.numel() else 0
-    if trace:
-        return out, realized, _trace_of(st[-len(TraceBuffers._fields):])
-    return out, realized
+    return (out, realized, buffers) if trace else (out, realized)
 
 
 def job_metrics(sc: ScenarioArrays, out: SimOutput) -> JobMetrics:
@@ -761,13 +1445,9 @@ def scenario_metrics(sc: ScenarioArrays, out: SimOutput) -> ScenarioMetrics:
 def simulate(sc: Scenario, *, device="cuda") -> JobMetrics:
     """Convenience single-scenario entry point (returns ``[1, J]``
     tensors); a scenario with a closed-loop model (``sc.control``, reserve
-    VMs, deadlines) runs the control lowering.  The kernel steps
-    single-job scenarios; multi-job scenarios need the engine formulation
-    of ROADMAP slice A2."""
-    if len(sc.jobs) != 1:
-        raise NotImplementedError(
-            "simulate: multi-job scenarios need the engine epoch body "
-            "(ROADMAP slice A2); the mr_epoch kernel steps one job per lane")
+    VMs, deadlines) runs the control lowering.  A single-job scenario
+    steps through the ``mr_epoch`` kernel, a multi-job one through the
+    engine body."""
     enc = from_scenario(sc)
     batch = scenario_arrays_from_numpy(
         {k: np.asarray(v)[None] for k, v in enc.items()}, device=device)

@@ -42,7 +42,8 @@ from .control import failure_times as _failure_times
 from .elasticity import ElasticitySpec, as_arrival_process
 from .engine import (_BIG, JobMetrics, ScenarioArrays, ScenarioMetrics,
                      bind_tasks, from_scenario, job_metrics,
-                     scenario_arrays_from_numpy, scenario_metrics)
+                     scenario_arrays_from_numpy, scenario_metrics,
+                     simulate_batch_arrays)
 from .storage import Placement, StorageSpec, as_placement
 from .util import pow2_pad, pow2_pads
 
@@ -55,17 +56,30 @@ F32, I32 = torch.float32, torch.int32
 # Host-side batch builder
 # ---------------------------------------------------------------------------
 
-def stack_scenarios(scenarios: Sequence, device="cuda") -> ScenarioArrays:
+def stack_scenarios(scenarios: Sequence, device="cuda", *,
+                    pad_tasks: int | None = None, pad_jobs: int | None = None,
+                    pad_vms: int | None = None) -> ScenarioArrays:
     """Encode and stack :class:`~repro_torch.core.config.Scenario` objects
-    with shared padding into one batch (leading lane dimension)."""
-    T = max(s.total_tasks() for s in scenarios)
-    J = max(len(s.jobs) for s in scenarios)
-    V = max(len(s.vms) for s in scenarios)
+    with shared padding into one batch (leading lane dimension): the
+    largest task, job and VM counts of the batch, or the ``pad_*`` given
+    (a scenario above one raises ``ValueError``)."""
+    T = pad_tasks or max(s.total_tasks() for s in scenarios)
+    J = pad_jobs or max(len(s.jobs) for s in scenarios)
+    V = pad_vms or max(len(s.vms) for s in scenarios)
     encoded = [from_scenario(s, pad_tasks=T, pad_jobs=J, pad_vms=V)
                for s in scenarios]
     return scenario_arrays_from_numpy(
         {f: np.stack([np.asarray(e[f]) for e in encoded])
          for f in ScenarioArrays._fields}, device=device)
+
+
+def simulate_batch(batch: ScenarioArrays) -> JobMetrics:
+    """Per-job metrics ``[N, J]`` of a stacked batch, each lane stepped to
+    its own end on the batch's device: the ``mr_epoch`` kernel for
+    single-job batches, the engine body for multi-job ones
+    (``engine.simulate_batch_arrays``)."""
+    out, _ = simulate_batch_arrays(batch)
+    return job_metrics(batch, out)
 
 
 # ---------------------------------------------------------------------------

@@ -377,17 +377,11 @@ class RunReport:
 
 def trace_scenario(scenario, spec: TraceSpec | None = None,
                    label: str = "trace", device="cuda"):
-    """Run one single-job :class:`~repro_torch.core.config.Scenario` with
-    tracing on, as a batch of one; returns ``(SimOutput, TraceResult)``.
-
-    Multi-job scenarios need the engine's own epoch body (ROADMAP slice
-    A2) and raise ``NotImplementedError``."""
+    """Run one :class:`~repro_torch.core.config.Scenario` with tracing
+    on, as a batch of one; returns ``(SimOutput, TraceResult)``.  A
+    single-job scenario steps through the ``mr_epoch`` kernel's trace
+    build, a multi-job one through the engine body's trace lowering."""
     from . import engine
-    if len(scenario.jobs) != 1:
-        raise NotImplementedError(
-            "trace_scenario: multi-job scenarios need the engine epoch "
-            "body (ROADMAP slice A2); the mr_epoch kernel steps one job per "
-            "lane")
     enc = engine.from_scenario(scenario)
     batch = engine.scenario_arrays_from_numpy(
         {k: np.asarray(v)[None] for k, v in enc.items()}, device=device)

@@ -21,9 +21,9 @@ import torch
 
 from ...core import network, storage
 from ...core.control import DeadlinePolicy, failover_targets
-from ...core.engine import (ScenarioArrays, SimOutput, _lane_bound,
-                            _put_lanes, _put_lanes_donated, _sim_output,
-                            _take_lanes, _trace_caps, _trace_of)
+from ...core.engine import (ScenarioArrays, SimOutput, _active_lanes,
+                            _lane_bound, _put_lanes, _put_lanes_donated,
+                            _sim_output, _take_lanes, _trace_caps, _trace_of)
 from ...core.telemetry import TraceBuffers
 from ...core.util import pow2_pad, validate_pow2_floor
 from .kernel import mr_schedule, mr_schedule_plain
@@ -240,20 +240,6 @@ def epoch_trace(batch: ScenarioArrays, *, backend: str | None = None,
 # Active-lane compaction (DESIGN.md §9)
 # ---------------------------------------------------------------------------
 
-def _active_lanes(valid, finish, shed=None, n_epochs=None, bound=None):
-    """The lanes the kernel would still step (bool ``[N]``): a valid task
-    is unfinished, not counting shed tasks (``shed``, the control carry's
-    leaf: they never finish), and under control (``bound``) the lane's
-    ``n_epochs`` is below its own epoch bound."""
-    unfin = (valid != 0) & (finish >= _BIG / 2)
-    if shed is not None:
-        unfin &= shed == 0
-    act = unfin.any(dim=1)
-    if bound is not None:
-        act &= n_epochs[:, 0] < bound
-    return act
-
-
 def _state_activity(valid, finish, shed=None, n_epochs=None, bound=None):
     """The still-active lane count (a 0-d device tensor: the one scalar a
     round pulls) and the stable active-first order of the lanes (pulled
@@ -278,6 +264,19 @@ def _host_bound(batch: ScenarioArrays, control: bool) -> int:
         if bool((batch.preempt != 0).any()):
             bound += 2 * T
     return bound
+
+
+def _compact_interval(k, cost_model, N: int, T: int, dev, what: str) -> int:
+    """The compaction interval: ``k`` itself, or under ``"auto"`` the cost
+    model's (``cost_model``, default the device's measured one)."""
+    if k == "auto":
+        from ...core import costmodel as costmodel_mod
+        cm = cost_model or costmodel_mod.default_cost_model(device=dev)
+        k = cm.compact_interval(N, T)
+    if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
+        raise ValueError(f"{what}: k must be an int >= 1 or 'auto', got "
+                         f"{k!r}")
+    return int(k)
 
 
 def _compact(batch: ScenarioArrays, *, k, backend, max_pes, floor: int,
@@ -310,14 +309,7 @@ def _compact(batch: ScenarioArrays, *, k, backend, max_pes, floor: int,
     N, T = batch.task_vm.shape
     dev = batch.task_vm.device
     bound = _host_bound(batch, control)
-    if k == "auto":
-        from ...core import costmodel as costmodel_mod
-        cm = cost_model or costmodel_mod.default_cost_model(device=dev)
-        k = cm.compact_interval(N, T)
-    if isinstance(k, bool) or not isinstance(k, (int, np.integer)) or k < 1:
-        raise ValueError(f"{what}: k must be an int >= 1 or 'auto', got "
-                         f"{k!r}")
-    k = int(k)
+    k = _compact_interval(k, cost_model, N, T, dev, what)
     state = _initial(batch, lanes, control, trace, trace_events)
     # ready0 (lane data 2) only seeds the t=0 carry: chunks resume
     data = lanes[:2] + lanes[3:]

@@ -447,26 +447,29 @@ def test_lane_result_does_not_depend_on_batch_mates():
     """ROADMAP C6: under control a finished lane is not a fixed point of
     the reference's epoch body, so its batched engine gives the short lane
     another ``vm_close``/``n_scale`` when a long lane shares its batch.
-    The port stops each lane at its own end: alone or paired, the short
-    lane is the reference's per-lane ``simulate_arrays``."""
+    The port stops each lane at its own end, in the kernel and in the
+    engine body: alone or paired, the short lane is the reference's
+    per-lane ``simulate_arrays``."""
     short_j, long_j = _c6_scenarios()
     enc = [jengine.from_scenario(s, pad_tasks=16) for s in (short_j, long_j)]
     want = jengine.simulate_arrays(enc[0], control=True)
     assert np.asarray(want.vm_close)[2] == np.float32(1e30)
     assert int(want.n_scale) == 3
 
-    def port(encs):
+    def port(encs, backend):
         d = {k: np.stack([np.asarray(getattr(e, k)) for e in encs])
              for k in jengine.ScenarioArrays._fields}
         batch = tengine.scenario_arrays_from_numpy(d, device="cpu")
-        out, _ = tengine.simulate_batch_arrays(batch)
+        out, _ = tengine.simulate_batch_arrays(batch, backend=backend)
         return {k: v[0].numpy() for k, v in out._asdict().items()}
 
-    alone, paired = port(enc[:1]), port(enc)
-    for k in alone:
-        np.testing.assert_array_equal(_bits(paired[k]), _bits(alone[k]),
-                                      err_msg=k)
-        _assert_metric(getattr(want, k), alone[k], k, "C6")
+    # the mr_epoch kernel's plain version, then the engine body
+    for backend in (None, "engine"):
+        alone, paired = port(enc[:1], backend), port(enc, backend)
+        for k in alone:
+            np.testing.assert_array_equal(_bits(paired[k]), _bits(alone[k]),
+                                          err_msg=f"{backend}: {k}")
+            _assert_metric(getattr(want, k), alone[k], k, f"C6 {backend}")
     # the reference's batched engine is the fault the port does not copy
     both = jax.tree.map(lambda *x: np.stack(x), *enc)
     batched, _ = jengine.simulate_batch_arrays(both, control=True)

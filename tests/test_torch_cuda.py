@@ -16,7 +16,9 @@ card.  The LM kernels (``flash_attention``, ``wkv6``) are
 held against their plain versions (flash: float32 at 2e-6, summation
 order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6's y at
 1e-4 and its final state bitwise), and the reduced yi-6b and rwkv6-3b
-serving paths on the card against the same paths on the CPU.
+serving paths on the card against the same paths on the CPU.  The engine
+body (multi-job lanes) runs on the card bit for bit as on the CPU, and as
+``mr_epoch`` on single-job lanes.
 """
 import numpy as np
 import pytest
@@ -418,6 +420,47 @@ def test_traced_driver_on_card_matches_cpu():
     for f, a, b in zip(out._fields, out, c_out):
         assert torch.equal(_bits(a.cpu()), _bits(b)), f
     assert int((buf.ev_kind == 2).sum()) > 0          # kills were logged
+
+
+def _same(a, b, what):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x.cpu(), y.cpu()), f"{what}: {f}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", [False, True], ids=["open", "control"])
+def test_engine_body_on_card_matches_cpu_and_mr_epoch(control):
+    """The engine body (no kernel: plain tensor ops) on the card: multi-job
+    lanes bitwise the same body on the CPU, traced too; single-job lanes
+    bitwise the ``mr_epoch`` kernel."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    import repro_torch.core as core
+    dev = _card()
+    scs = chip_smoke.multijob_scenarios(core, 256, 5, control=control,
+                                        max_maps=6, vms=(2, 8))
+    tb = sweep.stack_scenarios(scs, device="cpu", pad_tasks=40, pad_vms=8)
+    cpu = engine.simulate_batch_arrays(tb, trace=True)
+    before = megakernel.total_launches()
+    card = engine.simulate_batch_arrays(
+        engine.ScenarioArrays(*(x.to(dev) for x in tb)), trace=True)
+    assert megakernel.total_launches() == before
+    _same(cpu[0], card[0], "SimOutput")
+    _same(cpu[2], card[2], "trace")
+    assert cpu[1] == card[1]
+    one = engine.ScenarioArrays(*(x.to(dev) for x in sweep.stack_scenarios(
+        [s.replace(jobs=s.jobs[:1]) for s in scs], device="cpu",
+        pad_tasks=16, pad_vms=8)))
+    kern, rk = engine.simulate_batch_arrays(one, control=control)
+    body, rb = engine.simulate_batch_arrays(one, control=control,
+                                            backend="engine")
+    _same(kern, body, "single-job lanes")
+    assert rk == rb
 
 
 @pytest.mark.cuda

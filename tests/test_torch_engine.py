@@ -316,9 +316,16 @@ def test_from_scenario_and_simulate_match_reference(i):
 
 
 def test_simulate_rejects_what_later_slices_bring():
-    multi = tconfig.Scenario(jobs=(tconfig.JOB_SMALL, tconfig.JOB_SMALL))
-    with pytest.raises(NotImplementedError, match="A2"):
-        tengine.simulate(multi, device="cpu")
+    # a two-job scenario is no longer refused: it steps through the engine
+    # body and matches the reference's engine
+    multi = jconfig.Scenario(jobs=(jconfig.JOB_SMALL, dataclasses.replace(
+        jconfig.JOB_SMALL, n_maps=3, submit_time=600.0)))
+    jm_want = jengine.simulate(multi)
+    jm_got = tengine.simulate(_scenario_pair(multi), device="cpu")
+    assert jm_got.makespan.shape == (1, 2)
+    assert_metrics_match({k: np.asarray(v)[None] for k, v in
+                          jm_want._asdict().items()},
+                         tengine.to_numpy(jm_got), "two jobs")
     # a closed-loop scenario (seeded failures, an AUTOSCALE reserve) is no
     # longer refused: it runs the control lowering, as the reference does
     vms = (jconfig.VM_SMALL, jconfig.VM_SMALL,

@@ -9,14 +9,16 @@
   (``pyarrow`` is optional: those tests skip without it).
 * ``SweepPlan.run(report=True)`` changes no metric and its counts add up;
   ``stack_scenarios`` encodes as the reference; ``trace_scenario`` of a
-  multi-job scenario raises (it needs ROADMAP A2).
+  multi-job scenario (the engine body) equals the reference's.
 """
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
 
+from repro.core import config as jconfig
 from repro.core import sweep as jsweep
 from repro.core import telemetry as jtel
 from repro_torch.core import config as tconfig
@@ -27,7 +29,8 @@ from repro_torch.core import sweep as tsweep
 from repro_torch.core import telemetry as ttel
 from repro_torch.kernels.mr_sched import megakernel as tmk
 
-from test_torch_trace import _scenarios
+from test_torch_engine import _scenario_pair
+from test_torch_trace import _bits, _scenarios
 from torch_costpin import pinned_cost_cache  # noqa: F401  (autouse)
 
 
@@ -202,11 +205,23 @@ def test_stack_scenarios_matches_reference():
                                       np.float32 else a, err_msg=f)
 
 
-def test_trace_scenario_multi_job_raises():
-    jobs = (tconfig.JOB_SMALL, tconfig.JOB_SMALL)
-    sc = tconfig.Scenario(vms=(tconfig.VM_SMALL,) * 2, jobs=jobs)
-    with pytest.raises(NotImplementedError, match="A2"):
-        ttel.trace_scenario(sc, device="cpu")
+def test_trace_scenario_multi_job_matches_reference():
+    """A two-job trace steps through the engine body and equals the
+    reference's, buffers and schedule; the single-job path still runs."""
+    jobs = (jconfig.JOB_SMALL, dataclasses.replace(
+        jconfig.JOB_SMALL, n_maps=2, submit_time=300.0))
+    sc = jconfig.Scenario(vms=(jconfig.VM_SMALL,) * 2, jobs=jobs)
+    want_out, want = jtel.trace_scenario(sc)
+    got_out, got = ttel.trace_scenario(_scenario_pair(sc), device="cpu")
+    for f in want_out._fields:
+        np.testing.assert_array_equal(
+            _bits(getattr(got_out, f).numpy()[0]),
+            _bits(np.asarray(getattr(want_out, f))), err_msg=f)
+    for f in ttel.TraceBuffers._fields:
+        np.testing.assert_array_equal(_bits(getattr(got, f)),
+                                      _bits(getattr(want, f)), err_msg=f)
+    assert got.counts_by_kind(0) == want.counts_by_kind(0)
+    assert got.counts_by_kind(0)["start"] == sc.total_tasks()
     out, tr = _failure_trace()
     assert tr.n_lanes == 1 and int(tr.dropped_events[0]) == 0
     assert out.finish.shape[0] == 1
