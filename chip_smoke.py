@@ -144,6 +144,30 @@ each printing one line of numbers:
               ms per epoch and the card's busy share of a profiled window;
               recorded, not claimed.
 
+15. oracle — the port's sequential oracle ``refsim`` (host numpy, no
+              device) against the card: (a) Table IV exactly at 3, 6 and 9
+              VMs, and the paper's Group 1-4 grids through ``SweepPlan.run``
+              (the ``mr_epoch`` kernel) against ``refsim`` at rtol 2e-4,
+              each group's stated shape on the card's numbers; (b) 1,024
+              seeded single-job ``Scenario``s (``oracle_scenarios``: every
+              sched/binding pair, storage, lease windows, and a closed-loop
+              quarter with failures, AUTOSCALE, SHED/BOOST deadlines,
+              preemption) stacked by ``sweep.stack_scenarios`` and stepped
+              by ``mr_epoch`` (open and control), traced and untraced;
+              (c) the first 512 open and 512 closed phase-14 scenarios
+              through the engine body; both held lane by lane against
+              ``refsim`` (``oracle_diff``: unfinished and shed sets equal,
+              times and the paper's metrics at rtol 2e-4, atol 1e-2, the
+              closed loop's counts and the traced event counts by kind
+              exact), the lanes that differ exactly those on which the JAX
+              package's own engine and refsim differ (ROADMAP C10); (d)
+              ``workload.step_scenario`` at 256 devices (T = 257 on 256
+              VMs) through ``mr_epoch`` against ``refsim``, and
+              ``simulate_training``'s goodput at 256 devices, sigma 0.2,
+              an MTBF; (e) ``streaming.analyze_batch`` on 65,536
+              smart-city topologies and 16,384 seeded 32-operator DAGs on
+              the card, bitwise the CPU's run, topologies/s.
+
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
 ``mr_schedule`` against their plain versions, bitwise, and runs the engine
@@ -192,6 +216,33 @@ ENGINE_DISTINCT = 4096
 ENGINE_SHAPE = (64, 4, 16)  # (T, J, V) padding of the phase-14 batches
 ENGINE_CPU = 2048        # distinct lanes of each batch re-run on the CPU
 ENGINE_PROFILED = 64     # epochs of each batch run under torch.profiler
+ORACLE_N = 1024          # phase 15 (b): seeded single-job scenarios
+ORACLE_SEED = 16
+ORACLE_MULTIJOB = 512    # phase 15 (c): the first phase-14 scenarios
+# lanes on which the JAX package's own engine and refsim differ (ROADMAP
+# C10), pinned against it on the CPU by tests/test_torch_refsim.py: of the
+# phase 15 (b) set, and of the closed-loop multi-job set of (c); the open
+# loops differ nowhere
+ORACLE_DIVERGENT = (775, 807, 836, 895, 903, 988, 1013)
+ORACLE_DIVERGENT_MULTIJOB = (
+    6, 7, 10, 12, 15, 18, 26, 30, 35, 56, 73, 75, 77, 78, 97, 98, 99, 108,
+    109, 114, 127, 136, 137, 148, 150, 154, 156, 163, 165, 169, 170, 173,
+    180, 182, 183, 188, 193, 197, 200, 204, 209, 211, 212, 213, 214, 219,
+    234, 240, 242, 247, 250, 260, 264, 277, 283, 288, 292, 294, 296, 300,
+    302, 305, 311, 315, 316, 317, 330, 346, 348, 349, 357, 362, 368, 378,
+    381, 383, 388, 397, 400, 402, 407, 409, 414, 418, 423, 428, 436, 440,
+    445, 446, 447, 458, 460, 475, 480, 493, 497, 502, 510)
+PAPER_M = range(1, 21)   # the paper's MapReduce combinations M1R1..M20R1
+TABLE_IV = {             # the paper's Table IV network cost per M
+    1: 2125.0, 2: 1416.667, 3: 1062.5, 4: 850.0, 5: 708.333, 6: 607.143,
+    7: 531.25, 8: 472.222, 9: 425.0, 10: 386.364, 11: 354.167, 12: 326.923,
+    13: 303.571, 14: 283.333, 15: 265.625, 16: 250.0, 17: 236.111,
+    18: 223.684, 19: 212.5, 20: 202.381,
+}
+TRAIN_COST = dict(flops=1e14, hbm_bytes=1e11, collective_bytes=1e9)
+TRAIN_DEVICES = 256      # phase 15 (d): one lane of 257 tasks on 256 VMs
+TRAIN_MTBF_HOURS = 1000.0
+STREAM_DAGS = 16384      # phase 15 (e): seeded 32-operator DAGs
 KINDS = ("mixed_policies", "locality", "elastic", "tailheavy")
 CONTROL_KINDS = ("control", "deadline", "reserves", "failover_locality")
 CONTROL_RATE = 0.0005       # per-VM failure rate of the closed-loop kinds
@@ -483,6 +534,184 @@ def multijob_scenarios(core, n, seed, **kw):
     return [multijob_scenario(core, rng, **kw) for _ in range(n)]
 
 
+ORACLE_KINDS = ("policies", "storage", "elastic", "control")
+ORACLE_RTOL, ORACLE_ATOL = 2e-4, 1e-2    # the reference's oracle tolerance
+ORACLE_FIELDS = ("avg_exec", "max_exec", "min_exec", "makespan",
+                 "delay_time", "vm_cost", "network_cost", "map_avg_exec",
+                 "reduce_avg_exec")
+ORACLE_COUNTS = ("failures_injected", "tasks_redispatched", "scale_events",
+                 "shed_tasks", "preemptions")
+
+
+def oracle_scenario(core, rng, kind, pair):
+    """One seeded single-job scenario of phase 15's oracle set, from
+    ``core``'s config classes (``repro.core`` or ``repro_torch.core``, the
+    same draws).  ``pair`` indexes the 2 x 4 (sched, binding) policy
+    pairs; ``kind`` is one of :data:`ORACLE_KINDS`:
+
+    * ``policies`` — a mixed fleet of 1-8 VMs of the paper's three types,
+      one job of Table III's sizes with 1-20 maps and 1-3 reduces, network
+      delay on or off, submitted at 0 or 500 s (the JAX package's
+      ``tests/test_engine_vs_refsim.py`` seeded sweep, widened);
+    * ``storage`` — the block store on, replication 1-3, skewed or uniform
+      placement, block sizes 1-8 GB (``tests/test_storage.py``);
+    * ``elastic`` — lease windows starting at 0, 400 or 1500 s, some
+      closing early enough to strand work, spin-up 0 or 90 s, billing by
+      the second or the hour (``tests/test_elasticity.py``);
+    * ``control`` — the closed loop: seeded VM failures with repair and
+      re-dispatch, AUTOSCALE reserves, SHED or BOOST deadlines on a
+      contended fleet of 1-PE VMs, preemption armed
+      (``tests/test_control.py``, ``tests/test_deadlines.py``).
+    """
+    sp, bp = divmod(pair % 8, 4)
+    n_vms = int(rng.integers(1, 9))
+    fleet = [core.VM_TYPES[MJ_VM_KINDS[int(rng.integers(0, 3))]]
+             for _ in range(n_vms)]
+    base = getattr(core, MJ_JOB_KINDS[int(rng.integers(0, 3))])
+    job = dataclasses.replace(
+        base, n_maps=int(rng.integers(1, 21)),
+        n_reduces=int(rng.integers(1, 4)),
+        submit_time=float(rng.choice([0.0, 0.0, 500.0])))
+    kw = dict(sched_policy=core.SchedPolicy(sp),
+              binding_policy=core.BindingPolicy(bp),
+              network=core.NetworkSpec(enabled=bool(rng.random() < 0.8)))
+    if kind == "storage":
+        kw["storage"] = core.StorageSpec(
+            enabled=True,
+            block_size_mb=float(rng.choice([1024.0, 2048.0, 4096.0,
+                                            8192.0])),
+            replication=int(rng.integers(1, 4)),
+            placement=core.Placement(int(rng.random() < 0.7)),
+            seed=int(rng.integers(0, 2**31)))
+    elif kind == "elastic":
+        for v in range(n_vms):
+            start = float(rng.choice([0.0, 400.0, 1500.0]))
+            stop = float(rng.choice([start + 30000.0, math.inf,
+                                     start + float(rng.uniform(600.0,
+                                                               4000.0))]))
+            fleet[v] = dataclasses.replace(fleet[v], lease_start=start,
+                                           lease_stop=stop)
+        kw["elasticity"] = core.ElasticitySpec(
+            spinup_delay=float(rng.choice([0.0, 90.0])),
+            billing_granularity=float(rng.choice([1.0, 3600.0])))
+    elif kind == "control":
+        mech = int(rng.integers(0, 3))
+        ctl = dict(failure_rate=float(rng.choice([0.0, 5e-4, 2e-3])),
+                   failure_seed=int(rng.integers(0, 2**31)),
+                   repair_delay=float(rng.choice([300.0, 900.0])),
+                   redispatch_delay=float(rng.choice([0.0, 5.0])),
+                   preempt=bool(rng.random() < 0.5),
+                   preempt_resume=bool(rng.random() < 0.5))
+        if mech == 0:                          # failures
+            ctl["failure_rate"] = float(rng.choice([5e-4, 1e-3, 2e-3]))
+        elif mech == 1:                        # AUTOSCALE reserves
+            n_res = int(rng.integers(1, 3))
+            fleet = [core.VM_SMALL] * max(n_vms // 2, 1) + [
+                dataclasses.replace(core.VM_SMALL, autoscale=True)] * n_res
+            ctl.update(policy=core.ControlPolicy.AUTOSCALE,
+                       queue_threshold=float(rng.choice([0.0, 1.0, 2.0])),
+                       busy_threshold=float(rng.choice([0.25, 0.5])))
+            job = dataclasses.replace(job, n_maps=int(rng.integers(6, 21)))
+        else:                                  # deadlines on a contended fleet
+            fleet = [core.VM_SMALL] * int(rng.integers(1, 4))
+            job = dataclasses.replace(
+                job, n_maps=int(rng.integers(4, 21)),
+                deadline=job.submit_time + float(rng.uniform(1500.0,
+                                                             9000.0)))
+            ctl.update(deadline_policy=core.DeadlinePolicy(
+                int(rng.integers(1, 3))),
+                deadline_slack=float(rng.choice([0.0, 100.0, 600.0])))
+        kw["control"] = core.ControlSpec(**ctl)
+    return core.Scenario(vms=tuple(fleet), jobs=(job,), **kw)
+
+
+def oracle_scenarios(core, n, seed):
+    """``n`` seeded single-job scenarios, a quarter of each
+    :data:`ORACLE_KINDS` in turn (:func:`oracle_scenario`), cycling through
+    the 2 x 4 policy pairs; the last quarter is the closed loop."""
+    rng = np.random.default_rng(seed)
+    q = n // len(ORACLE_KINDS)
+    return [oracle_scenario(core, rng, ORACLE_KINDS[min(i // q, 3)], i)
+            for i in range(n)]
+
+
+def _oracle_lane(sc, ref, out, jm, sm, trace, i):
+    """The first difference of lane ``i`` from the oracle's result
+    ``ref`` (see :func:`oracle_diff`), or ``None``; and the largest
+    relative difference of its compared times and metrics."""
+    from repro_torch.core import telemetry
+    worst = 0.0
+    n = sc.total_tasks()
+    ref_done = np.array([t.finish < math.inf for t in ref.tasks])
+    eng_done = out["finish"][i, :n] < 1e30 / 2
+    if not np.array_equal(ref_done, eng_done):
+        return (f"unfinished tasks: engine {np.nonzero(~eng_done)[0]}, "
+                f"refsim {np.nonzero(~ref_done)[0]}"), worst
+    if not np.array_equal([t.shed for t in ref.tasks], out["shed"][i, :n]):
+        return "shed sets differ", worst
+    pairs = [(f, out[f][i, :n][ref_done],
+              [getattr(t, f) for t, d in zip(ref.tasks, ref_done) if d])
+             for f in ("start", "finish")]
+    if all(d or t.shed for t, d in zip(ref.tasks, ref_done)):
+        pairs.append(("finish_time", sm["finish_time"][i], ref.finish_time))
+    for ji, jr in enumerate(ref.jobs):
+        if all(t.finish < math.inf for t in ref.tasks if t.job == ji):
+            pairs += [(f"job {ji} {f}", jm[f][i, ji], getattr(jr, f))
+                      for f in ORACLE_FIELDS]
+    for label, got, want in pairs:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = np.abs(got - want)
+        bad = ~(err <= ORACLE_ATOL + ORACLE_RTOL * np.abs(want))
+        if bad.any():
+            return (f"{label}: engine {got[bad][:4]} vs refsim "
+                    f"{want[bad][:4]}"), worst
+        if err.size:
+            worst = max(worst, float(np.max(err / np.maximum(np.abs(want),
+                                                             1e-30))))
+    for f in ORACLE_COUNTS:
+        if int(sm[f][i]) != getattr(ref, f):
+            return (f"{f}: engine {int(sm[f][i])} vs refsim "
+                    f"{getattr(ref, f)}"), worst
+    if trace is not None:
+        kinds = trace.ev_kind[i, :int(trace.ev_n[i])]
+        for k, name in telemetry.EVENT_NAMES.items():
+            want = sum(1 for e in ref.events if e[1] == k)
+            if int((kinds == k).sum()) != want:
+                return (f"{name} events: engine {int((kinds == k).sum())} "
+                        f"vs refsim {want}"), worst
+    return None, worst
+
+
+def oracle_diff(scenarios, refs, out, jm, sm, trace=None):
+    """Hold an engine run of ``scenarios`` (stacked in order; ``out``,
+    ``jm``, ``sm`` the ``SimOutput``, job and scenario metrics as host
+    numpy dicts) against the sequential oracle's results ``refs``
+    (``refsim.simulate`` of each), at the reference's own tolerances:
+
+    * the tasks the oracle leaves unfinished (stranded, shed) are exactly
+      those the engine leaves at the +inf stand-in, the shed sets equal;
+    * the other tasks' start and finish at rtol 2e-4, atol 1e-2, and the
+      finish time where no task is stranded;
+    * every job whose tasks all finished: the paper's nine metrics at the
+      same tolerance;
+    * the closed loop's counts (failures, re-dispatches, scale events,
+      shed tasks, preemptions) exactly;
+    * with ``trace`` (host ``TraceBuffers``): the event log's count of each
+      kind equal to the oracle's events of that kind (SHED as a count).
+
+    Returns ``(worst, differs)``: the largest relative difference of a
+    compared time or metric on the lanes that agree, and ``{lane: first
+    difference}`` for the lanes that do not."""
+    worst, differs = 0.0, {}
+    for i, (sc, ref) in enumerate(zip(scenarios, refs)):
+        msg, w = _oracle_lane(sc, ref, out, jm, sm, trace, i)
+        if msg is None:
+            worst = max(worst, w)
+        else:
+            differs[i] = msg
+    return worst, differs
+
+
 def bits(x):
     """A tensor's raw bits, so equality is bitwise (-0.0 != 0.0)."""
     import torch
@@ -771,6 +1000,309 @@ def multijob_line(label, r) -> str:
             f"{r['profiled'][1]!r} s "
             f"({r['profiled'][1] / r['profiled'][0]!r} of the wall) | "
             + ", ".join(f"{k} {v}" for k, v in r["totals"].items()))
+
+
+def zero_launches():
+    """Set every ``mr_epoch`` instantiation's launch count to 0."""
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    for c in mk.LAUNCH_COUNTERS:
+        setattr(mk.mr_epoch, c, 0)
+
+
+def phase_oracle_paper(dev):
+    """Phase 15 (a): Table IV through the port's ``refsim`` exactly at 3, 6
+    and 9 VMs, and the Group 1-4 grids of ``tests/test_paper_validation.
+    py`` through ``SweepPlan.run(device=dev)`` (the ``mr_epoch`` kernel),
+    every cell against ``refsim`` at rtol 2e-4 (atol 1e-2) on makespan,
+    network cost and the execution times, each group's stated shape on
+    the engine's numbers.  Returns the measurements."""
+    import torch
+    from repro_torch.core import paper_scenario, refsim
+    from repro_torch.core.sweep import axis, product
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    r = dict(cells=0, refsim_s=0.0, worst=0.0)
+    for v in (3, 6, 9):
+        for m, want in TABLE_IV.items():
+            got = refsim.simulate(paper_scenario(n_maps=m, n_vms=v)) \
+                .job().network_cost
+            if not abs(got - want) <= 5e-4:
+                raise AssertionError(f"Table IV M{m} V{v}: {got} != {want}")
+    ms = list(PAPER_M)
+    plans = {
+        "G1": (product(axis("network_delay", [True, False]),
+                       axis("n_maps", ms)),
+               lambda nd, m: dict(network_delay=nd, n_maps=m)),
+        "G2": (product(axis("n_vms", [3, 6, 9]), axis("n_maps", ms)),
+               lambda v, m: dict(n_vms=v, n_maps=m)),
+        "G3": (product(axis("vm", ["small", "medium", "large"]),
+                       axis("n_maps", ms)),
+               lambda vm, m: dict(vm=vm, n_maps=m)),
+        "G4": (product(axis("job", ["small", "medium", "big"]), n_maps=10),
+               lambda job: dict(job=job, n_maps=10)),
+    }
+    res = {}
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g, (plan, _) in plans.items():
+        res[g] = plan.run(device=dev)
+    torch.cuda.synchronize()
+    r["wall"] = time.perf_counter() - t0
+    r["launches"] = mk.mr_epoch.launches
+    if r["launches"] < len(plans):
+        raise AssertionError("phase 15 (a) did not launch mr_epoch")
+    for g, (plan, kw) in plans.items():
+        for idx in np.ndindex(*plan.shape):
+            labels = [plan.dims[k].labels[i][0] for k, i in enumerate(idx)]
+            t0 = time.perf_counter()
+            ref = refsim.simulate(paper_scenario(**kw(*labels))).job()
+            r["refsim_s"] += time.perf_counter() - t0
+            for f in ("makespan", "network_cost", "avg_exec", "max_exec",
+                      "min_exec", "map_avg_exec", "reduce_avg_exec"):
+                got, want = float(res[g][f][idx]), getattr(ref, f)
+                if not abs(got - want) <= ORACLE_ATOL + ORACLE_RTOL * abs(
+                        want):
+                    raise AssertionError(f"{g} {labels} {f}: engine {got} "
+                                         f"vs refsim {want}")
+                r["worst"] = max(r["worst"], abs(got - want) / max(
+                    abs(want), 1e-30))
+            r["cells"] += 1
+    # each group's stated shape, on the engine's numbers
+    g1 = res["G1"]
+    avg, mx, mn = (g1[f][0] for f in ("avg_exec", "max_exec", "min_exec"))
+    if not (np.allclose(avg[:3], mx[:3], rtol=1e-6)
+            and np.allclose(avg[:3], mn[:3], rtol=1e-6)):
+        raise AssertionError("G1: avg == max == min fails for M <= V")
+    if not (avg[0] > avg[1] > avg[2]
+            and avg[5:].max() - avg[5:].min() < 0.10 * avg[0]):
+        raise AssertionError("G1: execution time does not drop then flatten")
+    if not mx[19] - mn[19] < mx[3] - mn[3]:
+        raise AssertionError("G1: the max-min spread does not narrow")
+    gaps = g1["makespan"][0][[0, 4, 19]] - g1["makespan"][1][[0, 4, 19]]
+    if not (gaps[0] > gaps[1] > gaps[2] > 0
+            and abs(gaps[0] - 2125.0) <= 1e-3 * 2125.0):
+        raise AssertionError(f"G1: network delay gaps {gaps}")
+    mavg = res["G2"]["map_avg_exec"]
+    if not all(np.allclose(mavg[:, m], mavg[0, m], rtol=1e-6)
+               for m in range(3)):
+        raise AssertionError("G2: map phase differs across VMs for M <= 3")
+    r["red6"] = float(np.mean(1 - mavg[1] / mavg[0]))
+    r["red9"] = float(np.mean(1 - mavg[2] / mavg[0]))
+    if not (abs(r["red6"] - 0.40) <= 0.03 and abs(r["red9"] - 0.50) <= 0.03):
+        raise AssertionError(f"G2: reductions {r['red6']}, {r['red9']}")
+    nc = res["G2"]["network_cost"]     # f32 schedules: equal to 1e-6
+    if not np.allclose(nc, nc[0], rtol=1e-6, atol=0.0):
+        raise AssertionError("G2: network cost varies with the VM count")
+    small, med, large = res["G3"]["avg_exec"].mean(axis=1)
+    r["med"], r["large"] = float(1 - med / small), float(1 - large / small)
+    if not (abs(r["med"] - 0.60) <= 0.05 and abs(r["large"] - 0.80) <= 0.05):
+        raise AssertionError(f"G3: reductions {r['med']}, {r['large']}")
+    cost = res["G4"]["vm_cost"]
+    r["cost"] = (float(cost[1] / cost[0]), float(cost[2] / cost[0]))
+    if not (abs(r["cost"][0] - 2) <= 2e-6 and abs(r["cost"][1] - 4) <= 4e-6):
+        raise AssertionError(f"G4: cost ratios {r['cost']}")
+    return r
+
+
+def phase_oracle_set(dev, scenarios, divergent, **pad):
+    """Phase 15 (b) and (c): ``scenarios`` through the port's ``refsim`` on
+    the host and, stacked by ``sweep.stack_scenarios``, through
+    ``engine.simulate_batch_arrays`` on ``dev`` untraced and traced (the
+    ``mr_epoch`` kernel for single-job lanes, the engine body for
+    multi-job ones; the launch counts zeroed just before and read just
+    after the untraced run), traced bitwise untraced, every lane held to
+    the oracle by :func:`oracle_diff` with the trace's event counts.  The
+    lanes that differ must be exactly ``divergent``: the lanes on which the
+    JAX package's own engine and ``refsim`` differ (ROADMAP C10, pinned on
+    the CPU by ``tests/test_torch_refsim.py``).  Returns the
+    measurements."""
+    import collections
+
+    import torch
+    from repro_torch.core import engine, refsim, sweep, telemetry
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    r = dict(n=len(scenarios))
+    t0 = time.perf_counter()
+    refs = [refsim.simulate(s) for s in scenarios]
+    r["refsim_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = sweep.stack_scenarios(scenarios, device=dev, **pad)
+    torch.cuda.synchronize()
+    r["encode_s"] = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    out, r["realized"] = engine.simulate_batch_arrays(batch)
+    torch.cuda.synchronize()
+    r["step_s"] = time.perf_counter() - t0
+    r["launches"] = mk.total_launches()
+    out_t, _, buf = engine.simulate_batch_arrays(batch, trace=True)
+    compare(engine.SimOutput._fields, out_t, out, "oracle: traced vs "
+            "untraced")
+    tb = telemetry.to_numpy(buf)
+    if (tb.ev_n > tb.ev_t.shape[1]).any():
+        raise AssertionError("oracle: the event log dropped events")
+    r["shape"] = tuple(batch.task_valid.shape) + (batch.job_valid.shape[1],
+                                                 batch.vm_valid.shape[1])
+    jm = engine.to_numpy(engine.job_metrics(batch, out))
+    sm = engine.to_numpy(engine.scenario_metrics(batch, out))
+    r["worst"], differs = oracle_diff(scenarios, refs, engine.to_numpy(out),
+                                      jm, sm, tb)
+    if sorted(differs) != sorted(divergent):
+        extra = {i: differs[i] for i in sorted(set(differs) - set(divergent))}
+        gone = sorted(set(divergent) - set(differs))
+        raise AssertionError(f"oracle: lanes differ from refsim beyond the "
+                             f"reference's own divergence: {extra}; pinned "
+                             f"lanes that now agree: {gone}")
+    r["differs"] = collections.Counter(m.split(":")[0]
+                                       for m in differs.values())
+    r["totals"] = {k: int(sm[k].sum()) for k in ORACLE_COUNTS}
+    r["events"] = int(tb.ev_n.sum())
+    return r
+
+
+def oracle_line(label, r, smi) -> str:
+    """Phase 15's line for one scenario set."""
+    N, T, J, V = r["shape"]
+    held = r["n"] - sum(r["differs"].values())
+    return (f"oracle: {label}, {r['n']} scenarios (T {T}, J {J}, V {V}) on "
+            f"{smi}: refsim {r['refsim_s']!r} s on the host "
+            f"({r['n'] / r['refsim_s']!r} scenarios/s), encode "
+            f"{r['encode_s']!r} s, engine step {r['step_s']!r} s "
+            f"({r['realized']} realized epochs, mr_epoch launches "
+            f"{r['launches']}); {held} lanes held to refsim at rtol "
+            f"{ORACLE_RTOL}, atol {ORACLE_ATOL} (worst relative difference "
+            f"{r['worst']!r}), counts exact, {r['events']} traced events "
+            f"matching refsim's by kind, traced bitwise untraced; "
+            f"{sum(r['differs'].values())} lanes differ exactly as the "
+            f"reference's own engine and refsim do (C10), by first "
+            f"difference {dict(r['differs'])} | "
+            + ", ".join(f"{k} {v}" for k, v in r["totals"].items()))
+
+
+def phase_oracle_training(dev):
+    """Phase 15 (d): ``workload.step_scenario`` at 256 devices, sigma 0 (one
+    lane of T = 257 tasks on 256 VMs), through the ``mr_epoch`` kernel on
+    ``dev`` against the port's ``refsim``; ``simulate_training`` at 256
+    devices with sigma 0.2 and an MTBF on the host.  Returns the
+    measurements."""
+    import torch
+    from repro_torch.core import (ChipSpec, StepCost, engine, refsim, sweep,
+                                  workload)
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    chip = ChipSpec()
+    cost = StepCost(**TRAIN_COST)
+    sc, mult = workload.step_scenario(cost, chip, TRAIN_DEVICES)
+    if mult is not None:
+        raise AssertionError("sigma 0 gave straggler multipliers")
+    ref = refsim.simulate(sc)
+    batch = sweep.stack_scenarios([sc], device=dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    out, _ = engine.simulate_batch_arrays(batch)
+    torch.cuda.synchronize()
+    r = dict(step_s=time.perf_counter() - t0, launches=mk.mr_epoch.launches,
+             T=int(batch.task_valid.shape[1]),
+             V=int(batch.vm_valid.shape[1]))
+    if r["launches"] != 1:
+        raise AssertionError("the training step did not launch mr_epoch")
+    jm = engine.to_numpy(engine.job_metrics(batch, out))
+    sm = engine.to_numpy(engine.scenario_metrics(batch, out))
+    r["worst"], differs = oracle_diff([sc], [ref], engine.to_numpy(out), jm,
+                                      sm)
+    if differs:
+        raise AssertionError(f"training step vs refsim: {differs}")
+    r["makespan"], r["ref_makespan"] = float(jm["makespan"][0, 0]), \
+        ref.job().makespan
+    t0 = time.perf_counter()
+    r["train"] = workload.simulate_training(
+        cost, chip, n_devices=TRAIN_DEVICES, n_steps=1000,
+        straggler_sigma=0.2, mtbf_hours=TRAIN_MTBF_HOURS, seed=3)
+    r["train_s"] = time.perf_counter() - t0
+    t = r["train"]
+    if not (0.0 < t["goodput"] <= 1.0 and t["expected_failures"] > 0
+            and t["step_seconds"] >= t["ideal_step_seconds"]):
+        raise AssertionError(f"simulate_training: {t}")
+    return r
+
+
+def streaming_dags(n, seed, n_ops=32, n_src=4):
+    """``n`` seeded random feed-forward operator DAGs as numpy leaves of a
+    :class:`~repro_torch.core.streaming.Topology` (topologically ordered):
+    ``n_src`` sources at 10-2000 tuples/s, every other operator fed by 1-3
+    earlier ones with weights 0.05-1 (each row scaled to sum at most 1),
+    services of 1e-3-1 MI per tuple, parallelism 1-8 and the MIPS of the
+    paper's three VM types."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n_ops, n_ops), np.float32)
+    rows = np.arange(n)
+    for j in range(n_src, n_ops):
+        k = rng.integers(1, 4, n)
+        order = rng.random((n, j)).argsort(axis=1)
+        for s in range(min(3, j)):
+            pick = k > s
+            adj[rows[pick], order[pick, s], j] = rng.uniform(
+                0.05, 1.0, int(pick.sum()))
+    adj /= np.maximum(adj.sum(axis=2, dtype=np.float32), 1.0)[:, :, None]
+    src = np.zeros((n, n_ops), np.float32)
+    src[:, :n_src] = rng.uniform(10.0, 2000.0, (n, n_src))
+    return (adj, src,
+            rng.uniform(1e-3, 1.0, (n, n_ops)).astype(np.float32),
+            rng.integers(1, 9, (n, n_ops)).astype(np.float32),
+            rng.choice([250.0, 500.0, 1000.0], (n, n_ops)).astype(np.float32))
+
+
+def smart_city_grid(device):
+    """Phase 15 (e)'s smart-city batch: parallelism 1-16 on each of detect,
+    aggregate and alert times 16 camera rates (250-4000 tuples/s): 65,536
+    topologies of ``streaming.smart_city_topology``'s five operators."""
+    import torch
+    from repro_torch.core import streaming
+    base = streaming.smart_city_topology(device=device)
+    p = torch.arange(1, 17, dtype=torch.float32, device=device)
+    cam = 250.0 * p
+    grid = torch.cartesian_prod(p, p, p, cam)
+    n = grid.shape[0]
+    par = base.parallelism.repeat(n, 1)
+    par[:, 2:5] = grid[:, :3]
+    src = base.source_rate.repeat(n, 1)
+    src[:, 0] = grid[:, 3]
+    return streaming.Topology(
+        adj=base.adj.repeat(n, 1, 1), source_rate=src,
+        service_mi=base.service_mi.repeat(n, 1), parallelism=par,
+        vm_mips=base.vm_mips.repeat(n, 1))
+
+
+def phase_streaming(dev):
+    """Phase 15 (e): ``streaming.analyze_batch`` on the card on the
+    smart-city grid and on :data:`STREAM_DAGS` seeded 32-operator DAGs,
+    each bitwise the same batch run on the CPU (``stable`` and
+    ``bottleneck`` exact); the second of two runs timed.  Returns
+    ``{name: (topologies, seconds, stable share)}``."""
+    import torch
+    from repro_torch.core import streaming
+    batches = {
+        "smart-city": smart_city_grid(dev),
+        "dag32": streaming.Topology(*(
+            torch.from_numpy(x).to(dev)
+            for x in streaming_dags(STREAM_DAGS, seed=16))),
+    }
+    r = {}
+    for name, topo in batches.items():
+        streaming.analyze_batch(topo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = streaming.analyze_batch(topo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = streaming.analyze_batch(streaming.Topology(
+            *(x.cpu() for x in topo)))
+        for k, v in want.items():
+            if not torch.equal(bits(got[k].cpu()), bits(v)):
+                raise AssertionError(f"streaming {name}: {k} differs from "
+                                     f"the CPU run")
+        r[name] = (topo.adj.shape[0], wall,
+                   float(want["stable"].float().mean()))
+    return r
 
 
 def vm_valid_lane(batch):
@@ -2361,6 +2893,59 @@ def main() -> int:
                                  ("closed-loop", True, 15)):
         print(multijob_line(label, phase_multijob(dev, control, seed)),
               flush=True)
+
+    # 15. the sequential oracle against the card
+    import repro_torch.core as core
+    o = phase_oracle_paper(dev)
+    print(f"oracle: (a) on {smi} (refsim on the host's numpy "
+          f"{np.__version__}): Table IV exact through refsim at 3, 6, 9 "
+          f"VMs; Groups 1-4 ({o['cells']} cells) through SweepPlan.run in "
+          f"{o['wall']!r} s, mr_epoch launches {o['launches']}, every cell "
+          f"== refsim at rtol {ORACLE_RTOL} on makespan, network cost and "
+          f"exec times (worst relative difference {o['worst']!r}; refsim "
+          f"{o['refsim_s']!r} s on the host); shapes hold: G2 map-phase "
+          f"reduction 3->6 VMs {o['red6']!r}, 3->9 {o['red9']!r}; G3 "
+          f"medium {o['med']!r}, large {o['large']!r}; G4 cost x"
+          f"{o['cost'][0]!r}, x{o['cost'][1]!r}", flush=True)
+    scs = oracle_scenarios(core, ORACLE_N, ORACLE_SEED)
+    q = 3 * ORACLE_N // 4
+    for label, part, pins in (
+            ("(b) single-job open loop", scs[:q], ()),
+            ("(b) single-job closed loop", scs[q:],
+             [i - q for i in ORACLE_DIVERGENT])):
+        print(oracle_line(label, phase_oracle_set(dev, part, pins), smi),
+              flush=True)
+    T, J, V = ENGINE_SHAPE
+    for label, control, seed, pins in (
+            ("(c) multi-job open loop", False, 14, ()),
+            ("(c) multi-job closed loop", True, 15,
+             ORACLE_DIVERGENT_MULTIJOB)):
+        r = phase_oracle_set(
+            dev, multijob_scenarios(core, ORACLE_MULTIJOB, seed,
+                                    control=control),
+            pins, pad_tasks=T, pad_jobs=J, pad_vms=V)
+        if r["launches"]:
+            raise AssertionError("a multi-job set launched mr_epoch")
+        print(oracle_line(label, r, smi), flush=True)
+    d = phase_oracle_training(dev)
+    t = d["train"]
+    print(f"oracle: (d) on {smi}: workload.step_scenario at "
+          f"{TRAIN_DEVICES} devices, sigma 0 (T {d['T']}, V {d['V']}) "
+          f"through mr_epoch ({d['launches']} launch, {d['step_s']!r} s): "
+          f"makespan {d['makespan']!r} s vs refsim {d['ref_makespan']!r} s "
+          f"(worst relative difference {d['worst']!r}); simulate_training "
+          f"at {TRAIN_DEVICES} devices, sigma 0.2, MTBF "
+          f"{TRAIN_MTBF_HOURS} h on the host ({d['train_s']!r} s): step "
+          f"{t['step_seconds']!r} s, straggler slowdown "
+          f"{t['straggler_slowdown']!r}, expected failures "
+          f"{t['expected_failures']!r}, goodput {t['goodput']!r}",
+          flush=True)
+    e = phase_streaming(dev)
+    print(f"oracle: (e) on {smi}: streaming.analyze_batch bitwise the CPU "
+          f"run (stable, bottleneck exact) | "
+          + "; ".join(f"{k}: {n} topologies in {w!r} s, {n / w!r} "
+                      f"topologies/s, stable share {st!r}"
+                      for k, (n, w, st) in e.items()), flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

@@ -3,14 +3,19 @@ loop).
 
 * configs — :class:`~repro_torch.core.config.Scenario` and the paper's
   Table I–III presets;
+* :func:`~repro_torch.core.refsim.simulate` — the sequential
+  paper-faithful oracle (host numpy);
 * :mod:`~repro_torch.core.engine` — batch encoding, ``mr_epoch`` stepping,
   metrics;
 * :mod:`~repro_torch.core.sweep` — declarative scenario sweeps;
 * :mod:`~repro_torch.core.costmodel` — the measured cost model that
-  prices bucket splits and the compaction interval.
+  prices bucket splits and the compaction interval;
+* :mod:`~repro_torch.core.workload` — LM-training-step → scenario bridge
+  (stragglers, failures, checkpoint goodput); :mod:`speculative` and
+  :mod:`streaming`, the beyond-paper layers.
 """
-from . import (control, costmodel, elasticity, engine, network, storage,
-               sweep, telemetry)
+from . import (control, costmodel, elasticity, engine, network, refsim,
+               storage, sweep, telemetry, workload)
 from .config import (JOB_BIG, JOB_MEDIUM, JOB_SMALL, JOB_TYPES, VM_LARGE,
                      VM_MEDIUM, VM_SMALL, VM_TYPES, BindingPolicy,
                      DatacenterSpec, JobSpec, NetworkSpec, Scenario,
@@ -21,10 +26,11 @@ from .engine import JobMetrics, ScenarioArrays, ScenarioMetrics, SimOutput
 from .storage import Placement, StorageSpec
 from .sweep import Axis, StreamedSweep, SweepPlan, SweepResult
 from .telemetry import RunReport, TraceResult, TraceSpec, trace_scenario
+from .workload import ChipSpec, StepCost
 
 __all__ = [
-    "control", "costmodel", "elasticity", "engine", "network", "storage",
-    "sweep", "telemetry",
+    "control", "costmodel", "elasticity", "engine", "network", "refsim",
+    "storage", "sweep", "telemetry", "workload",
     "Scenario", "VMSpec", "JobSpec", "NetworkSpec", "DatacenterSpec",
     "StorageSpec", "Placement", "SchedPolicy", "BindingPolicy",
     "ElasticitySpec", "ArrivalProcess", "ControlSpec", "ControlPolicy",
@@ -34,4 +40,7 @@ __all__ = [
     "paper_scenario", "JobMetrics", "ScenarioArrays", "ScenarioMetrics",
     "SimOutput", "Axis", "SweepPlan", "SweepResult", "StreamedSweep",
     "TraceSpec", "TraceResult", "RunReport", "trace_scenario",
+    "ChipSpec", "StepCost",
 ]
+
+from . import speculative, streaming  # noqa: E402  (beyond-paper layers)

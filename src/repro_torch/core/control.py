@@ -6,7 +6,9 @@ The policy enums ride in ``ScenarioArrays`` as i32 data and the
 task moves to (``SimOutput.task_vm2`` reports it in open-loop runs too),
 and :func:`earliest_finish` is the f32 deadline-pressure estimate the SHED
 and BOOST predicates of the ``mr_epoch`` control lowering compare.  The
-failure stream (:func:`failure_times`) is host numpy.
+failure stream (:func:`failure_times`) is host numpy.  The sequential
+oracle (``refsim``) calls the numpy forms :func:`earliest_finish_np` and
+:func:`failover_targets_np`, the same op sequences on host arrays.
 """
 from __future__ import annotations
 
@@ -65,6 +67,15 @@ def earliest_finish(now, rem, mips):
     decides SHED and ``earliest_finish + slack >= deadline`` BOOST urgency;
     the plain ``mr_epoch`` and its CUDA kernel share this op sequence."""
     return now + rem / torch.clamp(mips, min=1e-30)
+
+
+def earliest_finish_np(now, rem, mips):
+    """:func:`earliest_finish` on numpy float32 scalars or arrays, as the
+    oracle calls it: every operand float32, so each op rounds to float32
+    and the SHED and BOOST tiers are the kernel's (a Python float operand
+    would promote the sum to float64 and could move a task across a
+    tier)."""
+    return now + rem / np.maximum(mips, np.float32(1e-30))
 
 
 @dataclass(frozen=True)
@@ -135,6 +146,33 @@ def failover_targets(task_vm, vm_valid, vm_auto, block_vm):
     out = torch.where(ok1, t1, torch.where(ok2, t2, torch.where(
         ok3, t3, task_vm.to(torch.int32))))
     return out.to(torch.int32)
+
+
+def failover_targets_np(task_vm, vm_valid, vm_auto, block_vm):
+    """:func:`failover_targets` of one scenario on numpy arrays, for the
+    oracle: ``task_vm [T]``, ``vm_valid``/``vm_auto [V]``, ``block_vm
+    [T, V]``; returns i32 ``[T]``, the same preference order and ties."""
+    task_vm = np.asarray(task_vm)
+    vm_valid = np.asarray(vm_valid, bool)
+    vm_auto = np.asarray(vm_auto, bool)
+    V = vm_valid.shape[0]
+    vmr = np.arange(V, dtype=np.int32)[None, :]
+    order = (vmr - task_vm[:, None].astype(np.int32) - 1) % V     # [T, V]
+    holds = np.any(block_vm[:, :, None] == vmr[:, None, :], axis=1)
+    valid = vm_valid[None, :]
+    reserve = vm_auto[None, :]
+
+    def pick(mask):
+        key = np.where(mask, order, V + 1)
+        return (np.argmin(key, axis=1).astype(np.int32),
+                np.min(key, axis=1) <= V)
+
+    t1, ok1 = pick(valid & ~reserve & holds)
+    t2, ok2 = pick(valid & ~reserve)
+    t3, ok3 = pick(valid)
+    out = np.where(ok1, t1, np.where(ok2, t2,
+                   np.where(ok3, t3, task_vm.astype(np.int32))))
+    return out.astype(np.int32)
 
 
 def scenario_control(scenario, pad_vms: int):

@@ -100,3 +100,16 @@ def encode_lease_stop(stop) -> float:
     """User-facing ``math.inf`` lease stops, clamped to the +inf
     stand-in (``inf`` would turn ``0 * inf`` into NaN downstream)."""
     return float(min(stop, _BIG)) if stop is not None else _BIG
+
+
+def scenario_windows(scenario):
+    """``(avail, close)`` per VM (float64 numpy) for the sequential oracle:
+    admission opens at ``lease_start + spinup_delay`` and closes at
+    ``lease_stop``.  The array encoders carry the same quantities as
+    ``vm_start``/``vm_stop``/``spinup_delay`` in float32."""
+    el = scenario.elasticity
+    avail = np.array([v.lease_start + el.spinup_delay
+                      for v in scenario.vms])
+    close = np.array([encode_lease_stop(v.lease_stop)
+                      for v in scenario.vms])
+    return avail, close

@@ -2,7 +2,8 @@
 
 The kappa formula for stage-in and shuffle delays, shared by host floats
 and torch tensors (DESIGN.md §2.1 explains the calibration:
-``kappa_in + kappa_shuffle = 21.25`` reproduces the paper's Table IV).
+``kappa_in + kappa_shuffle = 21.25`` reproduces the paper's Table IV), and
+the paper's Delay Time and Network Cost of a job.
 """
 from __future__ import annotations
 
@@ -31,3 +32,13 @@ def shuffle_delay(job: JobSpec, net: NetworkSpec) -> float:
     """Delay between the last map finishing and reduces becoming ready."""
     return transfer_delay(net.kappa_shuffle, job.data_mb, job.n_maps,
                           net.bw_mbps, 1.0 if net.enabled else 0.0)
+
+
+def delay_time(job: JobSpec, net: NetworkSpec) -> float:
+    """Paper §5.3.5 Delay Time (st_m(nm) + st_r(nr) - ft_m(nm))."""
+    return stage_in_delay(job, net) + shuffle_delay(job, net)
+
+
+def network_cost(job: JobSpec, net: NetworkSpec) -> float:
+    """Paper §5.3.7: NetworkCost = DelayTime x NetworkCostPerUnit."""
+    return delay_time(job, net) * net.cost_per_unit

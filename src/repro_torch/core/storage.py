@@ -229,13 +229,15 @@ def locality_candidates(block_vm, vm_valid):
 
 
 def is_local(block_vm, task_vm):
-    """``bool[..., T]``: the bound VM holds a replica of the task's block."""
-    return (block_vm == task_vm[..., None]).any(dim=-1)
+    """``bool[..., T]``: the bound VM holds a replica of the task's block
+    (tensors or numpy arrays)."""
+    return (block_vm == task_vm[..., None]).any(-1)
 
 
 def has_block(block_vm):
-    """``bool[..., T]``: the task reads a placed input block at all."""
-    return (block_vm >= 0).any(dim=-1)
+    """``bool[..., T]``: the task reads a placed input block at all
+    (tensors or numpy arrays)."""
+    return (block_vm >= 0).any(-1)
 
 
 def remote_fetch_delay(block_vm, block_size, task_vm, kappa_in, net_bw,
@@ -248,3 +250,15 @@ def remote_fetch_delay(block_vm, block_size, task_vm, kappa_in, net_bw,
                                    net_enabled)
     remote = has_block(block_vm) & ~is_local(block_vm, task_vm)
     return torch.where(remote, fetch, torch.zeros_like(fetch))
+
+
+def remote_fetch_delay_np(block_vm, block_size, task_vm, kappa_in, net_bw,
+                          net_enabled):
+    """:func:`remote_fetch_delay` on numpy arrays (the oracle passes
+    float32 scalars for ``kappa_in``, ``net_bw`` and ``net_enabled``, so
+    the delay is the float32 op sequence of the encoders)."""
+    from . import network
+    fetch = network.transfer_delay(kappa_in, block_size, 0.0, net_bw,
+                                   net_enabled)
+    remote = has_block(block_vm) & ~is_local(block_vm, task_vm)
+    return np.where(remote, fetch, 0.0)

@@ -18,7 +18,9 @@ order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6's y at
 1e-4 and its final state bitwise), and the reduced yi-6b and rwkv6-3b
 serving paths on the card against the same paths on the CPU.  The engine
 body (multi-job lanes) runs on the card bit for bit as on the CPU, and as
-``mr_epoch`` on single-job lanes.
+``mr_epoch`` on single-job lanes.  Single-job lanes on the card hold to the
+port's sequential oracle (``refsim``) at the reference's tolerances, and
+``streaming.analyze_batch`` on the card is bitwise its CPU run.
 """
 import numpy as np
 import pytest
@@ -682,3 +684,65 @@ def test_serving_on_card_matches_cpu(name):
                     else (0, 3 * cfg.n_layers))
 
 
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["open", "control"])
+def test_card_holds_to_the_oracle(part):
+    """A seeded set of phase 15 (b)'s single-job scenarios (64 of the open
+    kinds, 64 of the closed-loop quarter) through ``mr_epoch`` on the card,
+    traced, against the port's ``refsim``: the lanes that differ are the
+    pinned lanes where the reference's own engine and refsim differ
+    (ROADMAP C10)."""
+    import repro_torch.core as core
+    from repro_torch.core import refsim, telemetry
+    chip_smoke = _chip_smoke()
+    dev = _card()
+    scs = chip_smoke.oracle_scenarios(core, chip_smoke.ORACLE_N,
+                                      chip_smoke.ORACLE_SEED)
+    lo = 0 if part == "open" else 3 * chip_smoke.ORACLE_N // 4
+    scs = scs[lo:lo + 64]
+    batch = sweep.stack_scenarios(scs, device=dev)
+    before = megakernel.total_launches()
+    out, _, buf = engine.simulate_batch_arrays(batch, trace=True)
+    assert megakernel.total_launches() == before + 1
+    host = lambda t: {k: v.cpu().numpy()                   # noqa: E731
+                      for k, v in t._asdict().items()}
+    worst, differs = chip_smoke.oracle_diff(
+        scs, [refsim.simulate(s) for s in scs], host(out),
+        host(engine.job_metrics(batch, out)),
+        host(engine.scenario_metrics(batch, out)), telemetry.to_numpy(buf))
+    assert sorted(differs) == [i - lo for i in chip_smoke.ORACLE_DIVERGENT
+                               if lo <= i < lo + 64]
+    assert worst < chip_smoke.ORACLE_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smart-city", "dag32"])
+def test_streaming_on_card_matches_cpu(kind):
+    """``streaming.analyze_batch`` on the card, bitwise its CPU run."""
+    from repro_torch.core import streaming
+    chip_smoke = _chip_smoke()
+    dev = _card()
+    if kind == "smart-city":
+        topo = chip_smoke.smart_city_grid(dev)
+    else:
+        topo = streaming.Topology(*(torch.from_numpy(x).to(dev) for x in
+                                    chip_smoke.streaming_dags(1024, 5)))
+    got = streaming.analyze_batch(topo)
+    want = streaming.analyze_batch(streaming.Topology(
+        *(x.cpu() for x in topo)))
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        g = got[k].cpu()
+        if v.dtype == torch.float32:
+            g, v = g.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(g, v), k

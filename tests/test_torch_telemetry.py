@@ -229,13 +229,17 @@ def test_trace_scenario_multi_job_matches_reference():
 
 def test_core_exports_the_reference_names():
     """``repro_torch.core`` re-exports every public name of ``repro.core``
-    but those of modules not ported yet (the LM workload bridge, the
-    sequential oracle)."""
+    (the sequential oracle and the workload bridge among them) and, as
+    it does, the beyond-paper layers ``speculative`` and ``streaming``."""
     import repro.core as jcore
     import repro_torch.core as tcore
-    unported = {"ChipSpec", "StepCost", "refsim", "workload"}
-    missing = set(jcore.__all__) - unported - set(tcore.__all__)
+    missing = set(jcore.__all__) - set(tcore.__all__)
     assert not missing
+    for name in ("speculative", "streaming"):
+        assert hasattr(jcore, name) and hasattr(tcore, name)
+    from repro_torch.core import ChipSpec, StepCost, refsim, workload
+    assert ChipSpec is workload.ChipSpec and StepCost is workload.StepCost
+    assert refsim.simulate is tcore.refsim.simulate
     from repro_torch.core import (RunReport, TraceResult, TraceSpec,
                                   trace_scenario)
     assert TraceSpec is tcore.telemetry.TraceSpec

@@ -21,7 +21,8 @@
   counts the rest in ``dropped_events``.
 * The refsim oracle: per-kind event counts exact, event times at rtol 2e-4
   (atol 1e-2), SHED counts only — the reference's own tolerances
-  (``tests/test_telemetry.py``).
+  (``tests/test_telemetry.py``) — against the JAX package's ``refsim`` and
+  against the port's, whose events are the reference's bit for bit.
 """
 import dataclasses
 import functools
@@ -49,6 +50,7 @@ from repro_torch.core import config as tconfig
 from repro_torch.core import control as tcontrol
 from repro_torch.core import elasticity as telasticity
 from repro_torch.core import engine as tengine
+from repro_torch.core import refsim as trefsim
 from repro_torch.core import sweep as tsweep
 from repro_torch.core import telemetry as ttel
 from repro_torch.kernels.mr_sched import megakernel as tmk
@@ -342,9 +344,19 @@ def _parity_cases():
                          ids=[n for n, _ in _parity_cases()])
 def test_trace_matches_refsim_events(name, pair):
     jsc, tsc = pair
-    ref = refsim.simulate(jsc)
     _, tr = ttel.trace_scenario(tsc, device="cpu")
     assert int(tr.dropped_events[0]) == 0
+    jref, tref = refsim.simulate(jsc), trefsim.simulate(tsc)
+    assert len(tref.events) == len(jref.events)
+    for a, b in zip(jref.events, tref.events):
+        assert np.float64(a[0]).tobytes() == np.float64(b[0]).tobytes() \
+            and tuple(a[1:]) == tuple(b[1:]), f"{name}: {a} != {b}"
+    for ref in (jref, tref):
+        _check_trace_against(name, tr, ref)
+
+
+def _check_trace_against(name, tr, ref):
+    """The reference telemetry tests' event checks of one oracle run."""
     refc: dict[int, int] = {}
     for (_, k, _, _) in ref.events:
         refc[k] = refc.get(k, 0) + 1
