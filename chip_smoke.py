@@ -98,24 +98,28 @@ each printing one line of numbers:
               1e-4, its worst case in ulps printed):
               flash on the kernel tests' five shapes in f32 and bf16, yi-6b's
               prefill shape (B 4, S = T = 2048, 32/4 heads, head_dim 128)
-              f32 and bf16, causal and with a 512 window; wkv6 on the kernel
-              tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
+              f32 and bf16, causal and with a 512 window, and the prefills
+              of phases 16 (mixtral-8x7b: 2 x 8192, 32/8 heads, window
+              4096) and 17 (jamba-v0.1-52b: 4 x 2048, 32/8 heads) in f32
+              and bf16; wkv6 on the kernel tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
               non-zero initial state, y at 1e-4 and the final state
               bitwise.
 12. serve dense — yi-6b at full width (random f32 weights from a seeded
               generator on the card), 4 prompts of 2048 seeded tokens
               through ``prefill(attn_impl="flash")`` and 32 greedy
               ``decode_step``s in bf16: flash's launch count must rise by 32
-              per prefill; prefill and decode tokens/s, the kernel's time
-              (with its TFLOP/s of the function's operations and its share
-              of the bound), plain version's, ``F.scaled_dot_product_
-              attention``'s on the same tensors (timed only, never on the
-              path; the kernel's ratio to it) and its bound; on a line of
-              its own before, the float32 instantiation's time there;
-              a profiled prefill and decode step (device time by kind of
-              kernel).  In f32 activations the prefill logits match
-              ``attn_impl="dense"`` and each decode step's logits match
-              ``forward`` over prompt + generated tokens.
+              per prefill; prefill and decode tokens/s, on layer 0's
+              prefill inputs the kernel's device time (``launch_ms``, with
+              its TFLOP/s of the function's operations and its share of
+              the bound), ``F.scaled_dot_product_attention``'s (timed only,
+              never on the path; the kernel's ratio to it) and the float32
+              instantiation's the same way, the plain version's
+              (``cuda_ms``) and the bound, the kernel in bf16 and f32 first
+              held to its plain version on these inputs (FA_TOL); a
+              profiled prefill and decode step (device time by kind of kernel).  In f32 activations the
+              prefill logits match ``attn_impl="dense"`` and each decode
+              step's logits match ``forward`` over prompt + generated
+              tokens.
 13. serve rwkv — rwkv6-3b the same way: wkv6's count must rise by 32 per
               prefill and 32 per decode step; the kernel's device time
               (``launch_ms``) on layer 0's prefill inputs and on a decode
@@ -167,6 +171,32 @@ each printing one line of numbers:
               an MTBF; (e) ``streaming.analyze_batch`` on 65,536
               smart-city topologies and 16,384 seeded 32-operator DAGs on
               the card, bitwise the CPU's run, topologies/s.
+
+16. serve moe — mixtral-8x7b at full width (d_model 4096, 32/8 heads,
+              d_ff 14336, 8 experts top-2, window 4096), depth cut to 8 of
+              32 layers (its f32 parameters: 47.5 GB), 2 prompts of 8192
+              seeded tokens (the window bites in the prefill; the 4096-slot
+              ring cache wraps while decoding) and 32 greedy steps in bf16:
+              flash's count must rise by 8 per prefill and 0 per step;
+              tokens/s, ms per step, the wall of one MoE block, flash's
+              device time at (2, 8192, 32/8, 128, window 4096) beside its
+              bound, the plain version and SDPA with a boolean window mask;
+              a profiled prefill and step.  Checks in f32 activations: (a)
+              the prefill logits of the kernel path against
+              ``attn_impl="chunked"`` at 1e-3, every MoE layer's routing
+              compared exactly and flips allowed only at near-ties
+              (``compare_routes``, ROADMAP C12: the prompts they touch are
+              left out, counted and printed), and the driven kernel path
+              against ``prefill``'s own logits; (b) drop-free, prompt 0's
+              8192 tokens + 32 steps against ``forward``; (c) ``apply_moe``
+              against ``apply_moe_dense`` drop-free on layer-0-style inputs.
+17. serve hybrid — jamba-v0.1-52b at full width (Mamba d_inner 8192,
+              d_state 16, dt_rank 256; 16 experts top-2), one 8-layer
+              period (1 attention, 7 Mamba, 4 MoE sub-blocks; 53.2 GB),
+              4 x 2048 tokens and 32 steps: flash's count must rise by 1
+              per prefill; the wall of one Mamba mixer (its Python time
+              loop) and one MoE block; checks (a)-(c) as phase 16, (b) on
+              prompt 0's first 512 tokens.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -2207,7 +2237,8 @@ def phase_cpu(m, control=False, seed=5):
 
 
 # ---------------------------------------------------------------------------
-# Phases 11-13: the LM serving path (flash_attention, wkv6)
+# Phases 11-13, 16, 17: the LM serving path (flash_attention, wkv6; MoE
+# and Mamba in plain tensor ops)
 # ---------------------------------------------------------------------------
 
 LM_BATCH = 4             # requests served at once
@@ -2227,6 +2258,10 @@ FA_CHECK_SHAPES = [
     # too (the CUDA-core instantiation), at 2e-6 (|o| ~ 0.03-0.06 here)
     (4, 2048, 2048, 32, 4, 128, True, None, ("float32", "bfloat16")),
     (4, 2048, 2048, 32, 4, 128, True, 512, ("float32", "bfloat16")),
+    # the prefills that phases 16 and 17 serve: mixtral-8x7b's windowed
+    # (2 x 8192, 32/8 heads, window 4096) and jamba-v0.1-52b's (GQA 4)
+    (2, 8192, 8192, 32, 8, 128, True, 4096, ("float32", "bfloat16")),
+    (4, 2048, 2048, 32, 8, 128, True, None, ("float32", "bfloat16")),
 ]
 # (B, H, T, hs): the four WKV_SHAPES of tests/test_kernels.py and rwkv6-3b's
 # prefill, each with a non-zero initial state, r/k/v in float32 and bfloat16
@@ -2380,6 +2415,44 @@ def _bound(nbytes, ops, ops_per_s):
             1e3 * t_bytes, 1e3 * t_ops)
 
 
+# Phases 12, 13, 16, 17: (depth cut or None, prompts, tokens per prompt)
+SERVE = {
+    "yi-6b": (None, LM_BATCH, LM_PROMPT),
+    "rwkv6-3b": (None, LM_BATCH, LM_PROMPT),
+    # 8 of 32 layers: 1.451 B f32 parameters a layer (46.4 GB) + 1.05 GB
+    # of embedding and head; 2 x 8192 tokens, so the 4096 window bites in
+    # the prefill and the 4096-slot ring cache wraps while decoding
+    "mixtral-8x7b": (8, 2, 8192),
+    # one 8-layer period (1 attention, 7 Mamba, 4 MoE, 4 dense MLP):
+    # 12.76 B f32 parameters (51.0 GB) + 2.15 GB of embedding and head
+    "jamba-v0.1-52b": (8, LM_BATCH, LM_PROMPT),
+}
+# Routing near-tie (ROADMAP C12): a top-k decision whose relative gap
+# (p_j - p_j+1) / p_j, j <= k, is below this on the plain path may flip
+# between two f32 paths that differ only in attention's summation order;
+# the same size as the logits' tolerance LM_F32_TOL.
+ROUTE_NEAR_TIE = 1e-3
+# ... and at most this many such flips in a phase's compared prompts (C12):
+# more is a kernel at fault, not summation order.
+ROUTE_MAX_FLIPS = 4
+# apply_moe against apply_moe_dense, drop-free, f32 (atol = rtol): the same
+# routing by construction; the grouped and the per-expert products sum
+# their 4096- and 14336-term dot products in other orders (outputs ~1).
+MOE_DENSE_TOL = 1e-4
+DROP_FREE_PROMPT = {"mixtral-8x7b": 8192, "jamba-v0.1-52b": 512}
+
+
+def serve_config(name):
+    """``(cfg, prompts, tokens per prompt)`` of a serve phase: the
+    registry's config, depth cut only here."""
+    from repro_torch import configs
+    layers, batch, S = SERVE[name]
+    cfg = configs.get(name)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg, batch, S
+
+
 def _serve(params, cfg, prompt, attn_impl):
     """Prefill the prompts, then ``LM_DECODE`` greedy decode steps (argmax
     over the real vocabulary).  Returns the logits of each step (prefill
@@ -2387,9 +2460,10 @@ def _serve(params, cfg, prompt, attn_impl):
     synchronised)."""
     import torch
     from repro_torch.models import decode_step, prefill
+    S = prompt.shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, state = prefill(params, cfg, prompt, LM_PROMPT + LM_DECODE,
+    lg, state = prefill(params, cfg, prompt, _cache_len(cfg, S),
                         attn_impl=attn_impl)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2397,7 +2471,7 @@ def _serve(params, cfg, prompt, attn_impl):
     for i in range(LM_DECODE):
         tok = lg[:, :cfg.vocab].argmax(dim=-1)
         toks.append(tok)
-        lg, state = decode_step(params, cfg, tok, state, LM_PROMPT + i)
+        lg, state = decode_step(params, cfg, tok, state, S + i)
         logits.append(lg)
     torch.cuda.synchronize()
     return logits, torch.stack(toks, dim=1), t1 - t0, \
@@ -2410,7 +2484,7 @@ def device_breakdown(fn):
     profiler's device events, each counted once) by kind: the port's two
     LM kernels by name, ``matmul`` (cuBLAS/CUTLASS products), ``copy``
     (casts, copies, memcpy/memset) and ``other`` (elementwise, reductions,
-    indexing).  Empty when the profiler saw no device event."""
+    indexing, sorts).  Empty when the profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2453,31 +2527,213 @@ def _check_decode(params, cfg, prompt, logits, gen, attn_impl):
     last; returns the worst ``_close`` pair."""
     from repro_torch.models import forward
     import torch
+    S = prompt.shape[1]
     full = forward(params, cfg, torch.cat([prompt, gen], dim=1),
                    attn_impl=attn_impl)
-    worst = _close(logits[0], full[:, LM_PROMPT - 1], LM_F32_TOL)
+    worst = _close(logits[0], full[:, S - 1], LM_F32_TOL)
     for i, lg in enumerate(logits[1:]):
-        worst = _worst(worst, _close(lg, full[:, LM_PROMPT + i], LM_F32_TOL))
+        worst = _worst(worst, _close(lg, full[:, S + i], LM_F32_TOL))
     return worst
 
 
-def phase_serve(name, dev, seed):
-    """Serve ``LM_BATCH`` prompts of ``LM_PROMPT`` seeded tokens through
-    ``prefill`` and ``LM_DECODE`` greedy ``decode_step``s of the full-width
-    config ``name`` (random weights from a seeded generator on the card),
-    phases 12 (yi-6b) and 13 (rwkv6-3b).  Returns the measurements."""
+def sync_wall(fn):
+    """Seconds of one call of ``fn``, card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _sub(params, i):
+    """Layer 0's parameters of sub-block ``i`` of the stack (views)."""
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda a: a[0], params["stack"][f"sub{i}"])
+
+
+def _first(cfg, key, kind):
+    """The first sub-block of the period whose ``key`` is ``kind``."""
+    from repro_torch.models import stacks
+    return next(i for i, e in enumerate(stacks._pattern_period(cfg))
+                if e[key] == kind)
+
+
+def routing(p, h, cfg):
+    """One MoE layer's decisions on its input h (B, S, D): each token's
+    experts (N, k) and whether each assignment is kept (N, k), and the
+    smallest relative gap between consecutive probabilities among its
+    first k + 1 (N,), on the host.  The experts and the ``keep`` flags are
+    ``moe._route``'s and ``moe._dispatch``'s own."""
+    import torch
+    from repro_torch.models import moe
+    k = cfg.moe.top_k
+    xf = h.reshape(-1, h.shape[-1])
+    N = xf.shape[0]
+    _, idx = moe._route(p, xf, cfg)
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)[0]
+    top = top[:, :k + 1]
+    margin = ((top[:, :-1] - top[:, 1:]) / top[:, :-1]).amin(dim=-1)
+    order, _, keep, _ = moe._dispatch(idx[None], cfg.moe.n_experts,
+                                      moe.capacity(cfg, N))
+    kept = torch.empty_like(keep[0])
+    kept[order[0]] = keep[0]
+    return (idx.cpu().numpy(), kept.reshape(N, k).cpu().numpy(),
+            margin.cpu().numpy())
+
+
+def drive_prefill(params, cfg, prompt, impl):
+    """The prefill's forward, sub-block by sub-block as
+    ``stacks.prefill_stack`` runs it (without the decode state): the last
+    position's logits and each MoE layer's :func:`routing`."""
+    from repro_torch.models import model, stacks
+    from repro_torch.models.layers import apply_norm, lm_head
+    x = model._embed(params, cfg, prompt)
+    period = stacks._pattern_period(cfg)
+    routes = []
+    for li in range(stacks._n_periods(params["stack"])):
+        for i, entry in enumerate(period):
+            p = stacks._layer(params["stack"][f"sub{i}"], li)
+            h = apply_norm(p["norm1"], x, cfg)
+            x = x + stacks._apply_mixer(p["mixer"], h, cfg, entry, None,
+                                        impl)
+            h = apply_norm(p["norm2"], x, cfg)
+            if entry["mlp"] == "moe":
+                routes.append(routing(p["mlp"], h, cfg))
+            x = x + stacks._apply_mlp_block(p["mlp"], h, cfg, entry)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return lm_head(params["embed"], x[:, -1:], cfg)[:, 0], routes
+
+
+def compare_routes(kernel, plain, S):
+    """Rule C12 over the MoE layers in order, kernel path against plain
+    path, for prompts of ``S`` tokens.  A token whose experts differ in a
+    prompt still compared is a flip: it fails unless its plain-path margin
+    is below ``ROUTE_NEAR_TIE``, and leaves its prompt out of the logits
+    comparison; so does a token whose experts agree and whose ``keep``
+    moved (capacity is shared by the whole batch).  More than
+    ``ROUTE_MAX_FLIPS`` near-tie flips fail.  Differences in a prompt
+    already left out are counted, not judged.  Returns the counts, the
+    smallest plain-path margin and the prompts left out."""
+    out = dict(flips=0, flip_margin=None, moved=0, downstream=0,
+               margin=float("inf"), left_out=set())
+    for layer, ((ik, kk, _), (ip, kp, mp)) in enumerate(zip(kernel, plain)):
+        out["margin"] = min(out["margin"], float(mp.min()))
+        seq = np.arange(ik.shape[0]) // S
+        live = ~np.isin(seq, sorted(out["left_out"]))
+        differs = (ik != ip).any(axis=1)
+        bad = differs & live & (mp >= ROUTE_NEAR_TIE)
+        if bad.any():
+            t = int(np.flatnonzero(bad)[0])
+            raise AssertionError(
+                f"MoE layer {layer}: token {t} routed to {ip[t].tolist()} on "
+                f"the plain path and {ik[t].tolist()} on the kernel path "
+                f"with a relative margin of {float(mp[t])!r} (near-tie "
+                f"limit {ROUTE_NEAR_TIE})")
+        flip = differs & live
+        moved = ~differs & live & (kk != kp).any(axis=1)
+        if moved.any() and not differs.any():
+            raise AssertionError(f"MoE layer {layer}: keep differs where "
+                                 f"every token's experts agree")
+        out["flips"] += int(flip.sum())
+        if out["flips"] > ROUTE_MAX_FLIPS:
+            raise AssertionError(
+                f"MoE layer {layer}: {out['flips']} near-tie flips so far, "
+                f"more than the {ROUTE_MAX_FLIPS} allowed")
+        if flip.any():
+            worst = float(mp[flip].max())
+            out["flip_margin"] = max(out["flip_margin"] or 0.0, worst)
+        out["moved"] += int(moved.sum())
+        out["downstream"] += int((differs & ~live).sum())
+        out["left_out"] |= {int(s) for s in seq[flip | moved]}
+    return out
+
+
+def kept_prompts(routes, B):
+    """The prompts of ``B`` that rule C12 leaves in the logits comparison
+    (``routes`` from :func:`compare_routes`); raises when none is left."""
+    kept = [b for b in range(B) if b not in routes["left_out"]]
+    if not kept:
+        raise AssertionError(f"routing differences left all {B} prompts "
+                             f"out of the logits comparison")
+    return kept
+
+
+def flash_times(q, k, v, window):
+    """Times of flash at these inputs: the device time per launch
+    (``launch_ms``, ``LM_ROUNDS`` rounds each) of the bf16 kernel,
+    ``F.scaled_dot_product_attention`` (causal; with a window, an explicit
+    boolean mask) with ``enable_gqa`` and the float32 instantiation; the
+    plain version by ``cuda_ms`` (its thousands of launches fill the
+    stream's queue behind a spin, which then blocks the host); and the
+    largest |SDPA - kernel|.  Before timing, the bf16 kernel and the
+    float32 instantiation are held to the plain version on these inputs
+    at ``FA_TOL``; a disagreement raises."""
     import torch
     import torch.nn.functional as F
-    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(           # noqa
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(           # noqa
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    run = lambda: fa.flash_attention(q, k, v, causal=True,      # noqa
+                                     window=window)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32 = lambda: fa.flash_attention(q32, k32, v32, causal=True,  # noqa
+                                     window=window)
+    plain = lambda x: fa.flash_attention_plain(                 # noqa
+        *x, causal=True, window=window)
+    shape = (tuple(q.shape), tuple(k.shape), window)
+    try:
+        out = {"err_bf16": _close_ulps(run(), plain((q, k, v)),
+                                       *FA_TOL["bfloat16"]),
+               "err_f32": _close(f32(), plain((q32, k32, v32)),
+                                 FA_TOL["float32"])}
+    except AssertionError as e:
+        raise AssertionError(f"flash_attention at the served shape "
+                             f"{shape}: {e}") from None
+    out["lib_err"] = float((lib().transpose(1, 2).float()
+                            - run().float()).abs().max())
+    for key, fn in (("k", run), ("lib", lib), ("f32", f32)):
+        fn()                                # warm up
+        ts = [launch_ms([fn])[0] for _ in range(LM_ROUNDS)]
+        out[f"{key}_times"] = ts
+        out[f"{key}_ms"] = float(np.median(ts))
+    out["p_ms"] = cuda_ms(lambda: plain((q, k, v)), 3)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(name, dev, seed):
+    """Serve the prompts of :data:`SERVE` (seeded tokens) through
+    ``prefill`` and ``LM_DECODE`` greedy ``decode_step``s of the full-width
+    config ``name`` (random weights from a seeded generator on the card,
+    depth cut as stated there): phases 12 (yi-6b), 13 (rwkv6-3b), 16
+    (mixtral-8x7b) and 17 (jamba-v0.1-52b).  Returns the measurements."""
+    import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rwkv6 import kernel as wk
-    from repro_torch.models import LM, attention, decode_step, prefill, ssm
+    from repro_torch.models import (LM, attention, decode_step, moe,
+                                    prefill, ssm)
     from repro_torch.models.layers import apply_norm, embed_tokens
-    cfg = configs.get(name)
-    dense = cfg.family != "ssm"
-    impl = "flash" if dense else "auto"
-    counter = fa.flash_attention if dense else wk.wkv6_scan
-    out = {}
+    cfg, batch, S = serve_config(name)
+    pattern = cfg.block_pattern()
+    n_attn = sum(e["mixer"] == "attn" for e in pattern)
+    rwkv = cfg.family == "ssm"
+    routed = cfg.moe is not None
+    impl = "auto" if rwkv else "flash"
+    counter = wk.wkv6_scan if rwkv else fa.flash_attention
+    out = {"cfg": cfg, "batch": batch, "S": S}
+    qkv = None                  # layer 0's attention inputs, when timed
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         t0 = time.perf_counter()
         lm = LM(cfg, generator=torch.Generator(dev).manual_seed(seed),
@@ -2488,7 +2744,7 @@ def phase_serve(name, dev, seed):
         out["param_bytes"] = sum(p.numel() * p.element_size()
                                  for p in lm.parameters())
         prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+            0, cfg.vocab, (batch, S))).to(dev)
 
         # warm-up (cuBLAS handles, allocator) on a short prompt
         prefill(params, cfg, prompt[:, :64], 66, attn_impl=impl)
@@ -2498,10 +2754,10 @@ def phase_serve(name, dev, seed):
         logits, gen, out["prefill_s"], out["decode_s"] = _serve(
             params, cfg, prompt, impl)
         out["launches"] = counter.launches
-        out["other_launches"] = (wk.wkv6_scan.launches if dense
-                                 else fa.flash_attention.launches)
-        per_prefill = cfg.n_layers
-        per_step = 0 if dense else cfg.n_layers
+        out["other_launches"] = (fa.flash_attention.launches if rwkv
+                                 else wk.wkv6_scan.launches)
+        per_prefill = cfg.n_layers if rwkv else n_attn
+        per_step = cfg.n_layers if rwkv else 0
         want = per_prefill + LM_DECODE * per_step
         if out["launches"] != want or out["other_launches"]:
             raise AssertionError(
@@ -2509,40 +2765,23 @@ def phase_serve(name, dev, seed):
                 f"times (want {want}: {per_prefill} per prefill, {per_step}"
                 f" per decode step), the other kernel "
                 f"{out['other_launches']}")
+        out["per_prefill"] = per_prefill
         if not all(bool(lg.isfinite().all()) for lg in logits):
             raise AssertionError(f"{name}: non-finite bf16 logits")
         out["gen"] = gen[0, :8].tolist()
+        del logits
 
-        # the kernel's time on layer 0's inputs of this prefill
-        p0 = _layer0(params)
-        h = apply_norm(p0["norm1"], embed_tokens(params["embed"], prompt,
-                                                 cfg), cfg)
-        if dense:
-            pos = torch.arange(LM_PROMPT, device=dev)[None, :]
-            q, k, v = attention._qkv(p0["mixer"], h, cfg, pos)
-            run = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa
-            plain = lambda: fa.flash_attention_plain(q, k, v,       # noqa
-                                                     causal=True)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = lambda: F.scaled_dot_product_attention(           # noqa
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            out["lib_err"] = float((lib().transpose(1, 2).float()
-                                    - run().float()).abs().max())
-            out["lib_ms"] = cuda_ms(lib, 10)
-            out["bound"] = flash_bound_ms(q, k, True, None)
-            out["k_ms"] = cuda_ms(run, 10)
-            out["p_ms"] = cuda_ms(plain, 3)
-            # the float32 instantiation (CUDA cores) at the same shape
-            q, k, v = (x.float() for x in (q, k, v))
-            out["f32_ms"] = cuda_ms(
-                lambda: fa.flash_attention(q, k, v, causal=True), 5)
-            del q, k, v, qt, kt, vt
-        else:
+        # layer-0-style inputs: the embedded prompt through a sub-block's
+        # first norm (its attention, Mamba or MoE parameters)
+        x0 = embed_tokens(params["embed"], prompt, cfg)
+        if rwkv:
+            p0 = _sub(params, 0)
+            h = apply_norm(p0["norm1"], x0, cfg)
             r, k, v, _, w = ssm._tmix_proj(p0["mixer"], h, ssm._shift(h),
                                            cfg)
             u = p0["mixer"]["u"].float()
             H, hs = ssm._rwkv_dims(cfg)
-            s0 = torch.zeros((LM_BATCH, H, hs, hs), device=dev)
+            s0 = torch.zeros((batch, H, hs, hs), device=dev)
             # a decode step's inputs are contiguous (B, 1, H, hs) products
             r1, k1, v1, w1 = (x[:, :1].contiguous() for x in (r, k, v, w))
             run = lambda: wk.wkv6_scan(r, k, v, w, u, s0)            # noqa
@@ -2558,92 +2797,239 @@ def phase_serve(name, dev, seed):
             out["step_ms"] = float(np.median(out["step_times"]))
             out["p_ms"] = cuda_ms(plain, 1)
             del r, k, v, w, r1, k1, v1, w1
-        del h, logits
+        elif name in ("yi-6b", "mixtral-8x7b"):
+            # flash at its prefill shape, timed once the weights are freed
+            p0 = _sub(params, 0)
+            h = apply_norm(p0["norm1"], x0, cfg)
+            pos = torch.arange(S, device=dev)[None, :]
+            qkv = attention._qkv(p0["mixer"], h, cfg, pos)
+            out["bound"] = flash_bound_ms(qkv[0], qkv[1], True, cfg.window)
+        if routed:
+            # one Mamba mixer and one MoE block on layer-0-style inputs
+            if cfg.mamba is not None:
+                pm = _sub(params, _first(cfg, "mixer", "mamba"))
+                h = apply_norm(pm["norm1"], x0, cfg)
+                out["mamba_s"] = sync_wall(
+                    lambda: ssm.apply_mamba(pm["mixer"], h, cfg))
+            pe = _sub(params, _first(cfg, "mlp", "moe"))
+            h = apply_norm(pe["norm2"], x0, cfg)
+            out["moe_s"] = sync_wall(lambda: moe.apply_moe(pe["mlp"], h,
+                                                           cfg))
+        del h, x0
 
         # where one prefill and one decode step spend the card's time
         box = {}
         out["prof_prefill"] = device_breakdown(lambda: box.update(
-            st=prefill(params, cfg, prompt, LM_PROMPT + LM_DECODE,
+            st=prefill(params, cfg, prompt, _cache_len(cfg, S),
                        attn_impl=impl)[1]))
         out["prof_decode"] = device_breakdown(lambda: decode_step(
-            params, cfg, gen[:, 0], box["st"], LM_PROMPT))
+            params, cfg, gen[:, 0], box["st"], S))
         del box
 
         # float32 activations: the same weights, checked
         cfg32 = cfg.replace(dtype="float32")
-        logits32, gen32, _, _ = _serve(params, cfg32, prompt, impl)
-        if dense:
-            ref, _ = prefill(params, cfg32, prompt, LM_PROMPT,
-                             attn_impl="dense")
+        if routed:
+            check_routed(out, params, cfg32, prompt, name)
         else:
-            ssm.wkv6_scan = wk.wkv6_scan_plain
-            try:
-                ref, _ = prefill(params, cfg32, prompt, LM_PROMPT)
-            finally:
-                ssm.wkv6_scan = wk.wkv6_scan
-        out["prefill_err"] = _close(logits32[0], ref, LM_F32_TOL)
-        del ref
-        out["decode_err"] = _check_decode(
-            params, cfg32, prompt, logits32, gen32,
-            "dense" if dense else "auto")
-        out["logit_max"] = max(float(lg.abs().max()) for lg in logits32)
-        del lm, params, logits32
+            logits32, gen32, _, _ = _serve(params, cfg32, prompt, impl)
+            if rwkv:
+                ssm.wkv6_scan = wk.wkv6_scan_plain
+                try:
+                    ref, _ = prefill(params, cfg32, prompt, S)
+                finally:
+                    ssm.wkv6_scan = wk.wkv6_scan
+            else:
+                ref, _ = prefill(params, cfg32, prompt, S,
+                                 attn_impl="dense")
+            out["prefill_err"] = _close(logits32[0], ref, LM_F32_TOL)
+            del ref
+            out["decode_err"] = _check_decode(
+                params, cfg32, prompt, logits32, gen32,
+                "auto" if rwkv else "dense")
+            out["logit_max"] = max(float(lg.abs().max()) for lg in logits32)
+            del logits32
+        del lm, params
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
+    if qkv is not None:
+        with torch.inference_mode():
+            out.update(flash_times(*qkv, cfg.window))
+        del qkv
+        torch.cuda.empty_cache()
     return out
 
 
-def serve_line(label, name, r) -> str:
-    """Phase 11's or 12's line of numbers, from ``phase_serve``'s result."""
-    kname = "flash_attention" if name == "yi-6b" else "wkv6"
-    ntok = LM_BATCH * LM_PROMPT
+def _cache_len(cfg, S):
+    """The decode cache of a prompt of ``S`` tokens and ``LM_DECODE``
+    steps (the window's size where the config has one)."""
+    from repro_torch import configs
+    return configs.decode_cache_len(cfg, S + LM_DECODE)
+
+
+def check_routed(out, params, cfg32, prompt, name):
+    """Checks (a)-(c) of phases 16 and 17, in float32 activations, into
+    ``out``: (a) the prefill logits of the kernel path (flash's float32
+    instantiation) against the plain path (``attn_impl="chunked"``) under
+    rule C12, the kernel path's also against ``prefill``'s own; (b) a
+    drop-free prefill of prompt 0 (:data:`DROP_FREE_PROMPT` tokens) and
+    ``LM_DECODE`` steps against ``forward``; (c) ``apply_moe`` against
+    ``apply_moe_dense``, drop-free, on prompt 0's layer-0-style inputs."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe, prefill
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    B, S = prompt.shape
+    lg_k, routes_k = drive_prefill(params, cfg32, prompt, "flash")
+    lg_p, routes_p = drive_prefill(params, cfg32, prompt, "chunked")
+    ref, _ = prefill(params, cfg32, prompt, _cache_len(cfg32, S),
+                     attn_impl="flash")
+    out["drive_bitwise"] = bool(torch.equal(ref, lg_k))
+    out["drive_err"] = _close(lg_k, ref, 1e-6)
+    del ref
+    rc = out["routes"] = compare_routes(routes_k, routes_p, S)
+    out["n_routes"] = len(routes_k) * routes_k[0][0].shape[0]
+    kept = kept_prompts(rc, B)
+    out["prefill_err"] = _close(lg_k[kept], lg_p[kept], LM_F32_TOL)
+    out["logit_max"] = float(torch.maximum(lg_k.abs().max(),
+                                           lg_p.abs().max()))
+    del lg_k, lg_p, routes_k, routes_p
+
+    m = cfg32.moe
+    free = cfg32.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    p0 = prompt[:1, :DROP_FREE_PROMPT[name]]
+    logits, gen, _, _ = _serve(params, free, p0, "flash")
+    out["decode_err"] = _check_decode(params, free, p0, logits, gen,
+                                      "flash")
+    out["drop_free_tokens"] = p0.shape[1]
+    del logits
+
+    pe = _sub(params, _first(free, "mlp", "moe"))
+    h = apply_norm(pe["norm2"], embed_tokens(params["embed"], prompt[:1],
+                                             free), free)
+    out["dense_err"] = _close(moe.apply_moe(pe["mlp"], h, free),
+                              moe.apply_moe_dense(pe["mlp"], h, free),
+                              MOE_DENSE_TOL)
+    out["dense_tokens"] = h.shape[1]
+    del h
+
+
+def _flash_readings(r) -> str:
+    """flash's launch_ms readings of a serve phase, as text."""
     bound, bound_by, b_bytes, b_ops = r["bound"]
-    ops_per_s = (BF16_TENSOR_OPS_PER_S if name == "yi-6b"
-                 else FP32_OPS_PER_S)
-    rate = b_ops / r["k_ms"] * ops_per_s / 1e12   # function ops / time
-    if "k_times" in r:
-        ktime = (f"{r['k_ms']:.4f} ms device per launch (launch_ms, median "
-                 f"(min, max) of {len(r['k_times'])}: "
-                 f"{spread(r['k_times'])})")
-        extra = (f"one decode step's launch (T = 1) {r['step_ms']:.4f} ms "
-                 f"device ({spread(r['step_times'])})")
+    rate = b_ops / r["k_ms"] * BF16_TENSOR_OPS_PER_S / 1e12
+    return (f"vs flash_attention_plain on these inputs: bf16 max |diff| "
+            f"{r['err_bf16'][0]} ({r['err_bf16'][1]:.3f} ulps beyond "
+            f"{FA_TOL['bfloat16'][1]}, tol {FA_TOL['bfloat16'][0]}), f32 "
+            f"max |diff| {r['err_f32'][0]} (share of tol "
+            f"{FA_TOL['float32']}: {r['err_f32'][1]:.3f}); "
+            f"kernel {r['k_ms']:.4f} ms device per launch (launch_ms, "
+            f"median (min, max) of {len(r['k_times'])}: "
+            f"{spread(r['k_times'])}; {rate:.1f} TFLOP/s of the "
+            f"function's operations, {bound / r['k_ms']:.4f} of the "
+            f"bound), plain {r['p_ms']:.4f} ms (cuda_ms), "
+            f"F.scaled_dot_product_attention("
+            + ("is_causal" if r["cfg"].window is None
+               else f"boolean window mask {r['cfg'].window}")
+            + f", enable_gqa) {r['lib_ms']:.4f} ms device "
+            f"({spread(r['lib_times'])}; kernel / SDPA "
+            f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
+            f"{r['lib_err']}), f32 instantiation {r['f32_ms']:.4f} ms "
+            f"device ({spread(r['f32_times'])}), bound {bound:.4f} ms "
+            f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
+            f"{b_ops:.4f} ms), kernel / bound {r['k_ms'] / bound:.2f}")
+
+
+def _serve_head(label, name, r) -> str:
+    from repro_torch import configs
+    cfg = r["cfg"]
+    ntok = r["batch"] * r["S"]
+    full = configs.get(name).n_layers
+    depth = ("" if cfg.n_layers == full
+             else f" (depth cut to {cfg.n_layers} of {full} layers)")
+    return (f"{label}: {name} at full width{depth}, "
+            f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
+            f"{r['init_s']:.2f} s; {r['batch']} x {r['S']}-token prompts "
+            f"+ {LM_DECODE} greedy steps, bf16: prefill "
+            f"{r['prefill_s']:.4f} s = {ntok / r['prefill_s']:.0f} "
+            f"tokens/s, decode {r['decode_s']:.4f} s = "
+            f"{r['batch'] * LM_DECODE / r['decode_s']:.1f} tokens/s "
+            f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
+            f"tokens {r['gen']}; peak {r['peak_gb']:.2f} GB allocated "
+            f"before the kernel timings; ")
+
+
+def _prof_tail(r) -> str:
+    return (f" | profiled bf16 prefill: {_fmt_breakdown(*r['prof_prefill'])}"
+            f"; one decode step: {_fmt_breakdown(*r['prof_decode'])}")
+
+
+def serve_line(label, name, r) -> str:
+    """Phase 12's or 13's line of numbers, from ``phase_serve``'s result."""
+    kname = "flash_attention" if name == "yi-6b" else "wkv6"
+    if name == "yi-6b":
+        kernel = _flash_readings(r)
     else:
-        ktime = f"{r['k_ms']:.4f} ms"
-        extra = (f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
-                 f"{r['lib_ms']:.4f} ms on the same tensors (kernel / SDPA "
-                 f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
-                 f"{r['lib_err']})")
-    return (f"{label}: {name} at full width, "
-          f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
-          f"{r['init_s']:.2f} s; {LM_BATCH} x {LM_PROMPT}-token prompts "
-          f"+ {LM_DECODE} greedy steps, bf16: prefill "
-          f"{r['prefill_s']:.4f} s = {ntok / r['prefill_s']:.0f} "
-          f"tokens/s, decode {r['decode_s']:.4f} s = "
-          f"{LM_BATCH * LM_DECODE / r['decode_s']:.1f} tokens/s "
-          f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
-          f"tokens {r['gen']}; {kname} launches {r['launches']} "
-          f"(other LM kernel {r['other_launches']}); on layer 0's "
-          f"prefill inputs: kernel {ktime} ({rate:.1f} "
-          f"TFLOP/s of the function's operations, {bound / r['k_ms']:.4f} "
-          f"of the bound), plain "
-          f"{r['p_ms']:.4f} ms, {extra}, bound {bound:.4f} ms "
-          f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
-          f"{b_ops:.4f} ms), kernel / bound {r['k_ms'] / bound:.2f} | f32 "
-          f"activations: prefill logits vs "
-          + ("attn_impl='dense'" if name == "yi-6b"
-             else "the plain _wkv_scan path")
-          + f" max |diff| {r['prefill_err'][0]} (share of tol "
-          f"{r['prefill_err'][1]:.3f}), each decode step and the prefill "
-          f"vs forward over prompt + generated tokens max |diff| "
-          f"{r['decode_err'][0]} (share {r['decode_err'][1]:.3f}), max "
-          f"|logit| {r['logit_max']:.4f}, tol {LM_F32_TOL} | profiled "
-          f"bf16 prefill: {_fmt_breakdown(*r['prof_prefill'])}; one "
-          f"decode step: {_fmt_breakdown(*r['prof_decode'])}")
+        bound, bound_by, b_bytes, b_ops = r["bound"]
+        rate = b_ops / r["k_ms"] * FP32_OPS_PER_S / 1e12
+        kernel = (f"kernel {r['k_ms']:.4f} ms device per launch (launch_ms,"
+                  f" median (min, max) of {len(r['k_times'])}: "
+                  f"{spread(r['k_times'])}; {rate:.1f} TFLOP/s of the "
+                  f"function's operations, {bound / r['k_ms']:.4f} of the "
+                  f"bound), plain {r['p_ms']:.4f} ms, one decode step's "
+                  f"launch (T = 1) {r['step_ms']:.4f} ms device "
+                  f"({spread(r['step_times'])}), bound {bound:.4f} ms "
+                  f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
+                  f"{b_ops:.4f} ms), kernel / bound {r['k_ms'] / bound:.2f}")
+    return (_serve_head(label, name, r)
+            + f"{kname} launches {r['launches']} (other LM kernel "
+            f"{r['other_launches']}); on layer 0's prefill inputs: {kernel}"
+            f" | f32 activations: prefill logits vs "
+            + ("attn_impl='dense'" if name == "yi-6b"
+               else "the plain _wkv_scan path")
+            + f" max |diff| {r['prefill_err'][0]} (share of tol "
+            f"{r['prefill_err'][1]:.3f}), each decode step and the prefill "
+            f"vs forward over prompt + generated tokens max |diff| "
+            f"{r['decode_err'][0]} (share {r['decode_err'][1]:.3f}), max "
+            f"|logit| {r['logit_max']:.4f}, tol {LM_F32_TOL}"
+            + _prof_tail(r))
 
 
-def _layer0(params):
-    """Layer 0's parameters of a one-sub-block stack (views)."""
-    from repro_torch.models.layers import tree_map
-    return tree_map(lambda a: a[0], params["stack"]["sub0"])
+def routed_line(label, name, r) -> str:
+    """Phase 16's or 17's line of numbers, from ``phase_serve``'s result."""
+    cfg, rc = r["cfg"], r["routes"]
+    walls = (f"one MoE block {r['moe_s']:.4f} s"
+             + (f", one Mamba mixer {r['mamba_s']:.4f} s ({r['S']} steps "
+                f"of its time loop)" if "mamba_s" in r else ""))
+    flash = (f"; flash at ({r['batch']}, {r['S']}, {cfg.n_heads}/"
+             f"{cfg.n_kv_heads}, {cfg.head_dim}, window {cfg.window}) on "
+             f"layer 0's prefill inputs: {_flash_readings(r)}"
+             if "k_ms" in r else "")
+    pe = r["prefill_err"]
+    left = sorted(rc["left_out"])
+    kept = [b for b in range(r["batch"]) if b not in rc["left_out"]]
+    return (_serve_head(label, name, r)
+            + f"flash_attention launches {r['launches']} ({r['per_prefill']}"
+            f" per prefill, 0 per decode step; wkv6 {r['other_launches']})"
+            f"; wall on layer-0-style inputs, card synchronised: {walls}"
+            f"{flash} | f32 activations: (a) kernel path (flash f32) vs "
+            f"plain path (chunked), {r['n_routes']} routings: smallest "
+            f"top-k margin {rc['margin']!r}, near-tie flips {rc['flips']} "
+            f"(at most {ROUTE_MAX_FLIPS}; largest margin among them "
+            f"{rc['flip_margin']!r}, limit {ROUTE_NEAR_TIE}), keep moved "
+            f"{rc['moved']}, differences in left-out prompts "
+            f"{rc['downstream']}, prompts left out {left}; prefill logits "
+            f"of prompts {kept} max |diff| {pe[0]} (share of tol "
+            f"{pe[1]:.3f}), max |logit| {r['logit_max']:.4f}, tol {LM_F32_TOL}; the "
+            f"driven kernel path vs prefill's logits max |diff| "
+            f"{r['drive_err'][0]} (bitwise {r['drive_bitwise']}) | (b) "
+            f"drop-free (capacity_factor = n_experts / top_k): prompt 0's "
+            f"{r['drop_free_tokens']} tokens + {LM_DECODE} steps vs forward"
+            f" max |diff| {r['decode_err'][0]} (share "
+            f"{r['decode_err'][1]:.3f}) | (c) apply_moe vs apply_moe_dense,"
+            f" drop-free, {r['dense_tokens']} tokens, f32: max |diff| "
+            f"{r['dense_err'][0]} (share of tol {MOE_DENSE_TOL}: "
+            f"{r['dense_err'][1]:.3f})" + _prof_tail(r))
 
 
 def main() -> int:
@@ -2866,7 +3252,8 @@ def main() -> int:
     print(f"lm kernels: flash_attention vs flash_attention_plain on {n_fa} "
           f"cases (tests' FA_SHAPES in f32 and bf16, yi-6b's prefill "
           f"(4, 2048, 32/4 heads, 128) f32 and bf16 causal, and with window "
-          f"512), max_abs_err {worst_fa}, bf16 worst {worst_ulps:.3f} "
+          f"512, mixtral's (2, 8192, 32/8, 128, window 4096) and jamba's "
+          f"(4, 2048, 32/8, 128) prefills f32 and bf16), max_abs_err {worst_fa}, bf16 worst {worst_ulps:.3f} "
           f"ulps beyond the {FA_TOL['bfloat16'][1]} floor (tol: f32 "
           f"{FA_TOL['float32']}, bf16 {FA_TOL['bfloat16'][0]} ulps + "
           f"{FA_TOL['bfloat16'][1]}); wkv6 vs "
@@ -2880,12 +3267,6 @@ def main() -> int:
     lm = {}
     for label, name in (("serve dense", "yi-6b"), ("serve rwkv", "rwkv6-3b")):
         r = lm[name] = phase_serve(name, dev, seed=0)
-        if name == "yi-6b":
-            print(f"flash f32: the float32 instantiation (CUDA cores) on "
-                  f"layer 0's prefill inputs cast to float32, (4, 2048, "
-                  f"32/4 heads, 128) causal: {r['f32_ms']:.4f} ms per "
-                  f"launch (bf16 tensor-core kernel {r['k_ms']:.4f} ms)",
-                  flush=True)
         print(serve_line(label, name, r), flush=True)
 
     # 14. multi-job scenarios through the engine body
@@ -2946,6 +3327,14 @@ def main() -> int:
           + "; ".join(f"{k}: {n} topologies in {w!r} s, {n / w!r} "
                       f"topologies/s, stable share {st!r}"
                       for k, (n, w, st) in e.items()), flush=True)
+
+    # 16. and 17. serving MoE (mixtral-8x7b) and hybrid (jamba-v0.1-52b)
+    # at full width, depth cut to what 80 GB holds in f32
+    torch.cuda.empty_cache()
+    for label, name in (("serve moe", "mixtral-8x7b"),
+                        ("serve hybrid", "jamba-v0.1-52b")):
+        print(routed_line(label, name, phase_serve(name, dev, seed=0)),
+              flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

@@ -1,10 +1,8 @@
 """Architecture registry: the 10 assigned architectures (copies of the JAX
 package's config files; pure data).
 
-``get(name)`` accepts the hyphenated public ids.  Every config imports;
-the ones whose blocks are not ported yet (MoE: mixtral, llama4-scout;
-Mamba + MoE: jamba) raise ``NotImplementedError`` when a model is built
-(ROADMAP A9).
+``get(name)`` accepts the hyphenated public ids; every config builds a
+model of the port.
 """
 from __future__ import annotations
 

@@ -198,7 +198,7 @@ def prefill_attention(p, x, cfg: ArchConfig, cache_len: int, *,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
-                  device=None) -> dict:
+                  device="cuda") -> dict:
     """Ring-buffer KV cache.  ``slot_pos`` holds each slot's absolute
     position (-1 = empty); with sliding-window archs ``cache_len`` may be
     just the window size."""

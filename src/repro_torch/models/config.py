@@ -9,8 +9,7 @@ and attention-free SSM (rwkv6).  Family-specific blocks are selected by
 
 Modality frontends ([audio]/[vlm]) are STUBS by assignment: such configs
 (``embedding_inputs``) take precomputed frame/patch embeddings, the
-backbone here is the transformer itself.  The port runs the dense-attention and RWKV6
-families; MoE and Mamba blocks raise ``NotImplementedError`` (ROADMAP A9).
+backbone here is the transformer itself.  The port serves every family.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ Plain functions on tensors take the JAX package's nested parameter dict
 (:func:`forward`, :func:`prefill`, :func:`decode_step`, ...), so tests
 compare like with like; :class:`LM` owns such a tree as an ``nn.Module``.
 Frontend-stubbed archs (``cfg.embedding_inputs``) take ``(B, S, d_model)``
-embeddings instead of token ids.  Entry points that allocate take
-``device=`` and default to ``"cuda"``.  ``loss_fn`` waits for the training
-slice (ROADMAP A9).
+embeddings instead of token ids.  Every block family runs: attention
+(dense, sliding window), MoE, Mamba and RWKV6 (``stacks``).  Entry points
+that allocate take ``device=`` and default to ``"cuda"``.  ``loss_fn``
+waits for the training slice (ROADMAP A9).
 """
 from __future__ import annotations
 

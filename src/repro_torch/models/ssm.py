@@ -1,11 +1,16 @@
-"""Linear-recurrence mixers: RWKV6 (finch).
+"""State-space / linear-recurrence mixers: Mamba (jamba) and RWKV6 (finch).
 
-The WKV recurrence runs in the hand-written CUDA kernel
+Mamba is the JAX package's selective scan in plain tensor ops, a Python
+loop over time (the reference runs a ``lax.scan`` and has no Pallas kernel
+for it), with its projections around it.  Serving runs the flat
+recurrence; the reference's time-chunked ``jax.checkpoint`` form exists
+for the backward pass only and computes the same steps.
+
+The WKV recurrence of RWKV6 runs in the hand-written CUDA kernel
 ``kernels.rwkv6`` (its plain PyTorch version on the CPU), with the decode
 state as its initial state, so prefill (T = S) and each decode step
 (T = 1) take the same path.  The projections around it are plain tensor
-ops, in the JAX package's op sequence.  Mamba (jamba) is not ported yet:
-its entry points raise ``NotImplementedError`` (ROADMAP A9).
+ops, in the JAX package's op sequence.
 """
 from __future__ import annotations
 
@@ -19,12 +24,115 @@ from .layers import P, torch_dtype
 F32 = torch.float32
 
 
-def _mamba_not_ported(*_args, **_kw):
-    raise NotImplementedError("Mamba blocks (jamba) are not ported to "
-                              "repro_torch yet (ROADMAP A9)")
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM)
+# ---------------------------------------------------------------------------
+
+def _mamba_dims(cfg: ArchConfig):
+    m = cfg.mamba
+    d_inner = m.expand * cfg.d_model
+    dt_rank = m.dt_rank or max(cfg.d_model // 16, 1)
+    return d_inner, dt_rank, m.d_state, m.d_conv
 
 
-mamba_decls = apply_mamba = init_mamba_state = mamba_step = _mamba_not_ported
+def mamba_decls(cfg: ArchConfig) -> dict:
+    di, dtr, ds, dc = _mamba_dims(cfg)
+    return {
+        "in_proj": P((cfg.d_model, 2 * di), ("embed", "inner")),
+        "conv_w": P((dc, di), ("conv", "inner")),
+        "conv_b": P((di,), ("inner",), "zeros"),
+        "x_proj": P((di, dtr + 2 * ds), ("inner", "proj")),
+        "dt_w": P((dtr, di), ("proj", "inner")),
+        "dt_b": P((di,), ("inner",), "zeros"),
+        "a_log": P((di, ds), ("inner", "state"), "arange_log"),
+        "d_skip": P((di,), ("inner",), "ones"),
+        "out_proj": P((di, cfg.d_model), ("inner", "embed"), "scaled"),
+    }
+
+
+def softplus(x):
+    """``jax.nn.softplus``'s form, ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))``, and ``x + 0`` where ``x`` is NaN.  (``F.softplus``
+    is ``log1p(exp(x))`` below its threshold and ``x`` above it, another
+    rounding.)"""
+    out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x + 0.0, out)
+
+
+def _mamba_pre(p, x, cfg: ArchConfig, conv_state=None):
+    """Shared projections. x: (B,S,D). Returns (xin, z, dt, Bc, Cc,
+    conv_tail)."""
+    di, dtr, ds, dc = _mamba_dims(cfg)
+    dt_ = x.dtype
+    xz = x @ p["in_proj"].to(dt_)
+    xin, z = torch.chunk(xz, 2, dim=-1)
+    # causal depthwise conv over time
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], dc - 1, di), dtype=dt_,
+                          device=x.device)
+    else:
+        pad = conv_state.to(dt_)
+    xin_p = torch.cat([pad, xin], dim=1)
+    conv_tail = xin_p[:, -(dc - 1):, :].clone()
+    w = p["conv_w"].to(dt_)
+    S = xin.shape[1]
+    # the reference's Python sum: 0 + term 0 + term 1 + ..., in that order
+    xin = sum(xin_p[:, i:i + S, :] * w[i] for i in range(dc))
+    xin = F.silu(xin + p["conv_b"].to(dt_))
+
+    xp = xin @ p["x_proj"].to(dt_)
+    dt_low, Bc, Cc = torch.split(xp, [dtr, ds, ds], dim=-1)
+    dt = softplus(dt_low @ p["dt_w"].to(dt_) + p["dt_b"].to(dt_)).to(F32)
+    return xin, z, dt, Bc.to(F32), Cc.to(F32), conv_tail
+
+
+def _mamba_scan(p, xin, dt, Bc, Cc, h0):
+    """h_t = exp(dt A) h + dt x B ; y_t = h C. Carries h (B,di,ds) f32.
+
+    A Python loop over the S steps.  Returns (h, y (B,S,di) f32)."""
+    A = -torch.exp(p["a_log"].to(F32))                    # (di, ds)
+    x = xin.to(F32)
+    h = h0
+    ys = []
+    for t in range(x.shape[1]):
+        dt_t = dt[:, t]                                   # (B, di)
+        dA = torch.exp(dt_t[..., None] * A)               # (B, di, ds)
+        h = h * dA + (dt_t * x[:, t])[..., None] * Bc[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def _mamba_out(p, x, y, xin, z):
+    dt_ = x.dtype
+    y = (y.to(dt_) + p["d_skip"].to(dt_) * xin) * F.silu(z)
+    return y @ p["out_proj"].to(dt_)
+
+
+def apply_mamba(p, x, cfg: ArchConfig, *, return_state: bool = False):
+    """Prefill / full-sequence path. x: (B,S,D)."""
+    di, _, ds, _ = _mamba_dims(cfg)
+    xin, z, dt, Bc, Cc, conv_tail = _mamba_pre(p, x, cfg)
+    h0 = torch.zeros((x.shape[0], di, ds), dtype=F32, device=x.device)
+    h, y = _mamba_scan(p, xin, dt, Bc, Cc, h0)
+    out = _mamba_out(p, x, y, xin, z)
+    if return_state:
+        return out, {"h": h, "conv": conv_tail}
+    return out
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, device="cuda") -> dict:
+    di, _, ds, dc = _mamba_dims(cfg)
+    return {"h": torch.zeros((batch, di, ds), dtype=F32, device=device),
+            "conv": torch.zeros((batch, dc - 1, di),
+                                dtype=torch_dtype(cfg.dtype), device=device)}
+
+
+def mamba_step(p, x, state, cfg: ArchConfig):
+    """One-token decode. x: (B,1,D)."""
+    xin, z, dt, Bc, Cc, conv_tail = _mamba_pre(p, x, cfg,
+                                               conv_state=state["conv"])
+    h, y = _mamba_scan(p, xin, dt, Bc, Cc, state["h"])
+    return _mamba_out(p, x, y, xin, z), {"h": h, "conv": conv_tail}
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +253,7 @@ def apply_rwkv_cmix(p, x, cfg: ArchConfig, x_prev=None):
     return torch.sigmoid(xr @ p["wr"].to(dt)) * (k @ p["wv"].to(dt))
 
 
-def init_rwkv_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+def init_rwkv_state(cfg: ArchConfig, batch: int, device="cuda") -> dict:
     H, hs = _rwkv_dims(cfg)
     D = cfg.d_model
     dt = torch_dtype(cfg.dtype)

@@ -4,14 +4,16 @@ Parameters are stacked on a leading ``layers`` axis per sub-block of the
 block pattern's smallest repeating period, as in the JAX package (whose
 ``lax.scan`` over that axis becomes a loop here; PyTorch runs eagerly and
 needs no rematerialisation for serving).  Decode states are stacked the same
-way and updated in place.  Blocks whose family is not ported yet (``moe``,
-``mamba``) raise ``NotImplementedError`` naming ROADMAP A9 (``_period``).
+way and updated in place.  Every block kind of the JAX package is here:
+mixers ``attn``, ``mamba``, ``rwkv``; mlps ``mlp``, ``moe``, ``rwkv_cmix``
+(jamba's period: 8 sub-blocks, one attention among seven Mamba mixers and
+MoE every other one).
 """
 from __future__ import annotations
 
 import torch
 
-from . import attention, ssm
+from . import attention, moe, ssm
 from .config import ArchConfig
 from .layers import (apply_mlp, apply_norm, mlp_decls, norm_decls,
                      stack_decls, torch_dtype, tree_items, tree_map)
@@ -25,21 +27,10 @@ def _pattern_period(cfg: ArchConfig) -> list[dict]:
     return pat
 
 
-MIXER_DECLS = {"attn": attention.attn_decls, "rwkv": ssm.rwkv_tmix_decls}
-MLP_DECLS = {"mlp": mlp_decls, "rwkv_cmix": ssm.rwkv_cmix_decls}
-
-
-def _period(cfg: ArchConfig) -> list[dict]:
-    """The block period, raising for a block the port does not have yet."""
-    period = _pattern_period(cfg)
-    for entry in period:
-        for kind, ported in ((entry["mixer"], MIXER_DECLS),
-                             (entry["mlp"], MLP_DECLS)):
-            if kind not in ported:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind} blocks are not ported to "
-                    f"repro_torch yet (ROADMAP A9)")
-    return period
+MIXER_DECLS = {"attn": attention.attn_decls, "mamba": ssm.mamba_decls,
+               "rwkv": ssm.rwkv_tmix_decls}
+MLP_DECLS = {"mlp": mlp_decls, "moe": moe.moe_decls,
+             "rwkv_cmix": ssm.rwkv_cmix_decls}
 
 
 def sub_block_decls(cfg: ArchConfig, entry: dict) -> dict:
@@ -53,7 +44,7 @@ def sub_block_decls(cfg: ArchConfig, entry: dict) -> dict:
 
 def stack_param_decls(cfg: ArchConfig) -> dict:
     """{"sub{i}": decls} stacked over n_layers/period periods."""
-    period = _period(cfg)
+    period = _pattern_period(cfg)
     if not period:                       # 0-layer variant
         return {}
     n_periods = cfg.n_layers // len(period)
@@ -72,21 +63,29 @@ def _n_periods(params: dict) -> int:
     return next(iter(tree_items(params)))[1].shape[0]
 
 
+def _apply_mixer(p, h, cfg: ArchConfig, entry: dict, positions,
+                 attn_impl: str):
+    """A sub-block's mixer on its normed input h (full sequence)."""
+    if entry["mixer"] == "attn":
+        return attention.apply_attention(p, h, cfg, positions,
+                                         impl=attn_impl)
+    if entry["mixer"] == "mamba":
+        return ssm.apply_mamba(p, h, cfg)
+    return ssm.apply_rwkv_tmix(p, h, cfg)
+
+
 def _apply_mlp_block(p, h, cfg: ArchConfig, entry: dict):
     if entry["mlp"] == "mlp":
         return apply_mlp(p, h, cfg)
+    if entry["mlp"] == "moe":
+        return moe.apply_moe(p, h, cfg)
     return ssm.apply_rwkv_cmix(p, h, cfg)
 
 
 def _apply_sub_block(p, x, cfg: ArchConfig, entry: dict, positions,
                      attn_impl: str):
     h = apply_norm(p["norm1"], x, cfg)
-    if entry["mixer"] == "attn":
-        out = attention.apply_attention(p["mixer"], h, cfg, positions,
-                                        impl=attn_impl)
-    else:
-        out = ssm.apply_rwkv_tmix(p["mixer"], h, cfg)
-    x = x + out
+    x = x + _apply_mixer(p["mixer"], h, cfg, entry, positions, attn_impl)
     h = apply_norm(p["norm2"], x, cfg)
     return x + _apply_mlp_block(p["mlp"], h, cfg, entry)
 
@@ -94,7 +93,7 @@ def _apply_sub_block(p, x, cfg: ArchConfig, entry: dict, positions,
 def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
                 attn_impl: str = "auto"):
     """Full-sequence forward through all layers.  x: (B,S,D)."""
-    period = _period(cfg)
+    period = _pattern_period(cfg)
     if not period:
         return x
     for li in range(_n_periods(params)):
@@ -109,9 +108,9 @@ def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
 # ---------------------------------------------------------------------------
 
 def init_stack_state(cfg: ArchConfig, batch: int, cache_len: int,
-                     device=None) -> dict:
+                     device="cuda") -> dict:
     """Stacked per-period decode states (KV caches / SSM states)."""
-    period = _period(cfg)
+    period = _pattern_period(cfg)
     if not period:
         return {}
     n_periods = cfg.n_layers // len(period)
@@ -126,6 +125,9 @@ def init_stack_state(cfg: ArchConfig, batch: int, cache_len: int,
         if entry["mixer"] == "attn":
             sub["mixer"] = stacked(attention.init_kv_cache(
                 cfg, batch, cache_len, device=device))
+        elif entry["mixer"] == "mamba":
+            sub["mixer"] = stacked(ssm.init_mamba_state(cfg, batch,
+                                                        device=device))
         else:
             sub["mixer"] = stacked(ssm.init_rwkv_state(cfg, batch,
                                                        device=device))
@@ -144,6 +146,9 @@ def _prefill_sub_block(p, x, cfg: ArchConfig, entry: dict, cache_len: int,
     if entry["mixer"] == "attn":
         out, new["mixer"] = attention.prefill_attention(
             p["mixer"], h, cfg, cache_len, impl=attn_impl)
+    elif entry["mixer"] == "mamba":
+        out, new["mixer"] = ssm.apply_mamba(p["mixer"], h, cfg,
+                                            return_state=True)
     else:
         out, new["mixer"] = ssm.apply_rwkv_tmix(p["mixer"], h, cfg,
                                                 return_state=True)
@@ -166,7 +171,7 @@ def _stack_states(states: list):
 def prefill_stack(params: dict, x, cfg: ArchConfig, cache_len: int, *,
                   attn_impl: str = "auto"):
     """Full-sequence forward that also returns stacked decode states."""
-    period = _period(cfg)
+    period = _pattern_period(cfg)
     if not period:
         return x, {}
     per_layer = []
@@ -186,6 +191,8 @@ def _step_sub_block(p, x, st, cfg: ArchConfig, entry: dict, t: int):
     if entry["mixer"] == "attn":
         out, new["mixer"] = attention.decode_attention(p["mixer"], h,
                                                        st["mixer"], cfg, t)
+    elif entry["mixer"] == "mamba":
+        out, new["mixer"] = ssm.mamba_step(p["mixer"], h, st["mixer"], cfg)
     else:
         out, new["mixer"] = ssm.rwkv_tmix_step(p["mixer"], h, st["mixer"],
                                                cfg)
@@ -212,7 +219,7 @@ def _write_back(dst, li: int, new) -> None:
 def step_stack(params: dict, x, state: dict, cfg: ArchConfig, t: int):
     """One-token decode through all layers.  x: (B,1,D); t: position.
     ``state`` is updated in place and returned."""
-    period = _period(cfg)
+    period = _pattern_period(cfg)
     if not period:
         return x, state
     for li in range(_n_periods(params)):

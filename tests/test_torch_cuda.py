@@ -16,7 +16,9 @@ card.  The LM kernels (``flash_attention``, ``wkv6``) are
 held against their plain versions (flash: float32 at 2e-6, summation
 order; bfloat16 at 2 bf16 ulps + 1e-4, the tensor-core path; wkv6's y at
 1e-4 and its final state bitwise), and the reduced yi-6b and rwkv6-3b
-serving paths on the card against the same paths on the CPU.  The engine
+serving paths on the card against the same paths on the CPU, and so the
+MoE and Mamba families (mixtral, llama4-scout, jamba; ``apply_moe`` with
+dropped assignments, ``apply_mamba`` and ``mamba_step``).  The engine
 body (multi-job lanes) runs on the card bit for bit as on the CPU, and as
 ``mr_epoch`` on single-job lanes.  Single-job lanes on the card hold to the
 port's sequential oracle (``refsim``) at the reference's tolerances, and
@@ -655,7 +657,8 @@ def test_lm_kernels_never_take_the_plain_path_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yi-6b", "rwkv6-3b"])
+@pytest.mark.parametrize("name", ["yi-6b", "rwkv6-3b", "mixtral-8x7b",
+                                  "llama4-scout-17b-a16e", "jamba-v0.1-52b"])
 def test_serving_on_card_matches_cpu(name):
     dev = _card()
     cfg = configs.get(name).reduced(dtype="float32")
@@ -680,8 +683,68 @@ def test_serving_on_card_matches_cpu(name):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     grew = (fa_kernel.flash_attention.launches - counts[0],
             wkv_kernel.wkv6_scan.launches - counts[1])
-    assert grew == ((cfg.n_layers, 0) if name == "yi-6b"
-                    else (0, 3 * cfg.n_layers))
+    n_attn = sum(e["mixer"] == "attn" for e in cfg.block_pattern())
+    assert grew == ((0, 3 * cfg.n_layers) if name == "rwkv6-3b"
+                    else (n_attn, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "llama4-scout-17b-a16e",
+                                  "jamba-v0.1-52b"])
+def test_moe_on_card_matches_cpu(name):
+    """``apply_moe`` with dropped assignments on the card: the routing and
+    the ``keep`` set exact, the output at 1e-5 (f32, the products'
+    summation order), as the same call on the CPU."""
+    from repro_torch.models import moe
+    dev = _card()
+    cfg = configs.get(name).reduced(dtype="float32")
+    rng = np.random.default_rng(3)
+    decls = moe.moe_decls(cfg)
+    cpu = {k: torch.from_numpy((0.3 * rng.standard_normal(p.shape))
+                               .astype(np.float32)) for k, p in decls.items()}
+    cpu["router"][0, 0] += 1.0                # expert 0 overflows
+    x = torch.from_numpy(rng.standard_normal((2, 48, cfg.d_model))
+                         .astype(np.float32))
+    x[..., 0] = 3.0
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        p = {k: v.to(d) for k, v in cpu.items()}
+        xd = x.to(d)
+        _, idx = moe._route(p, xd.reshape(-1, cfg.d_model), cfg)
+        C = moe.capacity(cfg, xd.shape[0] * xd.shape[1])
+        keep = moe._dispatch(idx[None], cfg.moe.n_experts, C)[2]
+        out[where] = [t.cpu() for t in (moe.apply_moe(p, xd, cfg), idx,
+                                        keep)]
+    assert not out["cpu"][2].all()
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(out["card"][1], out["cpu"][1])
+    assert torch.equal(out["card"][2], out["cpu"][2])
+
+
+@pytest.mark.cuda
+def test_mamba_on_card_matches_cpu():
+    """``apply_mamba`` with its state, then ``mamba_step``, on the card as
+    on the CPU (f32 at 1e-5: the products' summation order)."""
+    from repro_torch.models import ssm
+    dev = _card()
+    cfg = configs.get("jamba-v0.1-52b").reduced(dtype="float32")
+    cpu = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    p_cpu = tree_map(lambda a: a[0], cpu["stack"]["sub0"]["mixer"])
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        p = tree_map(lambda a: a.to(d), p_cpu)
+        y, st = ssm.apply_mamba(p, x[:, :32].to(d), cfg, return_state=True)
+        ys = [y]
+        for t in range(32, 40):
+            y, st = ssm.mamba_step(p, x[:, t:t + 1].to(d), st, cfg)
+            ys.append(y)
+        out[where] = [torch.cat(ys, dim=1).cpu(), st["h"].cpu(),
+                      st["conv"].cpu()]
+    for a, b in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 
