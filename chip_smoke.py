@@ -197,6 +197,30 @@ each printing one line of numbers:
               per prefill; the wall of one Mamba mixer (its Python time
               loop) and one MoE block; checks (a)-(c) as phase 16, (b) on
               prompt 0's first 512 tokens.
+18. train   — the training path, rwkv6-3b through the ``wkv6`` forward
+              kernel (keeping the state every 64 steps) and the
+              hand-written ``wkv6_bwd`` kernel: (a) ``wkv6_bwd`` against
+              ``wkv6_bwd_plain`` at rwkv6-3b's layer-0 training shape (4,
+              512, 40, 64) with zero and non-zero s0 and gs, T = 200 (not a
+              multiple of 64), T = 1 and head sizes 16 and 32, r/k/v f32
+              and bf16 (gr, gk, gv, gw, gu at 1e-4, gs0 bitwise, a second
+              run bitwise), ``WKV6`` against autograd through
+              ``wkv6_scan_plain``, the kernel's device time beside its
+              bound and the plain version's, and the forward's serving
+              launch beside the one that keeps states; (b) one AdamW step
+              at full width, 2 layers, f32, through the kernels against
+              the plain wkv6 forward and backward (loss, grad norm,
+              parameters, and ``wkv6_bwd`` on layer 0's own inputs); (c)
+              the main path: ``train()`` at full width and depth, f32
+              parameters, bf16 activations, 4 steps of 4 x 512 seeded
+              tokens from a seeded ``init_model``: 64 ``wkv6`` and 32
+              ``wkv6_bwd`` launches a step, losses and grad norms finite,
+              the first loss near its expected value; ms per step,
+              tokens/s, peak memory, a profiled step by kind and the
+              optimizer's time; (d) fault tolerance at a reduced rwkv6
+              under ``torch.use_deterministic_algorithms(True)``: kill and
+              resume, ``NodeFailure`` and replay, a stale ``.tmp``
+              checkpoint invisible to ``restore``.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -2501,6 +2525,7 @@ def device_breakdown(fn):
             continue
         name = e.name.lower()
         kind = ("flash_attention" if "flash_attention" in name else
+                "wkv6_bwd" if "wkv6_bwd_kernel" in name else
                 "wkv6" if "wkv6_kernel" in name else
                 "matmul" if any(t in name for t in (
                     "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
@@ -3032,6 +3057,510 @@ def routed_line(label, name, r) -> str:
             f"{r['dense_err'][1]:.3f})" + _prof_tail(r))
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training rwkv6-3b through wkv6 and wkv6_bwd
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512   # (c): 4 x 512 tokens a step
+TRAIN_STEPS = 4                   # (c): train() steps at full depth
+TRAIN_CUT = 2                     # (b): layers at full width, f32
+TRAIN_LR = 1e-3
+# (a): (B, H, T, hs, s0 and gs non-zero): rwkv6-3b's layer-0 training shape
+# as the model calls it (s0 zeros, the final state unused) and with both
+# non-zero, T not a multiple of the kernel's 64-step chunk, T = 1, and the
+# smaller head sizes; r/k/v in float32 and bfloat16 each
+WKV_BWD_CHECK_SHAPES = [(4, 40, 512, 64, False), (4, 40, 512, 64, True),
+                        (2, 8, 200, 64, True), (2, 8, 1, 64, True),
+                        (2, 3, 77, 16, True), (1, 4, 130, 32, True)]
+# wkv6_bwd against wkv6_bwd_plain (atol = rtol): gr, gk, gw, gv are hs-term
+# sums over a row or a column taken in another order (the kernel adds in
+# index order, torch's reductions in a tree), gu a sum over B x T terms;
+# the state's gradient G evolves by elementwise ops only, so gs0 is
+# compared bitwise.  WKV6 against autograd through wkv6_scan_plain the
+# same.
+WKV_BWD_TOL = 1e-4
+# (b) kernel path against the plain wkv6 forward and backward, one AdamW
+# step in float32.  The loss at rtol 1e-5.  The grad norm at rtol 5e-4: at
+# the first steps of a sequence the state is nearly empty, a head's y has a
+# variance of 1e-8 to 1e-6 against the group norm's eps of 1e-5, and the
+# norm's backward there turns y's summation-order difference (~1e-7
+# relative) into gradient differences of up to 1.4e-3 relative at t = 0
+# and 1; the grad norm moved by 8.1e-5 relative on an H100 (700 W),
+# while wkv6_bwd and wkv6_bwd_plain on the same inputs and gy agree to
+# ~1e-7 relative, which is checked at TRAIN_WKV_RTOL on layer 0's own call
+# (norms of the differences over the norms).  The parameters at atol 1e-6,
+# rtol 1e-5 but for at most TRAIN_BEYOND of them, all within 2.2 lr: AdamW
+# divides each gradient element by its own RMS, so a gradient near zero
+# can move its weight by up to lr either way (tests/test_torch_train.py
+# measures the same on the CPU).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 5e-4
+TRAIN_WKV_RTOL = 1e-5
+TRAIN_BEYOND = 1e-4
+
+
+def _plain_wkv6():
+    """wkv6's plain forward and backward on the card, as an autograd
+    Function: the reference path of phase 18 (b)."""
+    import torch
+    from repro_torch.kernels.rwkv6 import kernel as wk
+
+    class PlainWKV6(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, w, u, s0):
+            ctx.save_for_backward(r, k, v, w, u, s0)
+            return wk.wkv6_scan_plain(r, k, v, w, u, s0)
+
+        @staticmethod
+        def backward(ctx, gy, gs):
+            r, k, v, w, u, s0 = ctx.saved_tensors
+            g = wk.wkv6_bwd_plain(r, k, v, w, u, s0, gy, gs)
+            return (g[0].to(r.dtype), g[1].to(k.dtype), g[2].to(v.dtype),
+                    g[3], g[4], None if s0 is None else g[5])
+
+    def scan(r, k, v, w, u, s0=None):
+        return PlainWKV6.apply(r, k, v, w.float(), u.float(), s0)
+    return scan
+
+
+def wkv6_bwd_bound_ms(r, s_chk, gs):
+    """The least time for wkv6's gradient on these inputs: r, k, v, w, gy,
+    u, the kept states and gs read and gr, gk, gv, gw (float32), gu and
+    gs0 written once at the HBM rate, against 14 float32 operations per
+    step and state entry at the fp32 rate: 3 in the replay of the state
+    (k v, w S, +), 10 in the walk (G S, G v and gy S: a multiply and an
+    add each; k G; w G + r gy: three) and 1 in the column sum of k G (the
+    per-step row terms, r u k, gy·v and the u terms, are O(hs) and left
+    out)."""
+    B, T, H, hs = r.shape
+    n = r.numel()
+    nbytes = (3 * n * r.element_size() + 2 * 4 * n + 4 * H * hs
+              + 4 * s_chk.numel() + (0 if gs is None else 4 * gs.numel())
+              + 4 * 4 * n + 4 * H * hs + 4 * B * H * hs * hs)
+    ops = 14.0 * B * H * T * hs * hs
+    return _bound(nbytes, ops, FP32_OPS_PER_S)
+
+
+def _wkv_grad_inputs(B, H, T, hs, nonzero, rng, dev):
+    import torch
+    r, k, v = (0.5 * rng.standard_normal((B, T, H, hs)).astype(np.float32)
+               for _ in range(3))
+    w = rng.uniform(0.45, 0.95, (B, T, H, hs)).astype(np.float32)
+    u = (0.3 * rng.standard_normal((H, hs))).astype(np.float32)
+    gy = rng.standard_normal((B, T, H, hs)).astype(np.float32)
+    s0 = (0.2 * rng.standard_normal((B, H, hs, hs))).astype(np.float32)
+    gs = (0.5 * rng.standard_normal((B, H, hs, hs))).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)           # noqa: E731
+    return ([r, k, v], t(w), t(u), t(s0) if nonzero else None, t(gy),
+            t(gs) if nonzero else None)
+
+
+def phase_train_kernels(dev, seed=0):
+    """Phase 18 (a): ``wkv6_bwd`` against ``wkv6_bwd_plain`` on the card
+    (``WKV_BWD_CHECK_SHAPES``, r/k/v float32 and bfloat16), bitwise the
+    same on a second run, ``WKV6`` against ``torch.autograd`` through
+    ``wkv6_scan_plain``; then the kernel's device time at rwkv6-3b's
+    training shape (bf16, as the model calls it) beside its bound and the
+    plain version's, and the forward's with and without the kept
+    states."""
+    import torch
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    rng = np.random.default_rng(seed)
+    worst, share, cases = 0.0, 0.0, 0
+    for B, H, T, hs, nonzero in WKV_BWD_CHECK_SHAPES:
+        rkv, w, u, s0, gy, gs = _wkv_grad_inputs(B, H, T, hs, nonzero, rng,
+                                                 dev)
+        for dt in (torch.float32, torch.bfloat16):
+            r, k, v = (torch.from_numpy(a).to(dev, dt) for a in rkv)
+            _, _, s_chk = wk.wkv6_fwd(r, k, v, w, u, s0)
+            got = wk.wkv6_bwd(r, k, v, w, u, s_chk, gy, gs)
+            again = wk.wkv6_bwd(r, k, v, w, u, s_chk, gy, gs)
+            want = wk.wkv6_bwd_plain(r, k, v, w, u, s0, gy, gs)
+            what = f"wkv6_bwd {dt} {(B, H, T, hs)} s0/gs {nonzero}"
+            for name, a, b, c in zip(("gr", "gk", "gv", "gw", "gu"), got,
+                                     want, again):
+                try:
+                    e, sh = _close(a, b, WKV_BWD_TOL)
+                except AssertionError as err:
+                    raise AssertionError(f"{what} {name}: {err}") from None
+                worst, share = max(worst, e), max(share, sh)
+                if not torch.equal(a, c):
+                    raise AssertionError(f"{what} {name}: a second run "
+                                         f"differs (not deterministic)")
+            if not (torch.equal(got[5], want[5])
+                    and torch.equal(got[5], again[5])):
+                raise AssertionError(f"{what}: gs0 is not the plain "
+                                     f"version's bit for bit")
+            cases += 1
+    # WKV6 (kernel forward + backward) against autograd through the plain
+    # forward, on the card
+    rkv, w, u, s0, gy, gs = _wkv_grad_inputs(2, 8, 200, 64, True, rng, dev)
+    xs = [torch.from_numpy(a).to(dev) for a in rkv] + [w, u, s0]
+    xs = [x.clone().requires_grad_() for x in xs]
+    got = torch.autograd.grad(wk.wkv6_scan(*xs), xs, (gy, gs))
+    want = torch.autograd.grad(wk.wkv6_scan_plain(*xs), xs, (gy, gs))
+    auto = (0.0, 0.0)
+    for name, a, b in zip(("r", "k", "v", "w", "u", "s0"), got, want):
+        try:
+            auto = _worst(auto, _close(a, b, WKV_BWD_TOL))
+        except AssertionError as err:
+            raise AssertionError(f"WKV6 vs autograd {name}: {err}") from None
+    # device times at the training shape: the model's call (bf16 r/k/v,
+    # zero s0, final state unused)
+    B, H, T, hs = TRAIN_BATCH, 40, TRAIN_SEQ, 64
+    rkv, w, u, _, gy, _ = _wkv_grad_inputs(B, H, T, hs, False, rng, dev)
+    r, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in rkv)
+    s0 = torch.zeros((B, H, hs, hs), device=dev)
+    _, _, s_chk = wk.wkv6_fwd(r, k, v, w, u, s0)
+    bwd = lambda: wk.wkv6_bwd(r, k, v, w, u, s_chk, gy)        # noqa: E731
+    fwd_keep = lambda: wk.wkv6_fwd(r, k, v, w, u, s0)          # noqa: E731
+    fwd = lambda: wk.wkv6_scan(r, k, v, w, u, s0)              # noqa: E731
+    bwd(), fwd_keep(), fwd()                                   # warm up
+    rounds = [launch_ms([bwd, fwd, fwd_keep]) for _ in range(LM_ROUNDS)]
+    b_t, f_t, k_t = (list(x) for x in zip(*rounds))
+    return dict(cases=cases, worst=worst, share=share, auto=auto,
+                b_times=b_t, b_ms=float(np.median(b_t)), f_times=f_t,
+                k_times=k_t,
+                p_ms=cuda_ms(lambda: wk.wkv6_bwd_plain(r, k, v, w, u, s0,
+                                                       gy), 1),
+                bound=wkv6_bwd_bound_ms(r, s_chk, None))
+
+
+def _train_cfg(layers=None, dtype=None):
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def _train_opt():
+    from repro_torch.train import OptConfig
+    return OptConfig(lr=TRAIN_LR, warmup_steps=10)
+
+
+def phase_train_cut(dev, seed=1):
+    """Phase 18 (b): one AdamW step of rwkv6-3b at full width, depth cut to
+    ``TRAIN_CUT`` layers, float32 activations, through the kernels against
+    the same step with wkv6's plain forward and backward."""
+    import torch
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.models import init_model, ssm
+    from repro_torch.models.layers import tree_items
+    from repro_torch.train import data, make_train_step, optimizer
+    cfg = _train_cfg(TRAIN_CUT, "float32")
+    ocfg = _train_opt().replace(total_steps=1)
+    params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    twin, calls = {}, []
+
+    def recording(r, k, v, w, u, s0=None):
+        # the kernel path's wkv6 calls: inputs, and gy by a hook on y
+        y, s = wk.wkv6_scan(r, k, v, w, u, s0)
+        c = {"in": [x.detach() for x in (r, k, v, w, u, s0)]}
+        if y.requires_grad:
+            y.register_hook(lambda g: c.__setitem__("gy", g.detach()))
+        calls.append(c)
+        return y, s
+    batch = data.batch_at(data.DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                          seed=seed), 0, device=dev)
+    step = make_train_step(cfg, ocfg, device=dev)
+    out = {}
+    for path in ("kernel", "plain"):
+        p = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev) \
+            if path == "plain" else params
+        counts = (wk.wkv6_scan.launches, wk.wkv6_bwd.launches)
+        ssm.wkv6_scan = _plain_wkv6() if path == "plain" else recording
+        try:
+            p, _, m = step(p, optimizer.init(p), batch)
+        finally:
+            ssm.wkv6_scan = wk.wkv6_scan
+        grew = (wk.wkv6_scan.launches - counts[0],
+                wk.wkv6_bwd.launches - counts[1])
+        want = (2 * TRAIN_CUT, TRAIN_CUT) if path == "kernel" else (0, 0)
+        if grew != want:
+            raise AssertionError(f"phase 18 (b) {path} path: wkv6 / "
+                                 f"wkv6_bwd launched {grew}, want {want}")
+        out[path] = (float(m["loss"]), float(m["grad_norm"]))
+        lr = float(m["lr"])
+        twin[path] = p
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    if not (abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)
+            and abs(gk - gp) <= TRAIN_GNORM_RTOL * abs(gp)):
+        raise AssertionError(f"phase 18 (b): loss {lk} / {lp}, grad norm "
+                             f"{gk} / {gp} beyond rtol {TRAIN_LOSS_RTOL} / "
+                             f"{TRAIN_GNORM_RTOL}")
+    # wkv6_bwd against wkv6_bwd_plain on layer 0's own call and gy
+    c = next(c for c in calls if "gy" in c)
+    r, k, v, w, u, s0 = c["in"]
+    _, _, s_chk = wk.wkv6_fwd(r, k, v, w, u, s0)
+    got = wk.wkv6_bwd(r, k, v, w, u, s_chk, c["gy"])
+    want = wk.wkv6_bwd_plain(r, k, v, w, u, s0, c["gy"])
+    in_situ = max(float((a - b).norm() / b.norm()) for a, b in zip(got,
+                                                                   want))
+    if not in_situ <= TRAIN_WKV_RTOL:
+        raise AssertionError(f"phase 18 (b): wkv6_bwd on layer 0's inputs "
+                             f"differs from its plain version by "
+                             f"{in_situ} (relative)")
+    worst, beyond, total = 0.0, 0, 0
+    plain = dict(tree_items(twin["plain"]))
+    for path, a in tree_items(twin["kernel"]):
+        diff = (a - plain[path]).abs()
+        lim = 1e-6 + 1e-5 * plain[path].abs()
+        beyond += int((diff > lim).sum())
+        total += a.numel()
+        worst = max(worst, float(diff.max()))
+    if worst > 2.2 * lr or beyond > TRAIN_BEYOND * total:
+        raise AssertionError(f"phase 18 (b): parameters differ by up to "
+                             f"{worst}, {beyond} of {total} beyond tol")
+    return dict(loss=(lk, lp), gnorm=(gk, gp), worst=worst, beyond=beyond,
+                total=total, lr=lr, in_situ=in_situ)
+
+
+def phase_train(dev, seed=0):
+    """Phase 18 (c), the main path: ``train()`` of rwkv6-3b at full width
+    and depth (bf16 activations, f32 parameters, AdamW), ``TRAIN_STEPS``
+    steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` seeded tokens from a seeded
+    ``init_model``, the launch counts zeroed just before; then one step
+    profiled and the optimizer's time on a second copy."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.models import init_model
+    from repro_torch.train import (TrainConfig, data, make_train_step,
+                                   optimizer, train)
+    cfg = _train_cfg()
+    tc = TrainConfig(steps=TRAIN_STEPS, seed=seed, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, opt=_train_opt())
+    marks = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    wk.wkv6_scan.launches = 0
+    wk.wkv6_bwd.launches = 0
+    t0 = time.perf_counter()
+    h = train(cfg, tc, fault_hook=lambda s: marks.append(
+        time.perf_counter()), device=dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    out = dict(fwd=wk.wkv6_scan.launches, bwd=wk.wkv6_bwd.launches,
+               flash=fa.flash_attention.launches, wall=marks[-1] - t0,
+               init_s=marks[0] - t0, steps=list(np.diff(marks)),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss=h["loss"], gnorm=h["grad_norm"], layers=cfg.n_layers)
+    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS, 0)
+    if (out["fwd"], out["bwd"], out["flash"]) != want:
+        raise AssertionError(f"phase 18 (c): wkv6 / wkv6_bwd / flash "
+                             f"launched {(out['fwd'], out['bwd'], out['flash'])}"
+                             f", want {want}")
+    if not all(math.isfinite(x) for x in h["loss"] + h["grad_norm"]):
+        raise AssertionError(f"phase 18 (c): non-finite loss or grad norm "
+                             f"{h['loss']} {h['grad_norm']}")
+    # at init the head's logits have variance d_model 0.02^2: the expected
+    # first loss is ln(vocab) + d_model 0.02^2 / 2
+    out["loss0_want"] = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    if not abs(h["loss"][0] - out["loss0_want"]) < 0.5:
+        raise AssertionError(f"phase 18 (c): first loss {h['loss'][0]}, "
+                             f"want {out['loss0_want']} +- 0.5")
+    del h
+    torch.cuda.empty_cache()
+    # one step profiled, one with the optimizer timed alone
+    params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    opt_state = optimizer.init(params)
+    batch = data.batch_at(data.DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                          seed=seed), 0, device=dev)
+    step = make_train_step(cfg, tc.opt.replace(total_steps=TRAIN_STEPS),
+                           device=dev)
+    out["prof"] = device_breakdown(lambda: step(params, opt_state, batch))
+    update = optimizer.update
+    box = {}
+
+    def timed(*a, **kw):
+        box["s"] = sync_wall(lambda: box.update(r=update(*a, **kw)))
+        return box["r"]
+    optimizer.update = timed
+    try:
+        out["step_s"] = sync_wall(lambda: step(params, opt_state, batch))
+    finally:
+        optimizer.update = update
+    out["opt_s"] = box["s"]
+    del params, opt_state, box
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_faults(dev, seed=2):
+    """Phase 18 (d): fault tolerance on the card at a reduced rwkv6 config,
+    under ``torch.use_deterministic_algorithms(True)`` for the phase (any
+    nondeterministic op on the step raises): a run killed at step 6 and
+    resumed against the uninterrupted run (rtol 1e-5, the reference's),
+    a ``NodeFailure`` at step 7 restored from step 4 and replayed (rtol
+    1e-6), and a ``.tmp`` directory left behind invisible to ``restore``.
+    Checkpoints go to a temporary directory in the build directory."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.models import init_model
+    from repro_torch.train import (NodeFailure, OptConfig, TrainConfig,
+                                   checkpoint, optimizer, train)
+    cfg = configs.get(TRAIN_ARCH).reduced(dtype="float32")
+
+    def tc(ckpt=None):
+        return TrainConfig(steps=12, seed=seed, seq_len=64, global_batch=4,
+                           opt=OptConfig(lr=3e-3, warmup_steps=2),
+                           ckpt_dir=ckpt, ckpt_every=4)
+
+    class Abort(Exception):
+        pass
+
+    def kill(s):
+        if s == 6:
+            raise Abort
+
+    armed = {"on": True}
+
+    def fail(s):
+        if s == 7 and armed["on"]:
+            armed["on"] = False
+            raise NodeFailure("injected")
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=_build.BUILD_DIR)
+    env0 = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    det0 = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    bwd0 = wk.wkv6_bwd.launches
+    try:
+        clean = train(cfg, tc(), device=dev)["loss"]
+        a, b = os.path.join(root, "kill"), os.path.join(root, "fail")
+        try:
+            train(cfg, tc(a), fault_hook=kill, device=dev)
+            raise AssertionError("phase 18 (d): the kill did not happen")
+        except Abort:
+            pass
+        resumed = train(cfg, tc(a), device=dev)
+        failed = train(cfg, tc(b), fault_hook=fail, device=dev)
+        os.makedirs(os.path.join(b, "step_00000099.tmp"))
+        latest = checkpoint.latest_step(b)
+        like = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+        restored = checkpoint.restore(b, (like, optimizer.init(like)),
+                                      device=dev)[0]
+    finally:
+        torch.use_deterministic_algorithms(det0)
+        if env0 is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env0
+        shutil.rmtree(root, ignore_errors=True)
+    if resumed["resumed_at"] != 4 * (6 // 4):
+        raise AssertionError(f"phase 18 (d): resumed at "
+                             f"{resumed['resumed_at']}")
+    r_tail = clean[resumed["resumed_at"]:]
+    if not np.allclose(resumed["loss"], r_tail, rtol=1e-5, atol=0):
+        raise AssertionError(f"phase 18 (d): resumed losses "
+                             f"{resumed['loss']} vs {r_tail}")
+    if failed["restarts"] != 1 or not np.allclose(
+            failed["loss"][-5:], clean[-5:], rtol=1e-6, atol=0):
+        raise AssertionError(f"phase 18 (d): replayed losses "
+                             f"{failed['loss']} vs {clean}")
+    if latest != 12 or restored != 12:
+        raise AssertionError(f"phase 18 (d): a .tmp directory is visible "
+                             f"(latest step {latest}, restored {restored})")
+    return dict(resumed_at=resumed["resumed_at"],
+                resume_bitwise=resumed["loss"] == r_tail,
+                replay_bitwise=failed["loss"][-5:] == clean[-5:],
+                replayed=len(failed["loss"]) - len(clean),
+                bwd=wk.wkv6_bwd.launches - bwd0, loss=(clean[0], clean[-1]))
+
+
+def train_kernels_line(a) -> str:
+    """Phase 18 (a)'s line of numbers."""
+    bound, bound_by, b_bytes, b_ops = a["bound"]
+    return (
+        f"train kernels: wkv6_bwd vs wkv6_bwd_plain on {a['cases']} cases "
+        f"((B, H, T, hs) {[s[:4] for s in WKV_BWD_CHECK_SHAPES]}, r/k/v f32 "
+        f"and bf16; rwkv6-3b's training shape with zero and with non-zero "
+        f"s0 and gs): gr, gk, gv, gw, gu max |diff| {a['worst']} (share of "
+        f"tol {WKV_BWD_TOL}: {a['share']:.3f}), gs0 bitwise, a second run "
+        f"bitwise; WKV6 vs autograd through wkv6_scan_plain on the card "
+        f"max |diff| {a['auto'][0]} (share {a['auto'][1]:.3f}) | at "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}, 40, 64) bf16: wkv6_bwd "
+        f"{a['b_ms']:.4f} ms device per launch (launch_ms of the wrapper: "
+        f"the kernel and gu's sum over the batch; median (min, max) of "
+        f"{len(a['b_times'])}: {spread(a['b_times'])}; "
+        f"{b_ops / a['b_ms'] * FP32_OPS_PER_S / 1e12:.2f} TFLOP/s of the "
+        f"counted operations), plain {a['p_ms']:.4f} ms (cuda_ms), bound "
+        f"{bound:.4f} ms ({bound_by}; bytes {b_bytes:.4f} ms, operations "
+        f"{b_ops:.4f} ms), kernel / bound {a['b_ms'] / bound:.2f}; the "
+        f"forward at this shape: serving launch (no kept states) "
+        f"{spread(a['f_times'])} ms, keeping the state every "
+        f"64 steps {spread(a['k_times'])} ms")
+
+
+def train_cut_line(b) -> str:
+    """Phase 18 (b)'s line of numbers."""
+    return (
+        f"train cut: {TRAIN_ARCH} at full width, {TRAIN_CUT} layers, f32 "
+        f"activations, one AdamW step on {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, wkv6 + wkv6_bwd kernels vs their plain versions: loss "
+        f"{b['loss'][0]!r} / {b['loss'][1]!r} (rtol {TRAIN_LOSS_RTOL}), "
+        f"grad norm {b['gnorm'][0]!r} / {b['gnorm'][1]!r} (rtol "
+        f"{TRAIN_GNORM_RTOL}: the group norm at a sequence's first steps); "
+        f"wkv6_bwd vs wkv6_bwd_plain on layer 0's own inputs and gy: "
+        f"largest relative difference {b['in_situ']!r} (tol "
+        f"{TRAIN_WKV_RTOL}); parameters max "
+        f"|diff| {b['worst']!r}, {b['beyond']} of {b['total']} beyond atol "
+        f"1e-6 + rtol 1e-5 (at most {TRAIN_BEYOND} of them, "
+        f"all within 2.2 lr = {2.2 * b['lr']!r})")
+
+
+def train_line(c) -> str:
+    """Phase 18 (c)'s line of numbers."""
+    per = c["steps"][1:]
+    step_s = float(np.median(per))
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    wall, kinds = c["prof"]
+    busy = sum(kinds.values())
+    shares = ", ".join(f"{k} {kinds.get(k, 0.0) / busy:.3f}" for k in
+                       ("matmul", "copy", "wkv6", "wkv6_bwd", "other")) \
+        if busy else "not measured"
+    return (
+        f"train: {TRAIN_ARCH} at full width and depth ({c['layers']} "
+        f"layers), f32 parameters, bf16 activations, AdamW, train() for "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: init "
+        f"{c['init_s']:.2f} s, first step {c['steps'][0]:.4f} s, then "
+        f"{spread(per)} s per step = {ntok / step_s:.0f} tokens/s; losses "
+        f"{c['loss']} (first vs ln(vocab) + d_model 0.02^2 / 2 = "
+        f"{c['loss0_want']:.4f}), grad norms {c['gnorm']}; peak "
+        f"{c['peak_gb']:.2f} GB allocated; wkv6 launches {c['fwd']} "
+        f"({c['fwd'] // TRAIN_STEPS} per step), wkv6_bwd {c['bwd']} "
+        f"({c['bwd'] // TRAIN_STEPS} per step), flash {c['flash']} | one "
+        f"step profiled: {_fmt_breakdown(wall, kinds)}; device busy "
+        f"{busy / step_s:.3f} of an unprofiled step's wall ({step_s:.4f} "
+        f"s); shares of the device time: {shares} (f32 -> bf16 casts are "
+        f"copy) | another step {c['step_s']:.4f} s, its optimizer.update "
+        f"{c['opt_s']:.4f} s (card synchronised)")
+
+
+def train_faults_line(d) -> str:
+    """Phase 18 (d)'s line of numbers."""
+    return (
+        f"train faults: reduced {TRAIN_ARCH} on the card under "
+        f"torch.use_deterministic_algorithms(True), 12 steps, checkpoints "
+        f"every 4: killed at step 6, resumed at {d['resumed_at']}, losses "
+        f"== the uninterrupted run's at rtol 1e-5 (bitwise "
+        f"{d['resume_bitwise']}); NodeFailure at step 7, restored and "
+        f"{d['replayed']} steps replayed, the last 5 losses at rtol 1e-6 "
+        f"(bitwise {d['replay_bitwise']}); a .tmp directory invisible to "
+        f"restore; loss {d['loss'][0]:.4f} -> {d['loss'][1]:.4f}, "
+        f"wkv6_bwd launches {d['bwd']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3336,6 +3865,16 @@ def main() -> int:
         print(routed_line(label, name, phase_serve(name, dev, seed=0)),
               flush=True)
 
+    # 18. training rwkv6-3b through wkv6 and wkv6_bwd (the weights of
+    # phase 17 freed first)
+    torch.cuda.empty_cache()
+    ta = phase_train_kernels(dev)
+    print(train_kernels_line(ta), flush=True)
+    print(train_cut_line(phase_train_cut(dev)), flush=True)
+    trn = phase_train(dev)
+    print(train_line(trn), flush=True)
+    print(train_faults_line(phase_train_faults(dev)), flush=True)
+
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]
     yi, rw = lm["yi-6b"], lm["rwkv6-3b"]
@@ -3386,7 +3925,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:33",
         "launches": rw["launches"], "max_abs_err": worst_wkv,
         "ms": rw["k_ms"], "plain_ms": rw["p_ms"], "bound_ms": rw["bound"][0],
-        "bound_by": rw["bound"][1], "library_ms": None}]}))
+        "bound_by": rw["bound"][1], "library_ms": None}, {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:208",
+        "launches": trn["bwd"], "max_abs_err": ta["worst"],
+        "ms": ta["b_ms"], "plain_ms": ta["p_ms"], "bound_ms": ta["bound"][0],
+        "bound_by": ta["bound"][1], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ SOURCES = {
     "flash_attention": _HERE / "flash_attention" / "csrc"
     / "flash_attention.cu",
     "wkv6": _HERE / "rwkv6" / "csrc" / "wkv6.cu",
+    "wkv6_bwd": _HERE / "rwkv6" / "csrc" / "wkv6_bwd.cu",
 }
 # library -> (source, macros)
 LIBRARIES = {
@@ -39,6 +40,7 @@ LIBRARIES = {
     "mr_schedule": ("mr_schedule", ()),
     "flash_attention": ("flash_attention", ()),
     "wkv6": ("wkv6", ()),
+    "wkv6_bwd": ("wkv6_bwd", ()),
 }
 BUILD_DIR = _HERE / "_build"
 # Bitwise parity with the reference needs every float op to round on its

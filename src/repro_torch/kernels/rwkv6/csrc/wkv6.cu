@@ -51,8 +51,17 @@
 // Layout: r, k, v (B, T, H, hs) in float32 or bfloat16, w (B, T, H, hs) and
 // u (H, hs) float32, all contiguous; y (B, T, H, hs) float32; s0 and s_out
 // (B, H, hs, hs) float32, S[i][j] at [.., i, j]; s0 may be null (zeros).
+//
+// For the backward (csrc/wkv6_bwd.cu), a forward under autograd also
+// passes s_chk, (B, H, ceil(T / 64), hs, hs) float32: the state before step
+// t for every t that is a multiple of WKV6_CHUNK = 64, S_0 (= s0) first.
+// The checkpointing kernel is its own instantiation (CHK = true); serving
+// passes null and launches the CHK = false one, whose code is this file's
+// without those stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#define WKV6_CHUNK 64  // steps between the states kept for the backward
 
 namespace {
 
@@ -93,12 +102,13 @@ __device__ __forceinline__ float sum_parts(const float* p) {
   return yj;
 }
 
-template <typename T, int HS>
+template <typename T, int HS, bool CHK>
 __global__ void __launch_bounds__(HS * row_groups<HS>())
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ y, float* __restrict__ s_out, int Tn, int H) {
+            float* __restrict__ y, float* __restrict__ s_out,
+            float* __restrict__ s_chk, int Tn, int H) {
   constexpr int G = row_groups<HS>(), R = HS / G, NT = HS * G;
   constexpr int NL = (4 * HS + NT - 1) / NT;  // values a thread loads a step
   static_assert(R % 4 == 0, "rows are read four at a time");
@@ -134,6 +144,13 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   if (Tn > 0) fetch<T, NL>(src, w, arr, col, base, lt, lw);
   for (int t = 0; t < Tn; ++t) {
     const int buf = t & 1;
+    if (CHK && t % WKV6_CHUNK == 0) {
+      float* dst = s_chk + ((long long)bh * ((Tn + WKV6_CHUNK - 1) /
+                                             WKV6_CHUNK) +
+                            t / WKV6_CHUNK) * HS * HS;
+#pragma unroll
+      for (int i = 0; i < R; ++i) dst[(i0 + i) * HS + j] = S[i];
+    }
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       if (arr[l] < 4)
@@ -180,41 +197,54 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 template <typename T, int HS>
 int launch(const void* r, const void* k, const void* v, const float* w,
-           const float* u, const float* s0, float* y, float* s_out, int B,
-           int Tn, int H, cudaStream_t stream) {
-  wkv6_kernel<T, HS><<<B * H, HS * row_groups<HS>(), 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, u, s0, y, s_out, Tn, H);
+           const float* u, const float* s0, float* y, float* s_out,
+           float* s_chk, int B, int Tn, int H, cudaStream_t stream) {
+  const dim3 grid(B * H), block(HS * row_groups<HS>());
+  if (s_chk == nullptr)
+    wkv6_kernel<T, HS, false><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(r), static_cast<const T*>(k),
+        static_cast<const T*>(v), w, u, s0, y, s_out, nullptr, Tn, H);
+  else
+    wkv6_kernel<T, HS, true><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(r), static_cast<const T*>(k),
+        static_cast<const T*>(v), w, u, s0, y, s_out, s_chk, Tn, H);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const float* w,
-             const float* u, const float* s0, float* y, float* s_out, int B,
-             int Tn, int H, int hs, cudaStream_t st) {
+             const float* u, const float* s0, float* y, float* s_out,
+             float* s_chk, int B, int Tn, int H, int hs, cudaStream_t st) {
+#define WKV6_CASE(HS_)                                                  \
+  case HS_:                                                             \
+    return launch<T, HS_>(r, k, v, w, u, s0, y, s_out, s_chk, B, Tn, H, \
+                          st);
   switch (hs) {
-    case 4: return launch<T, 4>(r, k, v, w, u, s0, y, s_out, B, Tn, H, st);
-    case 8: return launch<T, 8>(r, k, v, w, u, s0, y, s_out, B, Tn, H, st);
-    case 16: return launch<T, 16>(r, k, v, w, u, s0, y, s_out, B, Tn, H, st);
-    case 32: return launch<T, 32>(r, k, v, w, u, s0, y, s_out, B, Tn, H, st);
-    case 64: return launch<T, 64>(r, k, v, w, u, s0, y, s_out, B, Tn, H, st);
+    WKV6_CASE(4)
+    WKV6_CASE(8)
+    WKV6_CASE(16)
+    WKV6_CASE(32)
+    WKV6_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef WKV6_CASE
 }
 
 }  // namespace
 
-// dtype of r, k, v: 0 float32, 1 bfloat16.  Returns a cudaError_t.
+// dtype of r, k, v: 0 float32, 1 bfloat16; s_chk may be null (serving).
+// Returns a cudaError_t.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const float* w, const float* u, const float* s0,
-                           float* y, float* s_out, int dtype, int B, int Tn,
-                           int H, int hs, void* stream) {
+                           float* y, float* s_out, float* s_chk, int dtype,
+                           int B, int Tn, int H, int hs, void* stream) {
   if (B == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(r, k, v, w, u, s0, y, s_out, B, Tn, H, hs, st);
+    return dispatch<float>(r, k, v, w, u, s0, y, s_out, s_chk, B, Tn, H, hs,
+                           st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, B, Tn, H, hs,
-                                   st);
+    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, s_chk, B, Tn,
+                                   H, hs, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,9 @@ def wkv6(r, k, v, w, u):
     state, the final state dropped (the JAX signature's TPU tiling
     ``block_t`` and ``interpret`` switch have no counterpart: the kernel
     streams the whole sequence in one block per (batch, head), and the
-    tensors' device picks kernel or plain version).
+    tensors' device picks kernel or plain version).  Differentiable:
+    under grad it goes through ``kernel.WKV6``, whose backward is the
+    ``wkv6_bwd`` kernel on the card.
     """
     y, _ = wkv6_scan(r, k, v, w, u)
     return y.to(r.dtype)

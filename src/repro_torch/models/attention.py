@@ -6,7 +6,9 @@ core softmax(QKᵀ)V of the full-sequence path: ``"dense"`` (:func:`sdpa`,
 materialises the S×T scores), ``"chunked"`` (:func:`chunked_sdpa`, an
 online softmax over q/kv blocks in plain tensor ops), ``"flash"`` (the
 hand-written CUDA kernel ``kernels.flash_attention``; its plain version on
-the CPU) and ``"auto"`` (chunked from S = 2048 on, else dense).  The decode
+the CPU) and ``"auto"`` (chunked from S = 2048 on, else dense).  Training
+takes ``"auto"``: the flash kernel has no backward (nor has the JAX
+package's Pallas call), so ``"flash"`` under grad raises.  The decode
 path's attention and every projection are plain products
 (``torch.einsum``/``matmul``), as the JAX package leaves them to XLA.
 
@@ -145,6 +147,13 @@ def _core_attention(cfg: ArchConfig, q, k, v, positions, impl: str):
     if impl == "auto":
         impl = "chunked" if q.shape[1] >= 2048 else "dense"
     if impl == "flash":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "attn_impl='flash' has no gradient: the flash_attention "
+                "kernel has no backward, as the JAX package's Pallas call "
+                "has none (ROADMAP A9); train with attn_impl='auto', "
+                "'dense' or 'chunked'")
         return fa_ops.flash_attention(q, k, v, causal=cfg.causal,
                                       window=cfg.window)
     if impl == "chunked":

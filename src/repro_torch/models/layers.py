@@ -37,6 +37,18 @@ def tree_items(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def tree_from_items(items) -> dict:
+    """The nested dict of ``(path, leaf)`` pairs (:func:`tree_items`'s
+    inverse)."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_map(fn, tree):
     """``fn`` over every leaf of a nested dict (``P`` entries are leaves)."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
@@ -59,7 +71,7 @@ def init_params(decls, generator: torch.Generator, dtype=F32,
     device = torch.device(device if device is not None
                           else generator.device)
     dtype = torch_dtype(dtype)
-    out = {}
+    out = []
     for path, p in tree_items(decls):
         if p.init == "zeros":
             x = torch.zeros(p.shape, dtype=dtype, device=device)
@@ -73,11 +85,8 @@ def init_params(decls, generator: torch.Generator, dtype=F32,
             scale = 0.02 if p.init == "normal" else 0.02 / math.sqrt(2.0)
             x = torch.randn(p.shape, generator=generator, dtype=dtype,
                             device=device) * scale
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = x
-    return out
+        out.append((path, x))
+    return tree_from_items(out)
 
 
 def stack_decls(decls, n: int, axis_name: str = "layers"):

@@ -1,18 +1,20 @@
-"""Top-level model: embedding → stack → head, prefill/decode.
+"""Top-level model: embedding → stack → head, loss, prefill/decode.
 
 Plain functions on tensors take the JAX package's nested parameter dict
-(:func:`forward`, :func:`prefill`, :func:`decode_step`, ...), so tests
-compare like with like; :class:`LM` owns such a tree as an ``nn.Module``.
+(:func:`forward`, :func:`loss_fn`, :func:`prefill`, :func:`decode_step`,
+...), so tests compare like with like; :class:`LM` owns such a tree as an
+``nn.Module`` for serving (its methods run under ``inference_mode``;
+training calls the plain functions on a tree whose leaves require grad).
 Frontend-stubbed archs (``cfg.embedding_inputs``) take ``(B, S, d_model)``
 embeddings instead of token ids.  Every block family runs: attention
 (dense, sliding window), MoE, Mamba and RWKV6 (``stacks``).  Entry points
-that allocate take ``device=`` and default to ``"cuda"``.  ``loss_fn``
-waits for the training slice (ROADMAP A9).
+that allocate take ``device=`` and default to ``"cuda"``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import stacks
 from .config import ArchConfig
@@ -45,18 +47,64 @@ def _embed(params, cfg: ArchConfig, inputs):
 
 
 def forward_hidden(params, cfg: ArchConfig, inputs, *,
-                   attn_impl: str = "auto"):
-    """Final-normed hidden states (B,S,D)."""
+                   attn_impl: str = "auto", remat: bool = True):
+    """Final-normed hidden states (B,S,D) — the LM head is applied by the
+    caller (``loss_fn`` fuses it into chunked cross-entropy).  ``remat``
+    acts under grad only (``stacks.apply_stack``)."""
     x = stacks.apply_stack(params["stack"], _embed(params, cfg, inputs), cfg,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, remat=remat)
     return apply_norm(params["final_norm"], x, cfg)
 
 
-def forward(params, cfg: ArchConfig, inputs, *, attn_impl: str = "auto"):
+def forward(params, cfg: ArchConfig, inputs, *, attn_impl: str = "auto",
+            remat: bool = True):
     """Logits for a full sequence.  inputs: (B,S) int or (B,S,D) embeds."""
     return lm_head(params["embed"],
-                   forward_hidden(params, cfg, inputs, attn_impl=attn_impl),
+                   forward_hidden(params, cfg, inputs, attn_impl=attn_impl,
+                                  remat=remat),
                    cfg)
+
+
+def _xent_chunk(params, cfg: ArchConfig, xc, lc):
+    """Σ nll over one sequence chunk and its labelled count.  xc: (B,ck,D);
+    lc: (B,ck), -1 = unlabelled."""
+    logits = lm_head(params["embed"], xc, cfg).to(torch.float32)
+    mask = lc >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, torch.clamp_min(lc, 0)[..., None]
+                      .to(torch.int64))[..., 0]
+    return -torch.sum(torch.where(mask, ll, 0.0)), torch.sum(mask)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, attn_impl: str = "auto",
+            remat: bool = True, xent_chunk: int = 512):
+    """Mean next-token (or masked-label) cross-entropy.  batch:
+    {"inputs": ids or embeds, "labels": (B,S) int, -1 = unlabelled}.
+
+    As the reference: the LM head and softmax run in sequence chunks of
+    ``xent_chunk`` when it divides S (and S is longer), each chunk
+    rematerialised under grad, the chunks' sums added in order; otherwise
+    over the whole sequence at once.
+    """
+    x = forward_hidden(params, cfg, batch["inputs"], attn_impl=attn_impl,
+                       remat=remat)
+    labels = batch["labels"]
+    S = labels.shape[1]
+    ck = xent_chunk
+    if S > ck and S % ck == 0:
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        n = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c0 in range(0, S, ck):
+            xc, lc = x[:, c0:c0 + ck], labels[:, c0:c0 + ck]
+            if torch.is_grad_enabled():
+                nll_c, n_c = checkpoint(_xent_chunk, params, cfg, xc, lc,
+                                        use_reentrant=False)
+            else:
+                nll_c, n_c = _xent_chunk(params, cfg, xc, lc)
+            nll, n = nll + nll_c, n + n_c
+    else:
+        nll, n = _xent_chunk(params, cfg, x, labels)
+    return nll / torch.clamp_min(n, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,12 @@ for the backward pass only and computes the same steps.
 The WKV recurrence of RWKV6 runs in the hand-written CUDA kernel
 ``kernels.rwkv6`` (its plain PyTorch version on the CPU), with the decode
 state as its initial state, so prefill (T = S) and each decode step
-(T = 1) take the same path.  The projections around it are plain tensor
-ops, in the JAX package's op sequence.
+(T = 1) take the same path.  Under grad it goes through
+``kernels.rwkv6.WKV6``, whose backward is the ``wkv6_bwd`` kernel on the
+card (the reference differentiates its ``lax.scan``).  The projections
+around it are plain tensor ops, in the JAX package's op sequence, and
+differentiate through autograd; nothing on the training path writes in
+place into a tensor the graph keeps (the Mamba loop rebinds ``h``).
 """
 from __future__ import annotations
 
@@ -202,7 +206,8 @@ def _wkv_scan(p, r, k, v, w, s0):
 
     Returns ``(final state, y (B,S,H,hs) f32)`` through the ``wkv6``
     kernel (the JAX package's scan reference and its Pallas production
-    path in one call).
+    path in one call); differentiable through ``WKV6`` (the reference's
+    time-chunked remat of the scan is the kernel's kept states here).
     """
     y, s = wkv6_scan(r, k, v, w, p["u"].to(F32), s0)
     return s, y

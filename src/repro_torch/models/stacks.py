@@ -2,21 +2,29 @@
 
 Parameters are stacked on a leading ``layers`` axis per sub-block of the
 block pattern's smallest repeating period, as in the JAX package (whose
-``lax.scan`` over that axis becomes a loop here; PyTorch runs eagerly and
-needs no rematerialisation for serving).  Decode states are stacked the same
-way and updated in place.  Every block kind of the JAX package is here:
-mixers ``attn``, ``mamba``, ``rwkv``; mlps ``mlp``, ``moe``, ``rwkv_cmix``
-(jamba's period: 8 sub-blocks, one attention among seven Mamba mixers and
-MoE every other one).
+``lax.scan`` over that axis becomes a loop here).  Under grad,
+:func:`apply_stack` rematerialises as the reference's ``jax.checkpoint``
+does: each period is a ``torch.utils.checkpoint`` region (non-reentrant),
+and each sub-block of a heterogeneous period (jamba) one inside it, so the
+backward keeps the periods' inputs and one period's (sub-block's)
+internals; serving (no grad) runs the plain loop.  Decode states are
+stacked the same way and updated in place.  Every block kind of the JAX
+package is here: mixers ``attn``, ``mamba``, ``rwkv``; mlps ``mlp``,
+``moe``, ``rwkv_cmix`` (jamba's period: 8 sub-blocks, one attention among
+seven Mamba mixers and MoE every other one).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, moe, ssm
 from .config import ArchConfig
 from .layers import (apply_mlp, apply_norm, mlp_decls, norm_decls,
-                     stack_decls, torch_dtype, tree_items, tree_map)
+                     stack_decls, torch_dtype, tree_from_items, tree_items,
+                     tree_map)
 
 
 def _pattern_period(cfg: ArchConfig) -> list[dict]:
@@ -90,16 +98,43 @@ def _apply_sub_block(p, x, cfg: ArchConfig, entry: dict, positions,
     return x + _apply_mlp_block(p["mlp"], h, cfg, entry)
 
 
+def _unbind(tree):
+    """A stacked tree -> one tree per layer (views).  One ``unbind`` per
+    leaf, so its gradient is one stack of the per-layer gradients, not a
+    full-size zero tensor per layer as indexing gives."""
+    paths, per = zip(*((path, leaf.unbind(0))
+                       for path, leaf in tree_items(tree)))
+    return [tree_from_items(zip(paths, parts)) for parts in zip(*per)]
+
+
 def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
-                attn_impl: str = "auto"):
-    """Full-sequence forward through all layers.  x: (B,S,D)."""
+                attn_impl: str = "auto", remat: bool = True):
+    """Full-sequence forward through all layers.  x: (B,S,D).  ``remat``
+    (under grad only): checkpoint each period, and each sub-block of a
+    heterogeneous period, as the reference's ``jax.checkpoint``s."""
     period = _pattern_period(cfg)
     if not period:
         return x
-    for li in range(_n_periods(params)):
+    remat = remat and torch.is_grad_enabled()
+    nested = remat and len(period) > 1
+    layers = {f"sub{i}": _unbind(params[f"sub{i}"])
+              for i in range(len(period))}
+
+    def one_period(x, pparams):
         for i, entry in enumerate(period):
-            x = _apply_sub_block(_layer(params[f"sub{i}"], li), x, cfg,
-                                 entry, positions, attn_impl)
+            fn = functools.partial(_apply_sub_block, cfg=cfg, entry=entry,
+                                   positions=positions, attn_impl=attn_impl)
+            if nested:
+                fn = functools.partial(checkpoint, fn, use_reentrant=False)
+            x = fn(pparams[f"sub{i}"], x)
+        return x
+
+    for li in range(_n_periods(params)):
+        pparams = {key: per[li] for key, per in layers.items()}
+        if remat:
+            x = checkpoint(one_period, x, pparams, use_reentrant=False)
+        else:
+            x = one_period(x, pparams)
     return x
 
 

@@ -22,7 +22,10 @@ dropped assignments, ``apply_mamba`` and ``mamba_step``).  The engine
 body (multi-job lanes) runs on the card bit for bit as on the CPU, and as
 ``mr_epoch`` on single-job lanes.  Single-job lanes on the card hold to the
 port's sequential oracle (``refsim``) at the reference's tolerances, and
-``streaming.analyze_batch`` on the card is bitwise its CPU run.
+``streaming.analyze_batch`` on the card is bitwise its CPU run.  The
+``wkv6_bwd`` kernel is held against ``wkv6_bwd_plain`` (1e-4; gs0 and a
+second launch bitwise), ``WKV6`` against autograd through the plain scan,
+and three AdamW steps of a reduced rwkv6 on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -809,3 +812,127 @@ def test_streaming_on_card_matches_cpu(kind):
         if v.dtype == torch.float32:
             g, v = g.view(torch.int32), v.view(torch.int32)
         assert torch.equal(g, v), k
+
+
+# ---------------------------------------------------------------------------
+# training: the wkv6 backward kernel and a train step on the card
+# ---------------------------------------------------------------------------
+
+def _wkv_grad_case(B, H, T, hs, dtype, nonzero, dev, seed=0):
+    rng = np.random.default_rng(seed + T + hs)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+    r, k, v = (t(0.5 * rng.standard_normal((B, T, H, hs))).to(dtype)
+               for _ in range(3))
+    w = t(rng.uniform(0.45, 0.95, (B, T, H, hs)))
+    u = t(0.3 * rng.standard_normal((H, hs)))
+    gy = t(rng.standard_normal((B, T, H, hs)))
+    s0 = t(0.2 * rng.standard_normal((B, H, hs, hs))) if nonzero else None
+    gs = t(0.5 * rng.standard_normal((B, H, hs, hs))) if nonzero else None
+    return r, k, v, w, u, s0, gy, gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 40, 512, 64, False),
+                                   (4, 40, 512, 64, True),
+                                   (2, 8, 200, 64, True), (2, 8, 1, 64, True),
+                                   (2, 3, 0, 16, True)]
+                         + [(2, 3, 77, hs, True) for hs in (4, 8, 16, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_matches_plain_on_card(shape, dtype):
+    """``wkv6_bwd`` against ``wkv6_bwd_plain`` (chip_smoke phase 18 (a)'s
+    shapes, every head size, T = 0): gr, gk, gv, gw, gu at 1e-4 (hs-term
+    sums in another order), gs0 bitwise (G evolves by elementwise ops), and
+    a second launch bitwise the first."""
+    dev = _card()
+    B, H, T, hs, nonzero = shape
+    r, k, v, w, u, s0, gy, gs = _wkv_grad_case(B, H, T, hs, dtype, nonzero,
+                                               dev)
+    y, s, s_chk = wkv_kernel.wkv6_fwd(r, k, v, w, u, s0)
+    y2, s2 = wkv_kernel.wkv6_scan(r, k, v, w, u, s0)
+    assert torch.equal(y, y2) and torch.equal(s, s2)  # keeping changes nothing
+    before = wkv_kernel.wkv6_bwd.launches
+    got = wkv_kernel.wkv6_bwd(r, k, v, w, u, s_chk, gy, gs)
+    again = wkv_kernel.wkv6_bwd(r, k, v, w, u, s_chk, gy, gs)
+    assert wkv_kernel.wkv6_bwd.launches == before + 2
+    want = wkv_kernel.wkv6_bwd_plain(r, k, v, w, u, s0, gy, gs)
+    for a, b, c in zip(got[:5], want[:5], again[:5]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a, c)
+    assert torch.equal(got[5], want[5]) and torch.equal(got[5], again[5])
+
+
+@pytest.mark.cuda
+def test_wkv6_function_on_card_is_deterministic_and_matches_autograd():
+    dev = _card()
+    r, k, v, w, u, s0, gy, gs = _wkv_grad_case(2, 8, 200, 64, torch.float32,
+                                               True, dev)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    counts = (wkv_kernel.wkv6_scan.launches, wkv_kernel.wkv6_bwd.launches)
+    runs = [torch.autograd.grad(wkv_kernel.wkv6_scan(*xs), xs, (gy, gs))
+            for _ in range(2)]
+    assert (wkv_kernel.wkv6_scan.launches - counts[0],
+            wkv_kernel.wkv6_bwd.launches - counts[1]) == (2, 2)
+    want = torch.autograd.grad(wkv_kernel.wkv6_scan_plain(*xs), xs,
+                               (gy, gs))
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv6_grad_never_takes_the_plain_path_on_card(monkeypatch):
+    dev = _card()
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor took the plain version")
+    monkeypatch.setattr(wkv_kernel, "wkv6_scan_plain", refuse)
+    monkeypatch.setattr(wkv_kernel, "wkv6_bwd_plain", refuse)
+    r, k, v, w, u, s0, gy, gs = _wkv_grad_case(1, 2, 9, 16, torch.bfloat16,
+                                               True, dev)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    grads = torch.autograd.grad(wkv_kernel.wkv6_scan(*xs), xs, (gy, gs))
+    assert [g.dtype for g in grads] == [x.dtype for x in xs]
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu():
+    """Three AdamW steps of a reduced rwkv6 through ``make_train_step`` on
+    the card (wkv6 and wkv6_bwd) against the same steps on the CPU (the
+    plain versions), f32: losses and grad norms at rtol 1e-5, parameters
+    at atol 2e-5, rtol 1e-5 with at most 1 in 100 beyond 1e-7.  AdamW
+    normalises each gradient element by its own RMS (as
+    ``tests/test_torch_train.py``), and the group norm after the WKV
+    amplifies the two devices' summation orders at a sequence's first
+    steps, where a head's output variance is below its eps (chip_smoke
+    phase 18 (b)): measured 275 of 129,024 beyond 1e-7 on an H100."""
+    from repro_torch.train import OptConfig, data, make_train_step, optimizer
+    from repro_torch.models.layers import tree_items
+    dev = _card()
+    cfg = configs.get("rwkv6-3b").reduced(dtype="float32")
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda a: a.to(dev), cpu)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=3)
+    dcfg = data.DataConfig(cfg.vocab, 32, 2, seed=0)
+    states = {"cpu": optimizer.init(cpu), "card": optimizer.init(card)}
+    trees = {"cpu": cpu, "card": card}
+    bwd0 = wkv_kernel.wkv6_bwd.launches
+    for s in range(3):
+        batch = data.batch_at(dcfg, s, device="cpu")
+        m = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            step = make_train_step(cfg, ocfg, device=d)
+            trees[where], states[where], m[where] = step(
+                trees[where], states[where], batch)
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m["card"][key]),
+                                       float(m["cpu"][key]), rtol=1e-5)
+    assert wkv_kernel.wkv6_bwd.launches - bwd0 == 3 * cfg.n_layers
+    want = dict(tree_items(trees["cpu"]))
+    beyond = total = 0
+    for path, leaf in tree_items(trees["card"]):
+        got = leaf.cpu().numpy()
+        np.testing.assert_allclose(got, want[path].numpy(), atol=2e-5,
+                                   rtol=1e-5, err_msg=str(path))
+        beyond += int((np.abs(got - want[path].numpy()) > 1e-7).sum())
+        total += got.size
+    assert beyond <= total // 100

@@ -39,6 +39,7 @@ assert not _build._loaded, "an import loaded a kernel library"
 assert not megakernel._LIBS, "an import bound a kernel"
 assert not kernel._LIB, "an import bound mr_schedule"
 assert not fa_kernel._LIB and not wkv_kernel._LIB, "an import bound a kernel"
+assert not wkv_kernel._BWD_LIB, "an import bound a kernel"
 assert telemetry.provenance.cache_info().currsize == 0
 print(len(names))
 """
@@ -87,7 +88,8 @@ def test_every_kernel_source_is_built_without_torch_headers():
     # defined there (the trace instantiations through the MR_TRACE macro)
     assert set(_build.LIBRARIES) == {
         "mr_epoch", "mr_epoch_control", "mr_epoch_trace",
-        "mr_epoch_control_trace", "mr_schedule", "flash_attention", "wkv6"}
+        "mr_epoch_control_trace", "mr_schedule", "flash_attention", "wkv6",
+        "wkv6_bwd"}
     for name, (src, macros) in _build.LIBRARIES.items():
         text = _build.SOURCES[src].read_text()
         assert f"{name}_launch" in text, name
