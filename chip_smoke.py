@@ -198,15 +198,18 @@ each printing one line of numbers:
               loop) and one MoE block; checks (a)-(c) as phase 16, (b) on
               prompt 0's first 512 tokens.
 18. train   — the training path, rwkv6-3b through the ``wkv6`` forward
-              kernel (keeping the state every 64 steps) and the
+              kernel (keeping the state every 4 steps) and the
               hand-written ``wkv6_bwd`` kernel: (a) ``wkv6_bwd`` against
               ``wkv6_bwd_plain`` at rwkv6-3b's layer-0 training shape (4,
-              512, 40, 64) with zero and non-zero s0 and gs, T = 200 (not a
-              multiple of 64), T = 1 and head sizes 16 and 32, r/k/v f32
-              and bf16 (gr, gk, gv, gw, gu at 1e-4, gs0 bitwise, a second
-              run bitwise), ``WKV6`` against autograd through
-              ``wkv6_scan_plain``, the kernel's device time beside its
-              bound and the plain version's, and the forward's serving
+              512, 40, 64) with zero and non-zero s0 and gs, T = 200, T =
+              1, the T around the kept-state interval (3, 4, 5, 69) and T
+              = 203 (a multiple of neither 4 nor 64), each with zero and
+              non-zero s0 and gs, and head sizes 16 and 32, r/k/v f32 and
+              bf16 (gr, gk, gv, gw, gu at 1e-4, gs0 bitwise, a second run
+              bitwise), ``WKV6`` against autograd through
+              ``wkv6_scan_plain``, the kernel's ptxas report (registers,
+              spills) and resident blocks per SM, its device time beside
+              its bound and the plain version's, and the forward's serving
               launch beside the one that keeps states; (b) one AdamW step
               at full width, 2 layers, f32, through the kernels against
               the plain wkv6 forward and backward (loss, grad norm,
@@ -3066,13 +3069,23 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 512   # (c): 4 x 512 tokens a step
 TRAIN_STEPS = 4                   # (c): train() steps at full depth
 TRAIN_CUT = 2                     # (b): layers at full width, f32
 TRAIN_LR = 1e-3
-# (a): (B, H, T, hs, s0 and gs non-zero): rwkv6-3b's layer-0 training shape
-# as the model calls it (s0 zeros, the final state unused) and with both
-# non-zero, T not a multiple of the kernel's 64-step chunk, T = 1, and the
-# smaller head sizes; r/k/v in float32 and bfloat16 each
-WKV_BWD_CHECK_SHAPES = [(4, 40, 512, 64, False), (4, 40, 512, 64, True),
-                        (2, 8, 200, 64, True), (2, 8, 1, 64, True),
-                        (2, 3, 77, 16, True), (1, 4, 130, 32, True)]
+
+
+def wkv_bwd_check_shapes(K):
+    """Phase 18 (a)'s (B, H, T, hs, s0 and gs non-zero): rwkv6-3b's layer-0
+    training shape as the model calls it (s0 zeros, the final state unused)
+    and with both non-zero, T = 200 and T = 1; the T around the forward's
+    kept-state interval K (``kernel.CHUNK``: K - 1, K, K + 1, 64 + K + 1)
+    and T = 203, a multiple of neither K nor 64, each with zero and
+    non-zero s0 and gs; the smaller head sizes.  r/k/v go in float32 and
+    bfloat16 each."""
+    return ([(4, 40, 512, 64, False), (4, 40, 512, 64, True),
+             (2, 8, 200, 64, True), (2, 8, 1, 64, True)]
+            + [(2, 8, T, 64, nz) for T in (K - 1, K, K + 1, 64 + K + 1, 203)
+               for nz in (False, True)]
+            + [(2, 3, 77, 16, True), (1, 4, 130, 32, True)])
+
+
 # wkv6_bwd against wkv6_bwd_plain (atol = rtol): gr, gk, gw, gv are hs-term
 # sums over a row or a column taken in another order (the kernel adds in
 # index order, torch's reductions in a tree), gu a sum over B x T terms;
@@ -3124,22 +3137,39 @@ def _plain_wkv6():
     return scan
 
 
-def wkv6_bwd_bound_ms(r, s_chk, gs):
+def wkv6_bwd_bound_ms(r, gs):
     """The least time for wkv6's gradient on these inputs: r, k, v, w, gy,
-    u, the kept states and gs read and gr, gk, gv, gw (float32), gu and
-    gs0 written once at the HBM rate, against 14 float32 operations per
-    step and state entry at the fp32 rate: 3 in the replay of the state
-    (k v, w S, +), 10 in the walk (G S, G v and gy S: a multiply and an
-    add each; k G; w G + r gy: three) and 1 in the column sum of k G (the
-    per-step row terms, r u k, gy·v and the u terms, are O(hs) and left
-    out)."""
+    u, the initial state s0 and gs read and gr, gk, gv, gw (float32), gu
+    and gs0 written once at the HBM rate, against 14 float32 operations
+    per step and state entry at the fp32 rate: 3 in the replay of the
+    state (k v, w S, +), 10 in the walk (G S, G v and gy S: a multiply and
+    an add each; k G; w G + r gy: three) and 1 in the column sum of k G
+    (the per-step row terms, r u k, gy·v and the u terms, are O(hs) and
+    left out).  The states the forward keeps are not counted: the replay's
+    operations already stand for them, and how many are kept is the
+    design's choice, not the function's."""
     B, T, H, hs = r.shape
     n = r.numel()
     nbytes = (3 * n * r.element_size() + 2 * 4 * n + 4 * H * hs
-              + 4 * s_chk.numel() + (0 if gs is None else 4 * gs.numel())
+              + 4 * B * H * hs * hs + (0 if gs is None else 4 * gs.numel())
               + 4 * 4 * n + 4 * H * hs + 4 * B * H * hs * hs)
     ops = 14.0 * B * H * T * hs * hs
     return _bound(nbytes, ops, FP32_OPS_PER_S)
+
+
+def ptxas_report(library, entry):
+    """``{mangled name: its ptxas lines}`` (registers; stack frame and
+    spills) of a built library's entry functions whose name holds
+    ``entry``."""
+    from repro_torch.kernels import _build
+    out, name = {}, None
+    for ln in _build.build_log(library).splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and entry in name and ("Used" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.replace("ptxas info", "")
+                                            .strip(" :"))
+    return out
 
 
 def _wkv_grad_inputs(B, H, T, hs, nonzero, rng, dev):
@@ -3158,7 +3188,7 @@ def _wkv_grad_inputs(B, H, T, hs, nonzero, rng, dev):
 
 def phase_train_kernels(dev, seed=0):
     """Phase 18 (a): ``wkv6_bwd`` against ``wkv6_bwd_plain`` on the card
-    (``WKV_BWD_CHECK_SHAPES``, r/k/v float32 and bfloat16), bitwise the
+    (``wkv_bwd_check_shapes``, r/k/v float32 and bfloat16), bitwise the
     same on a second run, ``WKV6`` against ``torch.autograd`` through
     ``wkv6_scan_plain``; then the kernel's device time at rwkv6-3b's
     training shape (bf16, as the model calls it) beside its bound and the
@@ -3168,7 +3198,8 @@ def phase_train_kernels(dev, seed=0):
     from repro_torch.kernels.rwkv6 import kernel as wk
     rng = np.random.default_rng(seed)
     worst, share, cases = 0.0, 0.0, 0
-    for B, H, T, hs, nonzero in WKV_BWD_CHECK_SHAPES:
+    shapes = wkv_bwd_check_shapes(wk.CHUNK)
+    for B, H, T, hs, nonzero in shapes:
         rkv, w, u, s0, gy, gs = _wkv_grad_inputs(B, H, T, hs, nonzero, rng,
                                                  dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -3219,12 +3250,18 @@ def phase_train_kernels(dev, seed=0):
     bwd(), fwd_keep(), fwd()                                   # warm up
     rounds = [launch_ms([bwd, fwd, fwd_keep]) for _ in range(LM_ROUNDS)]
     b_t, f_t, k_t = (list(x) for x in zip(*rounds))
-    return dict(cases=cases, worst=worst, share=share, auto=auto,
+    ptxas = {("bf16" if "bfloat16" in name else "f32"): " / ".join(lines)
+             for name, lines in ptxas_report("wkv6_bwd", "Li64E").items()}
+    occupancy = {dt: wk.bwd_occupancy(t, 64) for dt, t in
+                 (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    return dict(cases=cases, shapes=[x[:4] for x in shapes], chunk=wk.CHUNK,
+                worst=worst, share=share, auto=auto,
+                ptxas=ptxas, occupancy=occupancy,
                 b_times=b_t, b_ms=float(np.median(b_t)), f_times=f_t,
                 k_times=k_t,
                 p_ms=cuda_ms(lambda: wk.wkv6_bwd_plain(r, k, v, w, u, s0,
                                                        gy), 1),
-                bound=wkv6_bwd_bound_ms(r, s_chk, None))
+                bound=wkv6_bwd_bound_ms(r, None))
 
 
 def _train_cfg(layers=None, dtype=None):
@@ -3483,7 +3520,7 @@ def train_kernels_line(a) -> str:
     bound, bound_by, b_bytes, b_ops = a["bound"]
     return (
         f"train kernels: wkv6_bwd vs wkv6_bwd_plain on {a['cases']} cases "
-        f"((B, H, T, hs) {[s[:4] for s in WKV_BWD_CHECK_SHAPES]}, r/k/v f32 "
+        f"((B, H, T, hs) {a['shapes']}, r/k/v f32 "
         f"and bf16; rwkv6-3b's training shape with zero and with non-zero "
         f"s0 and gs): gr, gk, gv, gw, gu max |diff| {a['worst']} (share of "
         f"tol {WKV_BWD_TOL}: {a['share']:.3f}), gs0 bitwise, a second run "
@@ -3499,7 +3536,9 @@ def train_kernels_line(a) -> str:
         f"{b_ops:.4f} ms), kernel / bound {a['b_ms'] / bound:.2f}; the "
         f"forward at this shape: serving launch (no kept states) "
         f"{spread(a['f_times'])} ms, keeping the state every "
-        f"64 steps {spread(a['k_times'])} ms")
+        f"{a['chunk']} steps {spread(a['k_times'])} ms | wkv6_bwd at head "
+        f"size 64, ptxas: {a['ptxas']}; resident on the card: "
+        f"{a['occupancy']}")
 
 
 def train_cut_line(b) -> str:

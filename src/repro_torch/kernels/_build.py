@@ -6,7 +6,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds) for
 ``sm_90a``.  A source may give more than one library: ``LIBRARIES`` names
 each library with its source and the macros it is built with (the trace
 instantiations of ``mr_epoch`` are their source built with ``-DMR_TRACE``,
-so the untraced kernels keep their code).  Libraries land in ``_build/``
+so the untraced kernels keep their code; both WKV6 sources take the
+forward's kept-state interval, ``WKV6_CHUNK``, from ``rwkv6/kernel.py``'s
+``CHUNK``).  Libraries land in ``_build/``
 beside this file, named by a hash of the source, macros and flags, so an
 edited source rebuilds and an unchanged one loads at once.  ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for them.
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import time
 
+from .rwkv6.kernel import CHUNK as _WKV6_CHUNK
+
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = {
     "mr_epoch": _HERE / "mr_sched" / "csrc" / "mr_epoch.cu",
@@ -31,6 +35,7 @@ SOURCES = {
     "wkv6": _HERE / "rwkv6" / "csrc" / "wkv6.cu",
     "wkv6_bwd": _HERE / "rwkv6" / "csrc" / "wkv6_bwd.cu",
 }
+_WKV6 = (f"-DWKV6_CHUNK={_WKV6_CHUNK}",)
 # library -> (source, macros)
 LIBRARIES = {
     "mr_epoch": ("mr_epoch", ()),
@@ -39,8 +44,8 @@ LIBRARIES = {
     "mr_epoch_control_trace": ("mr_epoch_control", ("-DMR_TRACE",)),
     "mr_schedule": ("mr_schedule", ()),
     "flash_attention": ("flash_attention", ()),
-    "wkv6": ("wkv6", ()),
-    "wkv6_bwd": ("wkv6_bwd", ()),
+    "wkv6": ("wkv6", _WKV6),
+    "wkv6_bwd": ("wkv6_bwd", _WKV6),
 }
 BUILD_DIR = _HERE / "_build"
 # Bitwise parity with the reference needs every float op to round on its

@@ -53,15 +53,21 @@
 // (B, H, hs, hs) float32, S[i][j] at [.., i, j]; s0 may be null (zeros).
 //
 // For the backward (csrc/wkv6_bwd.cu), a forward under autograd also
-// passes s_chk, (B, H, ceil(T / 64), hs, hs) float32: the state before step
-// t for every t that is a multiple of WKV6_CHUNK = 64, S_0 (= s0) first.
+// passes s_chk, (B, H, ceil(T / WKV6_CHUNK), hs, hs) float32: the state
+// before step t for every t that is a multiple of WKV6_CHUNK (4), S_0 (=
+// s0) first.  The backward replays each WKV6_CHUNK-step sub-chunk from its
+// kept state on chip.
 // The checkpointing kernel is its own instantiation (CHK = true); serving
 // passes null and launches the CHK = false one, whose code is this file's
 // without those stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define WKV6_CHUNK 64  // steps between the states kept for the backward
+// WKV6_CHUNK, the steps between the states kept for the backward, is
+// kernels/rwkv6/kernel.py's CHUNK, passed by kernels/_build.py.
+#ifndef WKV6_CHUNK
+#error "build with -DWKV6_CHUNK (kernels/_build.py)"
+#endif
 
 namespace {
 

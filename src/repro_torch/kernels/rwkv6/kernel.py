@@ -20,9 +20,10 @@ is :class:`WKV6`, which ``wkv6_scan`` goes through whenever an input
 requires grad: on the card its forward is the kernel with the state kept
 every ``CHUNK`` steps (:func:`wkv6_fwd`) and its backward the hand-written
 kernel ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`, counted in
-``wkv6_bwd.launches``), which replays each chunk's states from the kept one
-and walks it backwards; on the CPU they are :func:`wkv6_scan_plain` and
-:func:`wkv6_bwd_plain`.  A CUDA tensor never takes a plain version.
+``wkv6_bwd.launches``), which replays each ``CHUNK``-step sub-chunk's states
+from the kept one into shared memory and walks it backwards; on the CPU
+they are :func:`wkv6_scan_plain` and :func:`wkv6_bwd_plain`.  A CUDA tensor
+never takes a plain version.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ import torch
 F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (4, 8, 16, 32, 64)
-CHUNK = 64      # steps between the states kept for the backward (csrc)
+CHUNK = 4       # steps between the states kept for the backward; _build
+                # passes it to both CUDA sources as WKV6_CHUNK
 
 
 def wkv6_scan_plain(r, k, v, w, u, s0=None):
@@ -137,10 +139,27 @@ def _bwd_lib():
         from .. import _build
         fn = _build.load("wkv6_bwd").wkv6_bwd_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 15 + [i] * 5 + [p]
+        fn.argtypes = [p] * 14 + [i] * 5 + [p]
         fn.restype = ctypes.c_int
         _BWD_LIB.append(fn)
     return _BWD_LIB[0]
+
+
+def bwd_occupancy(dtype=torch.bfloat16, hs: int = 64) -> dict:
+    """The backward kernel's residency on the current card for r/k/v of
+    ``dtype`` and head size ``hs``: ``blocks_per_sm`` (the card's
+    occupancy calculator), ``threads`` a block and dynamic shared
+    ``smem_bytes``."""
+    from .. import _build
+    fn = _build.load("wkv6_bwd").wkv6_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(_DTYPES[dtype], hs, out)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd: occupancy query failed with CUDA "
+                           f"error {err}")
+    return dict(blocks_per_sm=out[0], threads=out[1], smem_bytes=out[2])
 
 
 def _check(r, k, v, w, u, s0):
@@ -249,9 +268,10 @@ def wkv6_bwd(r, k, v, w, u, s_chk, gy, gs=None):
     c = torch.Tensor.contiguous
     r, k, v = c(r), c(k), c(v)
     w, u, s_chk, gy = (c(x.to(F32)) for x in (w, u, s_chk, gy))
+    if s_chk.data_ptr() % 16:          # the kernel copies it 16 bytes at once
+        s_chk = s_chk.clone()
     gs = None if gs is None else c(gs.to(F32))
     dev = r.device
-    scratch = torch.empty((B, H, CHUNK, hs, hs), dtype=F32, device=dev)
     gr, gk, gv, gw = (torch.empty((B, T, H, hs), dtype=F32, device=dev)
                       for _ in range(4))
     gu_part = torch.empty((B, H, hs), dtype=F32, device=dev)
@@ -261,10 +281,9 @@ def wkv6_bwd(r, k, v, w, u, s_chk, gy, gs=None):
         err = _bwd_lib()(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s_chk.data_ptr(), gy.data_ptr(),
-            None if gs is None else gs.data_ptr(), scratch.data_ptr(),
-            gr.data_ptr(), gk.data_ptr(), gv.data_ptr(), gw.data_ptr(),
-            gu_part.data_ptr(), gs0.data_ptr(), _DTYPES[r.dtype], B, T, H,
-            hs, stream)
+            None if gs is None else gs.data_ptr(), gr.data_ptr(),
+            gk.data_ptr(), gv.data_ptr(), gw.data_ptr(), gu_part.data_ptr(),
+            gs0.data_ptr(), _DTYPES[r.dtype], B, T, H, hs, stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd: kernel launch failed with CUDA error "
                            f"{err}")

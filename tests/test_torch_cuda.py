@@ -24,8 +24,10 @@ body (multi-job lanes) runs on the card bit for bit as on the CPU, and as
 port's sequential oracle (``refsim``) at the reference's tolerances, and
 ``streaming.analyze_batch`` on the card is bitwise its CPU run.  The
 ``wkv6_bwd`` kernel is held against ``wkv6_bwd_plain`` (1e-4; gs0 and a
-second launch bitwise), ``WKV6`` against autograd through the plain scan,
-and three AdamW steps of a reduced rwkv6 on the card against the CPU.
+second launch bitwise; the gradient bitwise from run to run at the
+training shape), the forward's kept states bitwise the plain scan's,
+``WKV6`` against autograd through the plain scan, and three AdamW steps
+of a reduced rwkv6 on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -831,18 +833,26 @@ def _wkv_grad_case(B, H, T, hs, dtype, nonzero, dev, seed=0):
     return r, k, v, w, u, s0, gy, gs
 
 
+_K = wkv_kernel.CHUNK     # the forward keeps the state every _K steps
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 40, 512, 64, False),
                                    (4, 40, 512, 64, True),
                                    (2, 8, 200, 64, True), (2, 8, 1, 64, True),
                                    (2, 3, 0, 16, True)]
-                         + [(2, 3, 77, hs, True) for hs in (4, 8, 16, 32)])
+                         + [(2, 3, 77, hs, True) for hs in (4, 8, 16, 32)]
+                         + [(2, 8, T, 64, nz) for T in (_K - 1, _K, _K + 1,
+                                                        64 + _K + 1, 203)
+                            for nz in (False, True)]
+                         + [(2, 3, _K + 1, hs, True) for hs in (4, 8, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_bwd_kernel_matches_plain_on_card(shape, dtype):
     """``wkv6_bwd`` against ``wkv6_bwd_plain`` (chip_smoke phase 18 (a)'s
-    shapes, every head size, T = 0): gr, gk, gv, gw, gu at 1e-4 (hs-term
-    sums in another order), gs0 bitwise (G evolves by elementwise ops), and
-    a second launch bitwise the first."""
+    shapes, every head size, T = 0, the T around the kept-state interval
+    and T = 203, a multiple of neither it nor 64): gr, gk, gv, gw, gu at
+    1e-4 (hs-term sums in another order), gs0 bitwise (G evolves by
+    elementwise ops), and a second launch bitwise the first."""
     dev = _card()
     B, H, T, hs, nonzero = shape
     r, k, v, w, u, s0, gy, gs = _wkv_grad_case(B, H, T, hs, dtype, nonzero,
@@ -859,6 +869,44 @@ def test_wkv6_bwd_kernel_matches_plain_on_card(shape, dtype):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         assert torch.equal(a, c)
     assert torch.equal(got[5], want[5]) and torch.equal(got[5], again[5])
+
+
+@pytest.mark.cuda
+def test_wkv6_gradient_is_deterministic_at_the_training_shape():
+    """rwkv6-3b's layer call (4, 40, 512, 64) as the model makes it under
+    grad: bf16 r/k/v, no initial state, the final state unused.  Two
+    passes through ``WKV6`` (the forward keeping its states, the backward
+    kernel, gu's sum over the batch, the casts back to bf16) give the same
+    bits."""
+    dev = _card()
+    r, k, v, w, u, _, gy, _ = _wkv_grad_case(4, 40, 512, 64, torch.bfloat16,
+                                             False, dev)
+    xs = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    before = wkv_kernel.wkv6_bwd.launches
+    runs = [torch.autograd.grad(wkv_kernel.wkv6_scan(*xs)[0], xs, gy)
+            for _ in range(2)]
+    assert wkv_kernel.wkv6_bwd.launches == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 69, 64), (2, 3, 13, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_fwd_kept_states_are_the_plain_scans_states(shape, dtype):
+    """``wkv6_fwd``'s ``s_chk`` holds, bit for bit, the state that
+    ``wkv6_scan_plain`` reaches after every multiple of ``CHUNK`` steps
+    (S_0 = s0 first): the states the backward replays from."""
+    dev = _card()
+    B, H, T, hs = shape
+    r, k, v, w, u, s0, _, _ = _wkv_grad_case(B, H, T, hs, dtype, True, dev)
+    _, _, s_chk = wkv_kernel.wkv6_fwd(r, k, v, w, u, s0)
+    assert s_chk.shape == (B, H, -(-T // _K), hs, hs)
+    for n in range(s_chk.shape[2]):
+        t = n * _K
+        _, want = wkv_kernel.wkv6_scan_plain(r[:, :t], k[:, :t], v[:, :t],
+                                             w[:, :t], u, s0)
+        assert torch.equal(s_chk[:, :, n], want), n
 
 
 @pytest.mark.cuda

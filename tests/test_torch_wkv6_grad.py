@@ -6,8 +6,10 @@ kernel computes on the card), against the JAX package seeded with numpy:
 non-zero initial state and a non-zero final-state gradient; at T = 512 the
 reference runs its time-chunked remat path), and of the oracle
 ``wkv6_ref`` through ``ops.wkv6`` in float32 and bfloat16; against
-``torch.autograd`` through ``wkv6_scan_plain``; and ``wkv6_bwd_plain``
-against float64 autograd.
+``torch.autograd`` through ``wkv6_scan_plain``; ``wkv6_bwd_plain`` against
+float64 autograd, and against ``jax.value_and_grad`` through ``_wkv_scan``
+at the T around the kernels' kept-state interval; and that interval
+given to both CUDA sources by the build from ``kernel.py``'s ``CHUNK``.
 
 Tolerances (atol = rtol): 1e-5 against the JAX package and autograd in
 float32 (the same gradient summed in other orders: hs-term dot products
@@ -15,6 +17,8 @@ per step, the state's gradient carried over T steps; measured at most
 3.1e-6 of 1 + |g|, on gradients up to 31); 5e-2 in bfloat16,
 ``tests/test_kernels.py``'s WKV6 tolerance (both sides round the output
 and the gradients to bf16); 1e-12 in float64."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +33,9 @@ from repro_torch.models import init_model, loss_fn
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SHAPES = [
-    # (B, H, T, hs): T = 1, T not a multiple of the kernel's 64-step chunk,
-    # the kernel tests' shapes, and T = 512 (the reference's chunked scan)
+    # (B, H, T, hs): T = 1, T a multiple of neither the kernels' 4-step
+    # kept-state interval nor 64, the kernel tests' shapes, and T = 512
+    # (the reference's chunked scan)
     (2, 3, 1, 16),
     (2, 3, 77, 16),
     (1, 2, 64, 8),
@@ -85,6 +90,51 @@ def test_wkv6_grads_match_jax_wkv_scan(shape):
     got = _port_grads(r, k, v, w, u, s0, gy, gs)
     for name, g, ref in zip("r k v w u s0".split(), got, want):
         np.testing.assert_allclose(g, np.asarray(ref), err_msg=name, **TOL)
+
+
+K = kernel.CHUNK          # the forward keeps the state every K steps
+
+
+@pytest.mark.parametrize("hs", [16, 64])
+@pytest.mark.parametrize("T", [K - 1, K + 1, 64 + K + 1])
+def test_bwd_plain_matches_jax_value_and_grad_around_the_interval(T, hs):
+    # the T just under and over the kept-state interval K, and 64 + K + 1:
+    # the plain backward the card is held to, against the reference's own
+    # gradient and loss
+    r, k, v, w, u, s0, gy, gs = _inputs(2, 2, T, hs, seed=T * hs)
+
+    def f(r, k, v, w, u, s0):
+        s, y = jax_ssm._wkv_scan({"u": u}, r, k, v, w, s0)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    val, want = jax.value_and_grad(f, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    t = [torch.from_numpy(a) for a in (r, k, v, w, u, s0, gy, gs)]
+    got = kernel.wkv6_bwd_plain(*t)
+    for name, g, ref in zip("r k v w u s0".split(), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), err_msg=name,
+                                   **TOL)
+    # the loss: a float32 sum of ~10^4 terms of both signs, held at 1e-6 of
+    # the sum of their magnitudes (two summation orders)
+    y, s = kernel.wkv6_scan_plain(*t[:6])
+    terms = torch.cat([(y * t[6]).flatten(), (s * t[7]).flatten()])
+    assert abs(float(terms.sum()) - float(val)) <= 1e-6 * float(
+        terms.abs().sum())
+
+
+def test_kept_state_interval_is_one_constant():
+    # kernel.py's CHUNK sizes s_chk; the build passes it to wkv6.cu (which
+    # keeps the state at that interval) and wkv6_bwd.cu (which replays
+    # sub-chunks of it), and neither source defines a value of its own
+    # (read as text)
+    from repro_torch.kernels import _build
+    for name in ("wkv6", "wkv6_bwd"):
+        src, macros = _build.LIBRARIES[name]
+        assert f"-DWKV6_CHUNK={kernel.CHUNK}" in macros, name
+        text = _build.SOURCES[src].read_text()
+        assert not re.search(r"^\s*#\s*define\s+WKV6_CHUNK\b", text,
+                             re.M), name
+        assert re.search(r"^#ifndef WKV6_CHUNK\n#error", text, re.M), name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
