@@ -224,6 +224,21 @@ each printing one line of numbers:
               under ``torch.use_deterministic_algorithms(True)``: kill and
               resume, ``NodeFailure`` and replay, a stale ``.tmp``
               checkpoint invisible to ``restore``.
+19. dryrun  — the launch report and sharding, after phase 18: (a) every
+              cell of ``configs.all_cells()`` on the single-pod mesh
+              (16 x 16) at full width and depth, and one cell per family
+              on the multi-pod mesh (2 x 16 x 16) at full width and one
+              period of layers (``--depth L1``), through ``python -m
+              repro_torch.launch.dryrun``, ``DRY_PROCS`` runs at once on
+              the host's CPU, fake tensors: every cell recorded, one line a cell
+              (TFLOP, argument, temp and collective wire bytes per
+              device, seconds); (b) phase 18 (c)'s cell on
+              ``make_host_mesh()``: its ``argument_bytes`` within
+              ``ALLOC_ROUND`` bytes a leaf of what ``init_model``,
+              ``optimizer.init`` and ``data.batch_at`` allocate on the
+              card; (c) a reduced rwkv6 checkpoint restored onto the
+              card's mesh with ``shardings=``: every leaf a ``DTensor``
+              with the placements asked for, bitwise.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -3600,6 +3615,241 @@ def train_faults_line(d) -> str:
         f"wkv6_bwd launches {d['bwd']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the launch report (dry runs) and sharding on the card's mesh
+# ---------------------------------------------------------------------------
+
+# (a): one cell per family on the multi-pod mesh
+DRY_MULTI_POD = (("yi-6b", "train_4k"), ("hubert-xlarge", "prefill_32k"),
+                 ("pixtral-12b", "decode_32k"), ("mixtral-8x7b", "train_4k"),
+                 ("jamba-v0.1-52b", "long_500k"), ("rwkv6-3b", "train_4k"))
+DRY_FIRST = ("jamba-v0.1-52b", "rwkv6-3b")    # their cells take longest
+DRY_PROCS = 7            # dry-run CLI processes at once (8 host cores)
+DRY_TIMEOUT = 600        # seconds the phase's dry runs may take in all
+DRY_OUT = os.path.join(ROOT, "chiprun_out", "dryrun")
+ALLOC_ROUND = 512        # the caching allocator rounds each block up to it
+
+
+def dry_commands():
+    """Phase 19 (a)'s runs of ``python -m repro_torch.launch.dryrun``, as
+    ``(label, arguments, keys it records)``: each arch's cells at full
+    depth on the single-pod mesh (``DRY_FIRST`` first), then the ``DRY_MULTI_POD`` cells with ``--multi-pod`` at
+    ``--depth L1`` (one period of layers)."""
+    from repro_torch import configs
+    cells = configs.all_cells()
+    archs = sorted({a for a, _ in cells}, key=lambda a: (
+        a not in DRY_FIRST, a))
+    out = [(a, ["--arch", a], [f"{a}|{s}|16x16|full" for b, s in cells
+                               if b == a]) for a in archs]
+    out += [(f"{a} {s} multi-pod L1", ["--arch", a, "--shape", s,
+                                       "--multi-pod", "--depth", "L1"],
+             [f"{a}|{s}|2x16x16|L1"]) for a, s in DRY_MULTI_POD]
+    return out
+
+
+def phase_dryrun():
+    """Phase 19 (a), after phases 2-18, on the host's CPU: the dry run's
+    CLI, ``DRY_PROCS`` processes at once (each opens the fake 512-rank
+    process group), every command of :func:`dry_commands` writing its own
+    JSON.  Fails if a command exits other than 0 (a cell failed), takes
+    past ``DRY_TIMEOUT`` s in all, or misses a record.  Returns
+    ``(records, wall seconds)``."""
+    os.makedirs(DRY_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    todo = [(label, args, keys, os.path.join(DRY_OUT, f"dryrun_{i}.json"))
+            for i, (label, args, keys) in enumerate(dry_commands())]
+    running, done = [], []
+    t0 = time.time()
+    try:
+        while todo or running:
+            while todo and len(running) < DRY_PROCS:
+                label, args, keys, path = todo.pop(0)
+                if os.path.exists(path):
+                    os.remove(path)
+                log = open(path[:-len(".json")] + ".log", "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *args, "--out", path, "--quiet"], stdout=log,
+                    stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                running.append((label, keys, path, log, proc))
+            time.sleep(0.5)
+            if time.time() - t0 > DRY_TIMEOUT:
+                raise AssertionError(f"phase 19 (a): the dry runs ran past "
+                                     f"{DRY_TIMEOUT} s; still running: "
+                                     f"{[r[0] for r in running]}")
+            for r in [r for r in running if r[-1].poll() is not None]:
+                running.remove(r)
+                r[3].close()
+                done.append(r)
+    finally:
+        for r in running:
+            r[-1].kill()
+            r[-1].wait()
+            r[3].close()
+    wall = time.time() - t0
+    recs = {}
+    for label, keys, path, _, proc in done:
+        if proc.returncode != 0:
+            with open(path[:-len(".json")] + ".log") as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"phase 19 (a): dryrun {label} exited "
+                                 f"{proc.returncode}:\n{tail}")
+        with open(path) as f:
+            got = json.load(f)
+        if sorted(got) != sorted(keys):
+            raise AssertionError(f"phase 19 (a): dryrun {label} recorded "
+                                 f"{sorted(got)}, want {sorted(keys)}")
+        recs.update(got)
+    for key, r in recs.items():
+        if not (r["flops"] > 0 and r["memory"]["argument_bytes"] > 0):
+            raise AssertionError(f"phase 19 (a): {key} counted nothing: {r}")
+    return recs, wall
+
+
+def dryrun_line(key, r) -> str:
+    g = 2 ** 30
+    return (f"dryrun: {key}: {r['flops'] / 1e12:.3f} TFLOP/device, "
+            f"args {r['memory']['argument_bytes'] / g:.3f} GiB, temp "
+            f"{r['memory']['temp_bytes'] / g:.3f} GiB, collective wire "
+            f"{r['collective_wire_bytes'] / g:.3f} GiB "
+            f"({r['collective_count']} collectives), "
+            f"{r['lower_s'] + r['compile_s']:.2f} s")
+
+
+def phase_dry_host(dev, seed=0):
+    """Phase 19 (b) and (c) on ``make_host_mesh()`` (this process's
+    default group from here on; ``run_dry_host`` runs it in a process of
+    its own).  (b): the dry run of phase 18 (c)'s
+    configuration (rwkv6-3b, full depth, ``TRAIN_BATCH`` x ``TRAIN_SEQ``,
+    f32 parameters, AdamW) on that mesh; its ``argument_bytes`` against
+    what the card allocates for phase 18 (c)'s own tensors of that step:
+    ``init_model``'s parameters, ``optimizer.init``'s step and moments and
+    ``data.batch_at``'s int32 batch (the ``memory_allocated`` delta over
+    making just those), which may exceed it by at most ``ALLOC_ROUND``
+    bytes a leaf.  (c): a reduced rwkv6 checkpoint
+    saved from the CPU, restored onto the mesh with ``shardings``: every
+    leaf a ``DTensor`` with the placements asked for, bitwise the saved
+    array."""
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import tree_items
+    from repro_torch.train import checkpoint
+    mesh = make_host_mesh()
+    os.makedirs(DRY_OUT, exist_ok=True)
+    cfg = _train_cfg()
+    name = "train_card"
+    configs.SHAPES[name] = configs.ShapeSpec(name, TRAIN_SEQ, TRAIN_BATCH,
+                                             "train")
+    try:
+        rec = dryrun.run_cell(TRAIN_ARCH, name, multi_pod=False,
+                              cfg_override=cfg, tag="host", mesh=mesh)
+    finally:
+        del configs.SHAPES[name]
+    # what phase 18 (c) puts on the card for the same step, nothing else
+    # allocated meanwhile: the seeded parameters, AdamW's state, the batch
+    from repro_torch.train import data, optimizer
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    opt_state = optimizer.init(params)
+    batch = data.batch_at(data.DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                          seed=seed), 0, device=dev)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    held = [t for _, t in tree_items(params)] + [opt_state.step] + [
+        t for _, t in tree_items(opt_state.m)] + [
+        t for _, t in tree_items(opt_state.v)] + list(batch.values())
+    leaves = len(held)
+    out = dict(rec=rec, alloc=alloc, leaves=leaves,
+               mesh=tuple(mesh.shape), names=mesh.mesh_dim_names)
+    del held, params, opt_state, batch
+    torch.cuda.empty_cache()
+    args = rec["memory"]["argument_bytes"]
+    if not 0 <= alloc - args <= ALLOC_ROUND * leaves:
+        raise AssertionError(f"phase 19 (b): the card allocated {alloc} B, "
+                             f"the dry run counts {args} B of arguments "
+                             f"({leaves} leaves)")
+    # (c) elastic restore onto the card's mesh
+    small = configs.get(TRAIN_ARCH).reduced()
+    saved = init_model(small, torch.Generator().manual_seed(seed), "cpu")
+    want = {path: ((Shard(0),) if leaf.dim() else (Replicate(),))
+            for path, leaf in tree_items(saved)}
+    shardings = {}
+    for path, pl in want.items():
+        node = shardings
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (mesh, pl)
+    with tempfile.TemporaryDirectory(dir=DRY_OUT) as root:
+        checkpoint.save(root, 3, saved)
+        step, got, _ = checkpoint.restore(root, saved, shardings=shardings)
+    got = dict(tree_items(got))
+    bad = [path for path, leaf in tree_items(saved)
+           if not (isinstance(got[path], DTensor)
+                   and tuple(got[path].placements) == want[path]
+                   and got[path].to_local().device.type
+                   == mesh.device_type
+                   and torch.equal(got[path].to_local().cpu(), leaf))]
+    if step != 3 or bad:
+        raise AssertionError(f"phase 19 (c): step {step}, leaves not "
+                             f"restored as asked: {bad}")
+    out["restored"] = len(got)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+_DRY_HOST = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+out = chip_smoke.phase_dry_host(torch.device("cuda"))
+print("DRYHOST " + json.dumps(out))
+"""
+
+
+def run_dry_host():
+    """Phase 19 (b) and (c) in a process of its own: a fresh caching
+    allocator (this process's holds segments of phases 1-18, whose free
+    blocks it hands out whole, beyond the 512-byte rounding) and a
+    default process group of its own for ``make_host_mesh()``."""
+    import torch
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, "-c", _DRY_HOST, ROOT],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    if run.returncode != 0:
+        raise AssertionError(f"phase 19 (b)/(c) exited {run.returncode}:"
+                             f"\n{run.stderr[-3000:]}")
+    line = [ln for ln in run.stdout.splitlines()
+            if ln.startswith("DRYHOST ")][-1]
+    return json.loads(line[len("DRYHOST "):])
+
+
+def dry_host_line(smi, b) -> str:
+    r = b["rec"]
+    return (f"dryrun host: on {smi}: make_host_mesh() = "
+            f"{dict(zip(b['names'], b['mesh']))}; (b) {TRAIN_ARCH} "
+            f"{r['n_layers']} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, f32 "
+            f"parameters, AdamW: argument_bytes {r['memory']['argument_bytes']}"
+            f" vs {b['alloc']} allocated on the card (diff "
+            f"{b['alloc'] - r['memory']['argument_bytes']} B over "
+            f"{b['leaves']} leaves, bound {ALLOC_ROUND} B a leaf), "
+            f"{r['flops'] / 1e12:.3f} TFLOP, temp "
+            f"{r['memory']['temp_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{r['lower_s'] + r['compile_s']:.2f} s | (c) elastic restore "
+            f"of {b['restored']} reduced rwkv6 leaves onto the card's mesh: "
+            f"bitwise, placements as asked")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3913,6 +4163,17 @@ def main() -> int:
     trn = phase_train(dev)
     print(train_line(trn), flush=True)
     print(train_faults_line(phase_train_faults(dev)), flush=True)
+
+    # 19. the launch report and sharding, after the timed phases: the dry
+    # runs on the host's CPU, then the card's own mesh
+    recs, wall = phase_dryrun()
+    for key, r in recs.items():
+        print(dryrun_line(key, r), flush=True)
+    print(f"dryrun: {len(recs)} cells at full width, every one recorded "
+          f"(16x16 at full depth, 2x16x16 at L1: one period of layers) "
+          f"in {wall:.2f} s ({len(dry_commands())} runs of python -m "
+          f"repro_torch.launch.dryrun, {DRY_PROCS} at once)", flush=True)
+    print(dry_host_line(smi, run_dry_host()), flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

@@ -11,7 +11,7 @@ from . import (hubert_xlarge, jamba_v0_1_52b, llama4_scout_17b_a16e,
                minitron_8b, mixtral_8x7b, pixtral_12b, rwkv6_3b,
                stablelm_1_6b, stablelm_12b, yi_6b)
 from .shapes import (SHAPES, ShapeSpec, cell_supported, decode_cache_len,
-                     supported_shapes)
+                     input_specs, supported_shapes)
 
 _MODULES = (yi_6b, stablelm_1_6b, minitron_8b, stablelm_12b, hubert_xlarge,
             pixtral_12b, jamba_v0_1_52b, mixtral_8x7b,
@@ -37,5 +37,5 @@ def all_cells() -> list[tuple[str, str]]:
 
 
 __all__ = ["REGISTRY", "get", "arch_names", "all_cells", "SHAPES",
-           "ShapeSpec", "cell_supported", "decode_cache_len",
+           "ShapeSpec", "cell_supported", "decode_cache_len", "input_specs",
            "supported_shapes"]

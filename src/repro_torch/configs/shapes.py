@@ -1,7 +1,8 @@
 """Assigned input shapes (``seq_len × global_batch``) and which
-(architecture, shape) cells are runnable: a copy of the JAX package's
-``configs/shapes.py`` less ``input_specs`` (a JAX ``eval_shape`` dry-run
-helper):
+(architecture, shape) cells are runnable: the JAX package's
+``configs/shapes.py``, with ``input_specs`` giving meta tensors (no
+allocation: the dry-run contract) where the reference gives
+``ShapeDtypeStruct``s:
 
 * ``train_4k``     — seq 4096,    batch 256;
 * ``prefill_32k``  — seq 32768,   batch 32;
@@ -14,7 +15,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..models.config import ArchConfig
+from ..models.layers import torch_dtype
 
 
 @dataclass(frozen=True)
@@ -52,3 +56,33 @@ def decode_cache_len(cfg: ArchConfig, seq_len: int) -> int:
     if cfg.window is not None:
         return min(cfg.window, seq_len)
     return seq_len
+
+
+def _sds(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: str) -> dict:
+    """Abstract inputs for the step function this shape runs (meta
+    tensors).  Frontend-stubbed archs take ``(B, S, d_model)`` embeddings.
+
+    train:   {"batch": {"inputs", "labels"}}
+    prefill: {"inputs"}
+    decode:  {"tokens", "state", "t"}   (state = KV caches / SSM states)
+    """
+    from ..models.model import init_decode_state
+    s = SHAPES[shape]
+    B, S = s.global_batch, s.seq_len
+    if cfg.embedding_inputs:
+        inputs = _sds((B, S, cfg.d_model), torch_dtype(cfg.dtype))
+    else:
+        inputs = _sds((B, S), torch.int32)
+    if s.kind == "train":
+        return {"batch": {"inputs": inputs,
+                          "labels": _sds((B, S), torch.int32)}}
+    if s.kind == "prefill":
+        return {"inputs": inputs}
+    cache_len = decode_cache_len(cfg, S)
+    state = init_decode_state(cfg, B, cache_len, device="meta")
+    return {"tokens": _sds((B,), torch.int32), "state": state,
+            "t": _sds((), torch.int32)}

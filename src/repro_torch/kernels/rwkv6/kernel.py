@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from ...loops import scan
+
 F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (4, 8, 16, 32, 64)
@@ -45,12 +47,14 @@ def wkv6_scan_plain(r, k, v, w, u, s0=None):
     uf = u.to(F32)
     S = (torch.zeros((B, H, hs, hs), dtype=F32, device=r.device)
          if s0 is None else s0.to(F32))
-    ys = []
-    for t in range(T):
+
+    def step(S, t):
         r_t, k_t, v_t, w_t = (x[:, t].to(F32) for x in (r, k, v, w))
         kv = k_t[..., None] * v_t[..., None, :]             # (B,H,hs,hs)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r_t, S + uf[..., None] * kv))
-        S = w_t[..., None] * S + kv
+        y = torch.einsum("bhk,bhkv->bhv", r_t, S + uf[..., None] * kv)
+        return w_t[..., None] * S + kv, y
+
+    S, ys = scan(step, S, T)
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros((B, 0, H, hs), dtype=F32, device=r.device))
     return y, S
@@ -77,32 +81,38 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, gy, gs=None):
     uf = u.to(F32)
     S = (torch.zeros((B, H, hs, hs), dtype=F32, device=r.device)
          if s0 is None else s0.to(F32))
-    states = []
-    for t in range(T):
-        states.append(S)
+
+    def fwd(S, t):                     # y: the state before step t
         k_t, v_t, w_t = (x[:, t].to(F32) for x in (k, v, w))
         kv = k_t[..., None] * v_t[..., None, :]
-        S = w_t[..., None] * S + kv
+        return w_t[..., None] * S + kv, S
+
+    _, states = scan(fwd, S, T)
     G = (torch.zeros((B, H, hs, hs), dtype=F32, device=r.device)
          if gs is None else gs.to(F32))
-    grads = {n: [None] * T for n in ("r", "k", "v", "w")}
     gu_b = torch.zeros((B, H, hs), dtype=F32, device=r.device)
-    for t in reversed(range(T)):
+
+    def bwd(carry, i):                 # from t = T - 1 down
+        G, gu_b = carry
+        t = T - 1 - i
         r_t, k_t, v_t, w_t, gy_t = (x[:, t].to(F32)
                                     for x in (r, k, v, w, gy))
         S_t = states[t]
         dot = (gy_t * v_t).sum(-1)[..., None]
-        grads["w"][t] = (G * S_t).sum(-1)
-        grads["k"][t] = (G * v_t[..., None, :]).sum(-1) + uf * r_t * dot
-        grads["r"][t] = (gy_t[..., None, :] * S_t).sum(-1) + uf * k_t * dot
+        gw = (G * S_t).sum(-1)
+        gk = (G * v_t[..., None, :]).sum(-1) + uf * r_t * dot
+        gr = (gy_t[..., None, :] * S_t).sum(-1) + uf * k_t * dot
         ruk = (r_t * uf * k_t).sum(-1)[..., None]
-        grads["v"][t] = (k_t[..., None] * G).sum(-2) + ruk * gy_t
+        gv = (k_t[..., None] * G).sum(-2) + ruk * gy_t
         gu_b = gu_b + r_t * k_t * dot
         G = w_t[..., None] * G + r_t[..., None] * gy_t[..., None, :]
+        return (G, gu_b), (gr, gk, gv, gw)
+
+    (G, gu_b), per = scan(bwd, (G, gu_b), T)
     gu = _sum_batch(gu_b)
-    out = [torch.stack(grads[n], dim=1) if T
+    out = [torch.stack([g[n] for g in reversed(per)], dim=1) if T
            else torch.zeros((B, 0, H, hs), dtype=F32, device=r.device)
-           for n in ("r", "k", "v", "w")]
+           for n in range(4)]
     return (*out, gu, G)
 
 

@@ -1,3 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.train``.  The
-dry-run report of the JAX package's ``repro.launch`` waits for ROADMAP A9
-(launch)."""
+"""Launchers of the port: ``python -m repro_torch.launch.train`` (training)
+and ``python -m repro_torch.launch.dryrun`` (the per-cell launch report on
+the production meshes, ``mesh``; collectives counted by ``comm_stats``)."""

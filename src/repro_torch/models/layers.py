@@ -2,10 +2,12 @@
 
 Every block declares its parameters as a nested dict of :class:`P`
 ``(shape, logical_axes, init)`` entries, as in the JAX package; from one
-declaration tree :func:`init_params` draws the parameters.  The logical
-axes are kept for the sharding rules that come with ROADMAP A9/A8; the JAX
-package's activation constraints (``shard_act``) are no-ops without a mesh
-and are left out here.
+declaration tree :func:`init_params` draws the parameters,
+:func:`abstract_params` gives meta tensors of their shapes (the dry run's
+no-allocation input) and :func:`param_axes` the logical-axis tree that
+the sharding rules (``repro_torch.sharding``) resolve.  Activations carry
+the JAX package's constraints (``shard_act``): no-ops without a mesh
+context.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import (batch_only, gather_rows, gather_weights,
+                              shard_act)
 from .config import ArchConfig
 
 F32 = torch.float32
@@ -87,6 +91,18 @@ def init_params(decls, generator: torch.Generator, dtype=F32,
                             device=device) * scale
         out.append((path, x))
     return tree_from_items(out)
+
+
+def abstract_params(decls, dtype=F32):
+    """Meta tensors of the declared shapes in ``dtype`` (nothing
+    allocated)."""
+    dtype = torch_dtype(dtype)
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                          device="meta"), decls)
+
+
+def param_axes(decls):
+    return tree_map(lambda p: p.axes, decls)
 
 
 def stack_decls(decls, n: int, axis_name: str = "layers"):
@@ -165,12 +181,15 @@ def mlp_decls(cfg: ArchConfig) -> dict:
 
 
 def apply_mlp(p, x, cfg: ArchConfig):
+    x = batch_only(x)
     dt = x.dtype
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        h = shard_act(h, ("batch", "seq", "mlp"))
         return h @ p["w_down"].to(dt)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+    h = shard_act(h, ("batch", "seq", "mlp"))
     return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
@@ -189,9 +208,10 @@ def embed_tokens(p, tokens, cfg: ArchConfig):
     # The JAX package casts the whole table, then gathers; gathering the
     # rows first and casting them gives the same bits without a cast copy
     # of the table.
-    return p["embedding"][tokens].to(torch_dtype(cfg.dtype))
+    return gather_rows(p["embedding"], tokens).to(torch_dtype(cfg.dtype))
 
 
 def lm_head(p, x, cfg: ArchConfig):
-    w = p["embedding"].T if cfg.tie_embeddings else p["head"]
-    return x @ w.to(x.dtype)
+    w = gather_weights(p["embedding"].T if cfg.tie_embeddings
+                       else p["head"], x.shape[0])
+    return batch_only(x) @ w.to(x.dtype)

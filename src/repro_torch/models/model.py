@@ -16,10 +16,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.rules import batch_only, shard_act, sharded_dims, take_last
 from . import stacks
 from .config import ArchConfig
-from .layers import (apply_norm, embed_decls, embed_tokens, init_params,
-                     lm_head, norm_decls, torch_dtype, tree_items)
+from .layers import (abstract_params, apply_norm, embed_decls, embed_tokens,
+                     init_params, lm_head, norm_decls, param_axes,
+                     torch_dtype, tree_items)
 
 
 def model_decls(cfg: ArchConfig) -> dict:
@@ -40,6 +42,16 @@ def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
                        device=device)
 
 
+def abstract_model(cfg: ArchConfig):
+    """Meta-tensor param tree — the no-allocation dry-run input."""
+    return abstract_params(model_decls(cfg), cfg.param_dtype)
+
+
+def model_axes(cfg: ArchConfig):
+    """Logical-axis tree mirroring the params (for sharding rules)."""
+    return param_axes(model_decls(cfg))
+
+
 def _embed(params, cfg: ArchConfig, inputs):
     if cfg.embedding_inputs:
         return inputs.to(torch_dtype(cfg.dtype))
@@ -51,28 +63,39 @@ def forward_hidden(params, cfg: ArchConfig, inputs, *,
     """Final-normed hidden states (B,S,D) — the LM head is applied by the
     caller (``loss_fn`` fuses it into chunked cross-entropy).  ``remat``
     acts under grad only (``stacks.apply_stack``)."""
-    x = stacks.apply_stack(params["stack"], _embed(params, cfg, inputs), cfg,
-                           attn_impl=attn_impl, remat=remat)
+    x = shard_act(_embed(params, cfg, inputs), ("batch", "seq", "embed"))
+    x = stacks.apply_stack(params["stack"], x, cfg, attn_impl=attn_impl,
+                           remat=remat)
     return apply_norm(params["final_norm"], x, cfg)
 
 
 def forward(params, cfg: ArchConfig, inputs, *, attn_impl: str = "auto",
             remat: bool = True):
     """Logits for a full sequence.  inputs: (B,S) int or (B,S,D) embeds."""
-    return lm_head(params["embed"],
-                   forward_hidden(params, cfg, inputs, attn_impl=attn_impl,
-                                  remat=remat),
-                   cfg)
+    return shard_act(
+        lm_head(params["embed"],
+                forward_hidden(params, cfg, inputs, attn_impl=attn_impl,
+                               remat=remat), cfg),
+        ("batch", "seq", "vocab"))
 
 
 def _xent_chunk(params, cfg: ArchConfig, xc, lc):
     """Σ nll over one sequence chunk and its labelled count.  xc: (B,ck,D);
     lc: (B,ck), -1 = unlabelled."""
-    logits = lm_head(params["embed"], xc, cfg).to(torch.float32)
+    logits = shard_act(lm_head(params["embed"], xc, cfg),
+                       ("batch", "seq", "vocab")).to(torch.float32)
     mask = lc >= 0
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, torch.clamp_min(lc, 0)[..., None]
-                      .to(torch.int64))[..., 0]
+    idx = torch.clamp_min(lc, 0).to(torch.int64)
+    if logits.dim() - 1 in sharded_dims(logits):
+        # vocab split over the mesh: the softmax's max and sum reduced
+        # across the shards (to batch-split values), each shard picking
+        # the labels it holds
+        z = logits - batch_only(logits.detach().amax(dim=-1, keepdim=True))
+        ll = (batch_only(take_last(z, idx))
+              - torch.log(batch_only(torch.exp(z).sum(dim=-1))))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, idx[..., None])[..., 0]
     return -torch.sum(torch.where(mask, ll, 0.0)), torch.sum(mask)
 
 

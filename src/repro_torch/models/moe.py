@@ -6,8 +6,10 @@ products cost only the capacity's rows, as in the JAX package's
 dtype; the gates are cast to it only at the combine.
 
 Tokens are dispatched in groups (a leading axis ``G``): capacity is per
-group.  The port has no mesh yet (sharding is ROADMAP A9's last part), so
-there is one group; the axis stays in the shapes for the sharding slice.
+group.  Under a mesh context ``G`` is the mesh's (pod × data) extent
+(halved until it divides the batch), as in the reference, and each group's
+sort, gather and scatter run on the device that holds it
+(``sharding.shard_local``); without one there is one group.
 
 No kernel: the reference computes the routing, sort and gathers in XLA and
 the expert products as einsums, outside any Pallas kernel, so here they
@@ -21,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding import rules
+from ..sharding.rules import batch_only, shard_act, shard_local
 from .config import ArchConfig
 from .layers import P
 
@@ -93,50 +97,106 @@ def _expert_ffn(p, xg, cfg: ArchConfig):
     dt = xg.dtype
     h = F.silu(torch.einsum("ecd,edf->ecf", xg, p["w_gate"].to(dt))) \
         * torch.einsum("ecd,edf->ecf", xg, p["w_up"].to(dt))
+    h = shard_act(h, ("experts", None, "mlp"))
     return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
 
 
+def _dispatch_groups(batch: int) -> int:
+    """Dispatch-group count = the mesh's (pod × data) extent when a mesh
+    context is active (sort/gather/scatter then stay shard-local), halved
+    until it divides ``batch``; else 1."""
+    if rules._CTX is None:
+        return 1
+    mesh = rules.as_mesh(rules._CTX["mesh"])
+    g = 1
+    for a in rules.batch_axes(mesh):
+        g *= mesh.shape[a]
+    while batch % g:
+        g //= 2
+    return max(g, 1)
+
+
 def _expert_ffn_grouped(p, xg, cfg: ArchConfig):
-    """Grouped SwiGLU. xg: (G, E, C, D) -> (G, E, C, D)."""
+    """Grouped SwiGLU. xg: (G, E, C, D) -> (G, E, C, D); mlp dim TP."""
     dt = xg.dtype
     h = F.silu(torch.einsum("gecd,edf->gecf", xg, p["w_gate"].to(dt))) \
         * torch.einsum("gecd,edf->gecf", xg, p["w_up"].to(dt))
+    h = shard_act(h, ("batch", "experts", "capacity", "mlp"))
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
 
 
-def apply_moe(p, x, cfg: ArchConfig):
-    """Sort-based capacity dispatch. x: (B, S, D) -> (B, S, D)."""
-    B, S, D = x.shape
-    E, k = cfg.moe.n_experts, cfg.moe.top_k
-    G = 1                                   # dispatch groups (no mesh)
-    N = (B * S) // G                                          # per group
-    xf = x.reshape(G, N, D)
-    gates, idx = _route(p, xf.reshape(G * N, D), cfg)
-    C = capacity(cfg, N)
-    order, tok, keep, slot = _dispatch(idx.reshape(G, N, k), E, C)
-
-    gi = torch.arange(G, device=x.device)[:, None]
+def _gather_buckets(xf, idx, E: int, C: int):
+    """Each group's capacity dispatch and its (E, C, D) token buckets.
+    xf: (G, N, D); idx: (G, N, k) -> ``(xg (G, E, C, D), order, tok, keep,
+    slot)`` (:func:`_dispatch`)."""
+    G, N, D = xf.shape
+    order, tok, keep, slot = _dispatch(idx, E, C)
+    gi = torch.arange(G, device=xf.device)[:, None]
     # gather tokens into (G, E, C, D) buckets (the zero row N absorbs
     # empty slots; dropped assignments all land in the unused row E*C)
     buf_tok = torch.full((G, E * C + 1), N, dtype=torch.int64,
-                         device=x.device)
+                         device=xf.device)
     buf_tok[gi, slot] = tok
-    xpad = torch.cat([xf, torch.zeros((G, 1, D), dtype=x.dtype,
-                                      device=x.device)], dim=1)
+    xpad = torch.cat([xf, torch.zeros((G, 1, D), dtype=xf.dtype,
+                                      device=xf.device)], dim=1)
     xg = xpad[gi, buf_tok[:, :E * C]].reshape(G, E, C, D)
+    return xg, order, tok, keep, slot
 
-    yg = _expert_ffn_grouped(p, xg, cfg).reshape(G, E * C, D)
 
-    # combine: scatter-add gate-weighted expert outputs back to tokens.
-    # A token receives at most top_k terms onto zeros, and with top_k <= 2
-    # (every config: mixtral and jamba 2, llama4-scout 1) (0 + a) + b ==
-    # (0 + b) + a exactly, so index_add_ is deterministic on the card too.
-    g_sorted = torch.gather(gates.reshape(G, N * k), 1, order).to(x.dtype)
-    got = yg[gi, torch.clamp_max(slot, E * C - 1)] * g_sorted[..., None]
+def _combine(yg, gates, order, tok, keep, slot):
+    """Scatter-add each group's gate-weighted expert outputs back to its
+    tokens.  yg: (G, E·C, D); gates: (G, N, k) -> (G, N, D).
+
+    A token receives at most top_k terms onto zeros, and with top_k <= 2
+    (every config: mixtral and jamba 2, llama4-scout 1) (0 + a) + b ==
+    (0 + b) + a exactly, so index_add_ is deterministic on the card too."""
+    G, EC, D = yg.shape
+    N, k = gates.shape[1:]
+    gi = torch.arange(G, device=yg.device)[:, None]
+    g_sorted = torch.gather(gates.reshape(G, N * k), 1, order).to(yg.dtype)
+    got = yg[gi, torch.clamp_max(slot, EC - 1)] * g_sorted[..., None]
     contrib = torch.where(keep[..., None], got, 0.0)
-    out = torch.zeros((G * N, D), dtype=x.dtype, device=x.device)
+    out = torch.zeros((G * N, D), dtype=yg.dtype, device=yg.device)
     out.index_add_(0, (tok + gi * N).reshape(-1), contrib.reshape(-1, D))
-    return out.reshape(B, S, D)
+    return out.reshape(G, N, D)
+
+
+def apply_moe(p, x, cfg: ArchConfig):
+    """Group-local sort-based capacity dispatch. x: (B, S, D).
+
+    Tokens are dispatched independently within contiguous batch groups
+    aligned to the data-parallel shards (capacity is per group), with the
+    reference's sharding constraint on every dispatch intermediate.  With
+    no mesh context this is one global group.
+    """
+    x = batch_only(x)
+    B, S, D = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    G = _dispatch_groups(B)
+    N = (B * S) // G                                          # per group
+
+    def grp(a, ax):                                           # G leads
+        return shard_act(a, ("batch",) + ax)
+
+    xf = grp(x.reshape(G, N, D), (None, None))
+    gates, idx = shard_local(
+        lambda xf, router: _route({"router": router},
+                                  xf.reshape(-1, D), cfg),
+        G, (0, None), (0, 0))(xf, p["router"])
+    gates = grp(gates.reshape(G, N, k), (None, None))
+    idx = grp(idx.reshape(G, N, k), (None, None))
+    C = capacity(cfg, N)
+    xg, order, tok, keep, slot = shard_local(
+        lambda xf, idx: _gather_buckets(xf, idx, E, C), G, (0, 0),
+        (0, 0, 0, 0, 0))(xf, idx)
+    # EP: expert buckets sharded over the model axis (capacity dim when
+    # E doesn't divide it)
+    xg = grp(xg, ("experts", "capacity", None))
+    yg = _expert_ffn_grouped(p, xg, cfg)
+    yg = grp(yg, ("experts", "capacity", None)).reshape(G, E * C, D)
+    out = shard_local(_combine, G, (0, 0, 0, 0, 0, 0), (0,))(
+        yg, gates, order, tok, keep, slot)
+    return grp(out, (None, None)).reshape(B, S, D)
 
 
 def apply_moe_dense(p, x, cfg: ArchConfig):

@@ -22,6 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6.kernel import wkv6_scan
+from ..loops import scan
+from ..sharding.rules import (axis_extent, batch_only, batch_only_grad,
+                              shard_act, shard_local, split_count,
+                              unsplit)
 from .config import ArchConfig
 from .layers import P, torch_dtype
 
@@ -67,9 +71,12 @@ def _mamba_pre(p, x, cfg: ArchConfig, conv_state=None):
     """Shared projections. x: (B,S,D). Returns (xin, z, dt, Bc, Cc,
     conv_tail)."""
     di, dtr, ds, dc = _mamba_dims(cfg)
+    x = batch_only(x)
     dt_ = x.dtype
     xz = x @ p["in_proj"].to(dt_)
     xin, z = torch.chunk(xz, 2, dim=-1)
+    xin = shard_act(xin, ("batch", "seq", "inner"))
+    z = shard_act(z, ("batch", "seq", "inner"))
     # causal depthwise conv over time
     if conv_state is None:
         pad = torch.zeros((x.shape[0], dc - 1, di), dtype=dt_,
@@ -86,23 +93,39 @@ def _mamba_pre(p, x, cfg: ArchConfig, conv_state=None):
 
     xp = xin @ p["x_proj"].to(dt_)
     dt_low, Bc, Cc = torch.split(xp, [dtr, ds, ds], dim=-1)
-    dt = softplus(dt_low @ p["dt_w"].to(dt_) + p["dt_b"].to(dt_)).to(F32)
+    # dt_low's rank-sized rows summed over the inner shards first, so the
+    # product splits its inner columns
+    dt = softplus(batch_only(dt_low) @ p["dt_w"].to(dt_)
+                  + p["dt_b"].to(dt_)).to(F32)
+    dt = shard_act(dt, ("batch", "seq", "inner"))
     return xin, z, dt, Bc.to(F32), Cc.to(F32), conv_tail
 
 
-def _mamba_scan(p, xin, dt, Bc, Cc, h0):
-    """h_t = exp(dt A) h + dt x B ; y_t = h C. Carries h (B,di,ds) f32.
+def _mamba_scan(p, xin, dt, Bc, Cc, h0=None):
+    """h_t = exp(dt A) h + dt x B ; y_t = h C. Carries h (B,di,ds) f32
+    from ``h0`` (None: zeros).
 
-    A Python loop over the S steps.  Returns (h, y (B,S,di) f32)."""
-    A = -torch.exp(p["a_log"].to(F32))                    # (di, ds)
+    A Python loop over the S steps, per batch shard and per shard of the
+    inner channels under a mesh (the recurrence is channel by channel).
+    Returns (h, y (B,S,di) f32)."""
+    return shard_local(_mamba_scan_local, xin.shape[0],
+                       ((None, 0), (0, 2), (0, 2), 0, 0, (0, 1)),
+                       ((0, 1), (0, 2)))(p["a_log"], xin, dt, Bc, Cc, h0)
+
+
+def _mamba_scan_local(a_log, xin, dt, Bc, Cc, h0):
+    A = -torch.exp(a_log.to(F32))                         # (di, ds)
     x = xin.to(F32)
-    h = h0
-    ys = []
-    for t in range(x.shape[1]):
+    h = h0 if h0 is not None else torch.zeros(
+        (x.shape[0], A.shape[0], A.shape[1]), dtype=F32, device=x.device)
+
+    def step(h, t):
         dt_t = dt[:, t]                                   # (B, di)
         dA = torch.exp(dt_t[..., None] * A)               # (B, di, ds)
         h = h * dA + (dt_t * x[:, t])[..., None] * Bc[:, t, None, :]
-        ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
+        return h, torch.einsum("bds,bs->bd", h, Cc[:, t])
+
+    h, ys = scan(step, h, x.shape[1])
     return h, torch.stack(ys, dim=1)
 
 
@@ -114,10 +137,8 @@ def _mamba_out(p, x, y, xin, z):
 
 def apply_mamba(p, x, cfg: ArchConfig, *, return_state: bool = False):
     """Prefill / full-sequence path. x: (B,S,D)."""
-    di, _, ds, _ = _mamba_dims(cfg)
     xin, z, dt, Bc, Cc, conv_tail = _mamba_pre(p, x, cfg)
-    h0 = torch.zeros((x.shape[0], di, ds), dtype=F32, device=x.device)
-    h, y = _mamba_scan(p, xin, dt, Bc, Cc, h0)
+    h, y = _mamba_scan(p, xin, dt, Bc, Cc)
     out = _mamba_out(p, x, y, xin, z)
     if return_state:
         return out, {"h": h, "conv": conv_tail}
@@ -171,7 +192,12 @@ def rwkv_tmix_decls(cfg: ArchConfig) -> dict:
 
 
 def _shift(x):
-    """x shifted one step along time, zeros first: ``x_prev``."""
+    """x shifted one step along time, zeros first: ``x_prev`` (per batch
+    shard under a mesh: the time axis whole)."""
+    return shard_local(_shift_local, x.shape[0], (0,), (0,))(x)
+
+
+def _shift_local(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
@@ -179,38 +205,73 @@ def _tmix_proj(p, x, x_prev, cfg: ArchConfig):
     """Token-shift mixing + projections. x: (B,S,D); x_prev: shifted x.
     Returns r, k, v (B,S,H,hs) in x's dtype, the gate g (B,S,H·hs) and the
     decay w (B,S,H,hs) in f32 (its LoRA product in f32: no TF32)."""
+    x, x_prev = batch_only(x), batch_only(x_prev)
     dt = x.dtype
     dx = x_prev - x
     lo = torch.tanh((x + dx * p["mu"][4].to(dt)) @ p["mix_down"].to(dt))
     B, S = x.shape[:2]
-    lo = lo.reshape(B, S, 5, cfg.rwkv.mix_lora)
+    # the five LoRAs' ranks split into their own dim: whole on each device
+    # (and so their gradient) where a product left them split
+    lo = batch_only_grad(batch_only(lo).reshape(B, S, 5, cfg.rwkv.mix_lora))
     dyn = torch.einsum("bsfl,fld->bsfd", lo, p["mix_up"].to(dt))
-    mixed = x[:, :, None, :] + dx[:, :, None, :] * (p["mu"].to(dt) + dyn)
+    # the five mixes split apart: whole on each device first
+    mixed = batch_only(
+        x[:, :, None, :] + dx[:, :, None, :] * (p["mu"].to(dt) + dyn))
     xr, xk, xv, xw, xg = mixed.unbind(dim=2)
     H, hs = _rwkv_dims(cfg)
     shp = (B, S, H, hs)
-    r = (xr @ p["wr"].to(dt)).reshape(shp)
-    k = (xk @ p["wk"].to(dt)).reshape(shp)
-    v = (xv @ p["wv"].to(dt)).reshape(shp)
+    r = shard_act(_heads(xr @ p["wr"].to(dt), shp),
+                  ("batch", "seq", "heads", "head_dim"))
+    k = shard_act(_heads(xk @ p["wk"].to(dt), shp),
+                  ("batch", "seq", "heads", "head_dim"))
+    v = shard_act(_heads(xv @ p["wv"].to(dt), shp),
+                  ("batch", "seq", "heads", "head_dim"))
     g = F.silu(xg @ p["wg"].to(dt))
     # data-dependent decay in (0,1): w = exp(-exp(w0 + lora(xw)))
+    # (the LoRA's hidden takes its gradient, partial over the inner
+    # shards, reduced: batch_only_grad)
     wlog = p["w0"].to(F32) + (
-        torch.tanh(xw @ p["decay_down"].to(dt)).to(F32)
+        batch_only_grad(torch.tanh(xw @ p["decay_down"].to(dt)).to(F32))
         @ p["decay_up"].to(F32))
-    w = torch.exp(-torch.exp(wlog)).reshape(shp)
+    w = _heads(torch.exp(-torch.exp(wlog)), shp)
     return r, k, v, g, w
 
 
-def _wkv_scan(p, r, k, v, w, s0):
-    """S_t = diag(w_t) S + kᵀv ; y_t = r·(S + diag(u) kᵀv). s0: (B,H,hs,hs).
+def _heads(t, shp):
+    """(B, S, H·hs) -> ``shp`` = (B, S, H, hs).  A last dim split over mesh
+    axes at other than head boundaries (rwkv6-3b's 40 heads on 16) is
+    gathered first."""
+    n = split_count(t, -1)
+    return (unsplit(t, -1) if shp[2] % n else t).reshape(shp)
+
+
+def _wkv_scan(p, r, k, v, w, s0=None):
+    """S_t = diag(w_t) S + kᵀv ; y_t = r·(S + diag(u) kᵀv). s0: (B,H,hs,hs)
+    (None: zeros).
 
     Returns ``(final state, y (B,S,H,hs) f32)`` through the ``wkv6``
     kernel (the JAX package's scan reference and its Pallas production
-    path in one call); differentiable through ``WKV6`` (the reference's
+    path in one call), per batch shard under a mesh, and per head shard
+    where the heads divide the ``model`` axis (else whole on each of its
+    devices: the state's rows and columns both meet every step's
+    product); differentiable through ``WKV6`` (the reference's
     time-chunked remat of the scan is the kernel's kept states here).
     """
-    y, s = wkv6_scan(r, k, v, w, p["u"].to(F32), s0)
+    split = r.shape[2] % axis_extent("model") == 0     # heads over model
+    seq = (0, 2 if split else None)                    # (B, S, H, hs)
+    u = (None, 0 if split else None)                   # (H, hs)
+    state = (0, 1 if split else None)                  # (B, H, hs, hs)
+    y, s = shard_local(_wkv_local, r.shape[0],
+                       (seq, seq, seq, seq, u, state), (seq, state))(
+        r, k, v, w, p["u"].to(F32), s0)
     return s, y
+
+
+def _wkv_local(r, k, v, w, u, s0):
+    if s0 is None:
+        B, _, H, hs = r.shape
+        s0 = torch.zeros((B, H, hs, hs), dtype=F32, device=r.device)
+    return wkv6_scan(r, k, v, w, u, s0)
 
 
 def _tmix_out(p, y, g, cfg: ArchConfig):
@@ -219,6 +280,10 @@ def _tmix_out(p, y, g, cfg: ArchConfig):
     mu = torch.mean(y, dim=-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, correction=0)
     y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, H * hs)
+    if H % axis_extent("model"):
+        # heads whole on each device: so their gradient, which the
+        # products below split along H·hs at other than head boundaries
+        y = batch_only_grad(y)
     y = y * p["ln_scale"].to(F32) + p["ln_bias"].to(F32)
     y = y.to(g.dtype) * g
     return y @ p["wo"].to(g.dtype)
@@ -227,9 +292,7 @@ def _tmix_out(p, y, g, cfg: ArchConfig):
 def apply_rwkv_tmix(p, x, cfg: ArchConfig, *, return_state: bool = False):
     B, S, D = x.shape
     r, k, v, g, w = _tmix_proj(p, x, _shift(x), cfg)
-    H, hs = _rwkv_dims(cfg)
-    s0 = torch.zeros((B, H, hs, hs), dtype=F32, device=x.device)
-    s, y = _wkv_scan(p, r, k, v, w, s0)
+    s, y = _wkv_scan(p, r, k, v, w)
     out = _tmix_out(p, y, g, cfg)
     if return_state:
         return out, {"s": s, "x_tmix": x[:, -1]}
@@ -251,11 +314,14 @@ def apply_rwkv_cmix(p, x, cfg: ArchConfig, x_prev=None):
     dt = x.dtype
     if x_prev is None:
         x_prev = _shift(x)
+    x, x_prev = batch_only(x), batch_only(x_prev)
     dx = x_prev - x
     xk = x + dx * p["mu_k"].to(dt)
     xr = x + dx * p["mu_r"].to(dt)
     k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    return torch.sigmoid(xr @ p["wr"].to(dt)) * (k @ p["wv"].to(dt))
+    # the value product's partial sums (over the mlp shards) reduced
+    # before the gate meets them, so both factors keep the batch layout
+    return torch.sigmoid(xr @ p["wr"].to(dt)) * batch_only(k @ p["wv"].to(dt))
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, device="cuda") -> dict:

@@ -18,8 +18,10 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.rules import batch_only_grad, gather_weights, shard_act
 from . import attention, moe, ssm
 from .config import ArchConfig
 from .layers import (apply_mlp, apply_norm, mlp_decls, norm_decls,
@@ -92,10 +94,14 @@ def _apply_mlp_block(p, h, cfg: ArchConfig, entry: dict):
 
 def _apply_sub_block(p, x, cfg: ArchConfig, entry: dict, positions,
                      attn_impl: str):
-    h = apply_norm(p["norm1"], x, cfg)
-    x = x + _apply_mixer(p["mixer"], h, cfg, entry, positions, attn_impl)
+    p = gather_weights(p, x.shape[0])
+    # constraint on the *bf16* norm output anchors the SP->TP gather on
+    # the cast tensor, as in the reference
+    h = shard_act(apply_norm(p["norm1"], x, cfg), ("batch", "seq", "embed"))
+    x = x + batch_only_grad(
+        _apply_mixer(p["mixer"], h, cfg, entry, positions, attn_impl))
     h = apply_norm(p["norm2"], x, cfg)
-    return x + _apply_mlp_block(p["mlp"], h, cfg, entry)
+    return x + batch_only_grad(_apply_mlp_block(p["mlp"], h, cfg, entry))
 
 
 def _unbind(tree):
@@ -114,13 +120,14 @@ def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
     heterogeneous period, as the reference's ``jax.checkpoint``s."""
     period = _pattern_period(cfg)
     if not period:
-        return x
+        return shard_act(x, ("batch", "seq", "embed"))
     remat = remat and torch.is_grad_enabled()
     nested = remat and len(period) > 1
     layers = {f"sub{i}": _unbind(params[f"sub{i}"])
               for i in range(len(period))}
 
     def one_period(x, pparams):
+        x = shard_act(x, ("batch", "seq", "embed"))   # SP residual stream
         for i, entry in enumerate(period):
             fn = functools.partial(_apply_sub_block, cfg=cfg, entry=entry,
                                    positions=positions, attn_impl=attn_impl)
@@ -151,8 +158,10 @@ def init_stack_state(cfg: ArchConfig, batch: int, cache_len: int,
     n_periods = cfg.n_layers // len(period)
 
     def stacked(leaves):
-        return tree_map(lambda a: a.expand((n_periods,) + a.shape).clone(),
-                        leaves)
+        def stack(a):
+            return a.expand((n_periods,) + a.shape).clone()
+        return (tree_map(stack, leaves) if isinstance(leaves, dict)
+                else stack(leaves))
 
     state = {}
     for i, entry in enumerate(period):
@@ -176,6 +185,7 @@ def init_stack_state(cfg: ArchConfig, batch: int, cache_len: int,
 
 def _prefill_sub_block(p, x, cfg: ArchConfig, entry: dict, cache_len: int,
                        attn_impl: str):
+    p = gather_weights(p, x.shape[0])
     h = apply_norm(p["norm1"], x, cfg)
     new = {}
     if entry["mixer"] == "attn":
@@ -221,6 +231,7 @@ def prefill_stack(params: dict, x, cfg: ArchConfig, cache_len: int, *,
 
 
 def _step_sub_block(p, x, st, cfg: ArchConfig, entry: dict, t: int):
+    p = gather_weights(p, x.shape[0])
     h = apply_norm(p["norm1"], x, cfg)
     new = {}
     if entry["mixer"] == "attn":
@@ -247,8 +258,16 @@ def _write_back(dst, li: int, new) -> None:
         for key in path[:-1]:
             node = node[key]
         slot = node[path[-1]][li]
-        if leaf.data_ptr() != slot.data_ptr():
+        if not _same_memory(leaf, slot):
             slot.copy_(leaf)
+
+
+def _same_memory(a, b) -> bool:
+    """Whether two tensors (or ``DTensor``s' local shards) view the same
+    memory at the same offset."""
+    a, b = (x.to_local() if isinstance(x, DTensor) else x for x in (a, b))
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 def step_stack(params: dict, x, state: dict, cfg: ArchConfig, t: int):

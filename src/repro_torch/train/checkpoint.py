@@ -11,9 +11,10 @@ Leaves go in the JAX package's flatten order (dict keys sorted, tuples and
 named tuples in field order: ``(params, OptState(step, m, v))``), so a
 directory written by either package restores in the other, leaf for leaf.
 A crash mid-save never corrupts the latest checkpoint: restore only sees
-committed directories.  The reference's elastic restore onto a mesh
-(``shardings=``) waits for the port's sharding (ROADMAP A9); ``device=``
-places the restored leaves.
+committed directories.  Leaves are stored as global arrays, so a restore
+may lay them out on another mesh than the saving job's (the elastic path:
+``shardings=``, each leaf a ``DTensor`` holding its local shard);
+``device=`` places unsharded leaves.
 """
 from __future__ import annotations
 
@@ -152,12 +153,13 @@ def restore(root: str, like, *, step: int | None = None, device="cuda",
             shardings=None) -> tuple[int, object, dict]:
     """Restore into the structure of ``like`` (values ignored), each leaf
     a tensor on ``device`` in its saved dtype.  Returns ``(step, tree,
-    meta)``.  ``shardings`` (the reference's elastic restore onto a mesh)
-    raises until the port has sharding."""
-    if shardings is not None:
-        raise NotImplementedError("checkpoint.restore(shardings=...): the "
-                                  "port has no sharding yet (ROADMAP A9, "
-                                  "sharding)")
+    meta)``.
+
+    ``shardings``: optional tree matching ``like`` with a ``(mesh,
+    placements)`` pair per leaf — the *elastic* path: each saved global
+    array becomes a ``DTensor`` on that mesh (its device type; any mesh,
+    not only the saving job's) holding this rank's shard, cut locally from
+    the array every rank reads (no collective)."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -169,6 +171,27 @@ def restore(root: str, like, *, step: int | None = None, device="cuda",
     if len(manifest["leaves"]) != n_like:
         raise ValueError(f"checkpoint {d} holds {len(manifest['leaves'])} "
                          f"leaves, the tree to restore {n_like}")
-    leaves = (torch.from_numpy(np.load(os.path.join(d, rec["file"])))
-              .to(device) for rec in manifest["leaves"])
+    arrays = (torch.from_numpy(np.load(os.path.join(d, rec["file"])))
+              for rec in manifest["leaves"])
+    if shardings is None:
+        leaves = (a.to(device) for a in arrays)
+    else:
+        from torch.distributed.tensor import distribute_tensor
+        leaves = (distribute_tensor(a.to(mesh.device_type), mesh, pl,
+                                    src_data_rank=None)
+                  for a, (mesh, pl) in zip(arrays,
+                                           _leaves_like(like, shardings)))
     return step, _unflatten(like, leaves), manifest.get("meta", {})
+
+
+def _leaves_like(like, tree):
+    """The nodes of ``tree`` at the places of ``like``'s leaves, in
+    :func:`_flatten` order."""
+    if isinstance(like, dict):
+        for k in sorted(like):
+            yield from _leaves_like(like[k], tree[k])
+    elif isinstance(like, (tuple, list)):
+        for x, t in zip(like, tree):
+            yield from _leaves_like(x, t)
+    elif like is not None:
+        yield tree

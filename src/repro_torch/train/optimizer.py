@@ -7,7 +7,9 @@ jitted step, ``donate_argnums``), a piece of at most ``PIECE`` elements at
 a time, so its temporaries stay small beside a multi-GB leaf; every op is
 elementwise, so the pieces give the bits of one pass.  Scalars that divide
 are tensors on the parameters' device (torch on CUDA divides by a host
-scalar as a multiply by its reciprocal).
+scalar as a multiply by its reciprocal).  ``DTensor`` parameters (the dry
+run's) are updated shard by shard, each gradient first laid out as its
+parameter.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.layers import tree_items, tree_map
 
@@ -76,6 +79,11 @@ def global_norm(tree):
                           for _, x in tree_items(tree)))
 
 
+def _local(x):
+    """A ``DTensor``'s local shard (its storage: writes go through)."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def _pieces(x):
     """Flat pieces of a contiguous tensor (views: writes go through)."""
     return x.view(-1).split(PIECE)
@@ -94,10 +102,14 @@ def update(cfg: OptConfig, grads, state: OptState, params):
     b2c = 1 - torch.pow(_const(cfg.b2, stepf), stepf)
     gflat = dict(tree_items(grads))
     mflat, vflat = dict(tree_items(state.m)), dict(tree_items(state.v))
+    scale, lr, b1c, b2c = map(_local, (scale, lr, b1c, b2c))
     for path, p in tree_items(params):
-        for pp, gp, mp, vp in zip(_pieces(p),
-                                  gflat[path].reshape(-1).split(PIECE),
-                                  _pieces(mflat[path]), _pieces(vflat[path])):
+        grad = gflat[path]
+        if isinstance(p, DTensor):     # each device updates its shard
+            grad = grad.redistribute(p.device_mesh, p.placements)
+        p, grad, m, v = map(_local, (p, grad, mflat[path], vflat[path]))
+        for pp, gp, mp, vp in zip(_pieces(p), grad.reshape(-1).split(PIECE),
+                                  _pieces(m), _pieces(v)):
             g = gp.to(F32) * scale
             mp.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             vp.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))

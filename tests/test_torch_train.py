@@ -351,11 +351,37 @@ def test_checkpoint_written_by_the_port_restores_in_jax(tmp_path):
         assert mine[key] == ref[key], key
 
 
+_RESTORE_ONTO_MESH = """
+import sys, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate
+from repro_torch.train import checkpoint
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+like = {"x": torch.zeros(3)}
+step, got, _ = checkpoint.restore(sys.argv[1], like,
+                                  shardings={"x": (mesh, (Replicate(),))})
+assert step == 1 and isinstance(got["x"], DTensor), got
+assert got["x"].placements == (Replicate(),)
+assert torch.equal(got["x"].to_local(), torch.arange(3.0))
+dist.destroy_process_group()
+print("RESTORED")
+"""
+
+
 def test_restore_onto_a_mesh_waits_for_sharding(tmp_path):
-    checkpoint.save(str(tmp_path), 1, {"x": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="A9"):
-        checkpoint.restore(str(tmp_path), {"x": torch.zeros(3)},
-                           device="cpu", shardings={"x": None})
+    """Restoring with ``shardings`` lays each leaf out on the mesh (a
+    process of its own: it opens a default process group)."""
+    import subprocess
+    import sys
+    checkpoint.save(str(tmp_path), 1, {"x": torch.arange(3.0)})
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    out = subprocess.run([sys.executable, "-c", _RESTORE_ONTO_MESH,
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert "RESTORED" in out.stdout, out.stderr
 
 
 # ---------------------------------------------------------------------------
