@@ -239,6 +239,23 @@ each printing one line of numbers:
               card; (c) a reduced rwkv6 checkpoint restored onto the
               card's mesh with ``shardings=``: every leaf a ``DTensor``
               with the placements asked for, bitwise.
+20. mesh    — multi-rank sweeps: (a) ``run(mesh=make_host_mesh())`` (one
+              rank) on phases 4 and 6's 65,536-cell grids with their cost
+              model, bitwise their results, ``realized_epochs`` included,
+              the launch counts zeroed just before; (b) the same grids
+              over ``MESH_RANKS`` spawned ranks of a ``gloo`` group, each
+              stepping its half of every bucket on the one card, every
+              rank's result bitwise (a)'s, each rank's ``mr_epoch``
+              launches and wall printed; (c) ``simulate_batch_sharded`` on
+              ``MESH_MULTIJOB`` lanes of phase 14's open-loop family over
+              the same ranks, bitwise ``simulate_batch``; (d) a run whose
+              last rank is handed another plan must fail on every rank.
+              The ranks run in a process group killed whole after
+              ``MESH_TIMEOUT`` seconds.
+21. examples — the five ``examples/*_torch.py`` at once on the card, each
+              in a temporary directory (``train_lm_torch.py --preset
+              smoke``): each must exit 0 with its own asserts holding;
+              each one's wall and the walls of phases 20 and 21.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -3850,6 +3867,293 @@ def dry_host_line(smi, b) -> str:
             f"bitwise, placements as asked")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: multi-rank sweeps (SweepPlan.run(mesh=), simulate_batch_sharded)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2           # phase 20 (b)-(d): gloo ranks sharing the one card
+MESH_MULTIJOB = 1024     # phase 20 (c): lanes of phase 14's open-loop family
+MESH_TIMEOUT = 300       # seconds a multi-rank run may take before it fails
+
+
+def same_metrics(got, want, what):
+    """Raise unless two ``SweepResult``s (or metric dicts) are bitwise
+    equal, ``realized_epochs`` included."""
+    got = getattr(got, "metrics", got)
+    want = getattr(want, "metrics", want)
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: metric names differ")
+    for k in want:
+        if not same_bits(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_mesh_one(plans, results, dev, mesh):
+    """Phase 20 (a): each plan through ``run(mesh=mesh)`` (one rank), the
+    launch counts zeroed just before and read just after; every metric
+    bitwise ``results`` (phases 4 and 6).  Returns ``{name: (result,
+    launches, wall)}``."""
+    import torch
+    from repro_torch.core import costmodel
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    cm = costmodel.default_cost_model(device=dev)
+    out = {}
+    for name, plan in plans.items():
+        mk.mr_epoch.launches = mk.mr_epoch.control_launches = 0
+        t0 = time.perf_counter()
+        res = plan.run(mesh=mesh, device=dev, cost_model=cm)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (mk.mr_epoch.launches, mk.mr_epoch.control_launches)
+        if sum(launches) < 1:
+            raise AssertionError(f"phase 20 (a) {name}: no mr_epoch launch")
+        same_metrics(res, results[name], f"phase 20 (a) {name}")
+        out[name] = (res, launches, wall)
+    return out
+
+
+def mesh_rank(rank, port, work, device, fail):
+    """One rank of phase 20 (b)-(d), spawned: a ``gloo`` group of
+    :data:`MESH_RANKS` over a CPU mesh for the split and the gathers,
+    its lanes stepped on ``device``.  Runs the plans of ``work``/plans.pkl
+    through ``run(mesh=)`` and the multi-job batch of ``work``/mj.npz
+    through ``simulate_batch_sharded``; writes its results, launch counts
+    and walls to ``work``/rank<r>.pkl.  With ``fail``, the last rank runs
+    another plan: every rank must raise."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import engine, sweep
+    from repro_torch.kernels.mr_sched import megakernel as mk
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        mesh = init_device_mesh("cpu", (MESH_RANKS,),
+                                mesh_dim_names=("data",))
+        dev = torch.device(device)
+        with open(os.path.join(work, "plans.pkl"), "rb") as f:
+            plans, cm = pickle.load(f)
+        if fail:
+            names = list(plans)
+            plan = plans[names[int(rank == MESH_RANKS - 1)]]
+            plan.run(mesh=mesh, device=dev, cost_model=cm)
+            return
+        out = {}
+        for name, plan in plans.items():
+            mk.mr_epoch.launches = mk.mr_epoch.control_launches = 0
+            t0 = time.perf_counter()
+            res = plan.run(mesh=mesh, device=dev, cost_model=cm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = (dict(res.metrics), time.perf_counter() - t0,
+                         (mk.mr_epoch.launches,
+                          mk.mr_epoch.control_launches))
+        arrs = np.load(os.path.join(work, "mj.npz"))
+        batch = engine.scenario_arrays_from_numpy(dict(arrs), device=dev)
+        before = mk.total_launches()
+        t0 = time.perf_counter()
+        jm = sweep.simulate_batch_sharded(batch, mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["multijob"] = ({k: v.cpu().numpy()
+                            for k, v in jm._asdict().items()},
+                           time.perf_counter() - t0,
+                           (mk.total_launches() - before,))
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+_MESH_RANKS = """
+import socket, sys
+sys.path.insert(0, sys.argv[1])
+import torch.multiprocessing as mp
+import chip_smoke
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+mp.start_processes(chip_smoke.mesh_rank,
+                   args=(port, sys.argv[2], sys.argv[3], sys.argv[4] == "1"),
+                   nprocs=chip_smoke.MESH_RANKS, start_method="spawn")
+print("RANKS_OK")
+"""
+
+
+def run_ranks(work, device, fail=False):
+    """Spawn the :data:`MESH_RANKS` ranks of :func:`mesh_rank` from a
+    process group of their own, killed whole after :data:`MESH_TIMEOUT`
+    seconds (a rank that raises leaves the others waiting in a
+    collective).  Returns ``(exit code, stdout, stderr, seconds)``."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANKS, ROOT, work, str(device),
+         "1" if fail else "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 20: {MESH_RANKS} ranks still running "
+                             f"after {MESH_TIMEOUT} s (killed)") from None
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def phase_mesh_ranks(plans, one, dev, work):
+    """Phase 20 (b)-(d) over :data:`MESH_RANKS` spawned ranks: (b) the
+    plans through ``run(mesh=)``, every rank's result bitwise (a)'s; (c)
+    :data:`MESH_MULTIJOB` lanes of phase 14's open-loop family through
+    ``simulate_batch_sharded``, bitwise ``simulate_batch`` here; (d) a
+    run whose last rank is handed another plan must fail on every rank
+    (and is the only failure this phase expects).  Returns the
+    measurements."""
+    import pickle
+
+    import torch
+    import repro_torch.core as core
+    from repro_torch.core import costmodel, engine, sweep
+    T, J, V = ENGINE_SHAPE
+    t0 = time.perf_counter()
+    batch = sweep.stack_scenarios(
+        multijob_scenarios(core, MESH_MULTIJOB, 14), device="cpu",
+        pad_tasks=T, pad_jobs=J, pad_vms=V)
+    encode = time.perf_counter() - t0
+    np.savez(os.path.join(work, "mj.npz"),
+             **{k: v.numpy() for k, v in batch._asdict().items()})
+    dbatch = engine.ScenarioArrays(*(x.to(dev) for x in batch))
+    t0 = time.perf_counter()
+    want_jm = {k: v.cpu().numpy()
+               for k, v in sweep.simulate_batch(dbatch)._asdict().items()}
+    single = time.perf_counter() - t0
+    with open(os.path.join(work, "plans.pkl"), "wb") as f:
+        pickle.dump((plans, costmodel.default_cost_model(device=dev)), f)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rc, out, err, wall = run_ranks(work, dev)
+    if rc != 0 or "RANKS_OK" not in out:
+        raise AssertionError(f"phase 20 (b)/(c): the ranks exited {rc}:\n"
+                             f"{err[-3000:]}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            got = pickle.load(f)
+        for name in plans:
+            same_metrics(got[name][0], one[name][0],
+                         f"phase 20 (b) rank {r} {name}")
+            if sum(got[name][2]) < 1:
+                raise AssertionError(f"phase 20 (b) rank {r} {name}: no "
+                                     "mr_epoch launch")
+        same_metrics(got["multijob"][0], want_jm,
+                     f"phase 20 (c) rank {r}")
+        if got["multijob"][2][0]:
+            raise AssertionError("phase 20 (c): a multi-job batch launched "
+                                 "mr_epoch")
+        ranks.append(got)
+    rc_f, _, err_f, wall_f = run_ranks(work, dev, fail=True)
+    if rc_f == 0 or "bucketed the plan differently" not in err_f:
+        raise AssertionError(f"phase 20 (d): a rank handed another plan "
+                             f"did not fail the run (exit {rc_f}):\n"
+                             f"{err_f[-3000:]}")
+    return dict(ranks=ranks, wall=wall, wall_fail=wall_f, encode=encode,
+                single=single, fail_rc=rc_f)
+
+
+def mesh_lines(smi, one, r) -> list[str]:
+    lines = []
+    for name, (res, launches, wall) in one.items():
+        lines.append(
+            f"mesh: (a) on {smi}: run(mesh=make_host_mesh()) on the "
+            f"{res['realized_epochs'].size} {name} cells, one rank: every "
+            f"metric and realized_epochs bitwise phase "
+            f"{4 if name == 'open' else 6}'s; mr_epoch launches "
+            f"{launches[0]} open / {launches[1]} control, wall {wall!r} s")
+    for i, got in enumerate(r["ranks"]):
+        lines.append(
+            f"mesh: (b) on {smi}, rank {i} of {MESH_RANKS} (gloo, lanes on "
+            f"the one card): "
+            + "; ".join(f"{name} grid bitwise (a), mr_epoch launches "
+                        f"{got[name][2][0]} open / {got[name][2][1]} "
+                        f"control, wall {got[name][1]!r} s"
+                        for name in one)
+            + f" | (c) simulate_batch_sharded on {MESH_MULTIJOB} lanes of "
+              f"phase 14's open-loop family bitwise simulate_batch, wall "
+              f"{got['multijob'][1]!r} s")
+    lines.append(
+        f"mesh: on {smi}: (b)+(c) {MESH_RANKS} spawned ranks "
+        f"{r['wall']!r} s wall (encode {r['encode']!r} s, simulate_batch "
+        f"here {r['single']!r} s); (d) a rank handed another plan failed "
+        f"every rank (exit {r['fail_rc']}) in {r['wall_fail']!r} s")
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the examples on the card
+# ---------------------------------------------------------------------------
+
+# example -> (arguments, a line its printout must hold)
+EXAMPLES = {
+    "quickstart_torch.py": ((), "vectorized engine == sequential oracle: "
+                                "True"),
+    "policy_compare_torch.py": ((), "== Part 2"),
+    "smart_city_torch.py": (("--trace", "smart_city_trace.json"),
+                            "task spans over"),
+    "serve_batch_torch.py": ((), "pod-scale decode prediction"),
+    "train_lm_torch.py": (("--preset", "smoke", "--ckpt-dir", "ckpt"),
+                          "checkpoints committed under"),
+}
+EXAMPLE_TIMEOUT = 300
+
+
+def phase_examples(device="cuda"):
+    """Phase 21: the five ``examples/*_torch.py`` at once, each a
+    subprocess in a temporary directory of its own on ``device``, each
+    with its own time limit: each must exit 0 (its asserts hold) and
+    print its line of :data:`EXAMPLES`.  Returns ``{example: wall}``."""
+    import signal
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, (args, _) in EXAMPLES.items():
+            cwd = os.path.join(tmp, name)
+            os.mkdir(cwd)
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", name),
+                 "--device", str(device), *args], cwd=cwd, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True))
+        failed = []
+        while procs:
+            for name, (t0, proc) in list(procs.items()):
+                wall = time.perf_counter() - t0
+                if proc.poll() is None and wall < EXAMPLE_TIMEOUT:
+                    continue
+                del procs[name]
+                if proc.returncode is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+                    failed.append(f"{name}: killed after "
+                                  f"{EXAMPLE_TIMEOUT} s")
+                    continue
+                walls[name] = wall
+                out, err = proc.communicate()
+                if proc.returncode != 0 or EXAMPLES[name][1] not in out:
+                    failed.append(f"{name}: exit {proc.returncode}\n"
+                                  f"{err[-2000:]}")
+            time.sleep(0.05)
+        if failed:
+            raise AssertionError("phase 21: " + "\n".join(failed))
+    return walls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4174,6 +4478,33 @@ def main() -> int:
           f"in {wall:.2f} s ({len(dry_commands())} runs of python -m "
           f"repro_torch.launch.dryrun, {DRY_PROCS} at once)", flush=True)
     print(dry_host_line(smi, run_dry_host()), flush=True)
+
+    # 20. multi-rank sweeps: phases 4 and 6's grids on a one-rank mesh,
+    # then over gloo ranks sharing the card, and a multi-job batch
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    plans = {"open": m["plan"], "closed": c["plan"]}
+    one = phase_mesh_one(plans, {"open": m["result"], "closed": c["result"]},
+                         dev, make_host_mesh())
+    dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = phase_mesh_ranks(plans, one, dev, work)
+    for line in mesh_lines(smi, one, ranks):
+        print(line, flush=True)
+    wall_mesh = time.perf_counter() - t0
+
+    # 21. the five examples on the card
+    t0 = time.perf_counter()
+    walls = phase_examples()
+    wall_ex = time.perf_counter() - t0
+    print(f"examples: on {smi}: every examples/*_torch.py exited 0 with its "
+          f"asserts holding, run at once: "
+          + ", ".join(f"{k} {v!r} s" for k, v in walls.items())
+          + f" | phase walls: 20 (mesh) {wall_mesh!r} s, 21 (examples) "
+          f"{wall_ex!r} s", flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

@@ -743,18 +743,45 @@ class SweepPlan:
         its compaction syncs and wall time, the run's totals and the cost
         model (resolved once, up front).  It changes no metric.
 
-        ``mesh=`` (multi-device sweeps) is ROADMAP slice A8 and raises
-        ``NotImplementedError``.
+        ``mesh`` (a ``DeviceMesh``) runs the plan over the mesh's ranks,
+        SPMD: every rank calls ``run`` with the same plan and arguments.
+        Each bucket's cells are padded (by repeating its last cell) to a
+        multiple of the mesh size, split over the mesh flattened row-major
+        (``launch.mesh.flat_index``, the reference's
+        ``PartitionSpec(mesh.axis_names)`` order) and each rank encodes and
+        steps only its contiguous block of lanes on ``device``; the host
+        metrics are all-gathered over the mesh's groups (CPU tensors: a
+        ``gloo`` backend) and trimmed, so every rank returns the whole
+        result.  A bucket's ``realized_epochs`` is the largest per-lane
+        ``n_epochs`` of its real cells, and ``report=True`` counts one
+        dispatch per bucket, as in the reference.  Every rank prices the
+        buckets with the first rank's cost model (the one passed there, or
+        its default), so the ranks bucket alike whatever each was handed;
+        a rank whose bucket list still differs raises.  ``mesh`` takes
+        neither ``chunk`` nor ``stream_to`` and ignores ``compact``.  The
+        reference refuses ``backend="pallas"`` with a mesh (its Pallas
+        path is single-device); here each rank steps its lanes through the
+        same ``mr_epoch`` kernel (``"cuda"``) or plain version
+        (``"torch"``) as without a mesh, whose results the parity contract
+        holds bitwise to the reference's engine: a difference of route,
+        not of result.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "run(mesh=...): multi-device sweeps are ROADMAP slice A8")
+        if mesh is not None and chunk is not None:
+            raise ValueError("run: pass mesh or chunk, not both")
         if chunk is not None and chunk < 1:
             raise ValueError(f"run: chunk must be >= 1, got {chunk}")
+        if stream_to is not None and chunk is None:
+            raise ValueError(
+                "run: stream_to= needs chunk= (the streamed write "
+                "appends one chunk of cells at a time)")
         compact = _check_compact(compact)
+        if mesh is not None:
+            compact = None          # ignored, as the reference ignores it
         from ..kernels.mr_sched.ops import resolve_backend
         dev = torch.device(device)
         backend = resolve_backend(backend, dev)
+        if mesh is not None:
+            cost_model = _first_rank_cost_model(mesh, cost_model, dev)
         buckets = None
         if report:
             # one calibration prices the schedule and the report
@@ -763,10 +790,6 @@ class SweepPlan:
             t0, libs0 = time.perf_counter(), _library_loads()
             buckets = []
         if stream_to is not None:
-            if chunk is None:
-                raise ValueError(
-                    "run: stream_to= needs chunk= (the streamed write "
-                    "appends one chunk of cells at a time)")
             result = self._run_streaming(stream_to, chunk, bucket, backend,
                                          compact, cost_model, dev, buckets)
         else:
@@ -774,7 +797,7 @@ class SweepPlan:
             metrics, n_jobs = _execute_grid(
                 cols, self.size, pad_tasks, pad_vms, bucket, chunk, backend,
                 cost_model, dev, bool(_CONTROL_PARAMS & set(cols)),
-                report=buckets, compact=compact)
+                report=buckets, compact=compact, mesh=mesh)
             shaped = {
                 name: (m.reshape(self.shape) if m.ndim == 1 or n_jobs == 1
                        else m.reshape(self.shape + (n_jobs,)))
@@ -890,24 +913,33 @@ def _finish_report(buckets, n_cells: int, backend: str, compact, cost,
 def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
                   pad_vms: int, bucket, chunk, backend, cost, device,
                   control: bool = False, report: list | None = None,
-                  compact=None) -> tuple[dict[str, np.ndarray], int]:
+                  compact=None, mesh=None
+                  ) -> tuple[dict[str, np.ndarray], int]:
     """Bucket + simulate ``N`` flattened cells; returns ``(metrics,
     n_jobs)`` with per-job columns ``[N, n_jobs]`` and per-scenario ones
     ``[N]``.  ``report`` (a list, appended in place) collects one
-    :class:`telemetry.BucketReport` per dispatched bucket."""
+    :class:`telemetry.BucketReport` per dispatched bucket.  With ``mesh``
+    each bucket's lanes are split over its ranks (:func:`_run_sharded`)."""
     from ..kernels.mr_sched.megakernel import total_launches
     if compact is not None and cost is None:
         cost = costmodel_mod.default_cost_model(device=device)
     groups = _bucket_groups(cols, pad_tasks, pad_vms, bucket, cost,
                             device=device)
+    if mesh is not None:
+        _check_same_buckets(mesh, groups)
     parts = []
     for idx, gcols, statics, tb, vb in groups:
         stats = {"syncs": 0, "scalar_syncs": 0, "compactions": 0,
                  "dispatches": 0}
         w0, l0 = time.perf_counter(), total_launches()
-        parts.append((idx, *_run_cells(gcols, len(idx), tb, vb, statics,
-                                       chunk, backend, device, control,
-                                       compact, cost, stats)))
+        if mesh is None:
+            parts.append((idx, *_run_cells(gcols, len(idx), tb, vb, statics,
+                                           chunk, backend, device, control,
+                                           compact, cost, stats)))
+        else:
+            parts.append((idx, *_run_sharded(gcols, len(idx), tb, vb,
+                                             statics, backend, device,
+                                             control, mesh)))
         if report is not None:
             report.append(telemetry.BucketReport(
                 cells=len(idx), pad_tasks=tb, pad_vms=vb, backend=backend,
@@ -917,7 +949,7 @@ def _execute_grid(cols: dict[str, np.ndarray], N: int, pad_tasks: int,
                 # dispatch_us (None: the bucket is at the cap)
                 split_gain_us=(cost.split_gain_us(len(idx), tb, pad_tasks)
                                if tb < pad_tasks else None),
-                dispatches=total_launches() - l0,
+                dispatches=(total_launches() - l0 if mesh is None else 1),
                 compact_syncs=stats["syncs"],
                 compact_scalar_syncs=stats["scalar_syncs"],
                 compactions=stats["compactions"],
@@ -1103,6 +1135,91 @@ def _run_cells(cols: dict[str, np.ndarray], n: int, pad_tasks: int,
     jm = {k: np.concatenate([p[0][k] for p in parts]) for k in parts[0][0]}
     sm = {k: np.concatenate([p[1][k] for p in parts]) for k in parts[0][1]}
     return jm, sm, realized
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank sweeps: lanes split over a DeviceMesh (SPMD)
+# ---------------------------------------------------------------------------
+
+def _first_rank_cost_model(mesh, cost, device) -> costmodel_mod.CostModel:
+    """The cost model of the mesh's first rank (``cost``, or its default
+    for ``device``), on every rank: the bucket partition depends on it, and
+    ranks that bucket apart would deadlock or mismatch in the gathers."""
+    from ..launch.mesh import flat_index, gather_objects
+    if flat_index(mesh) == 0:
+        cost = cost or costmodel_mod.default_cost_model(device=device)
+    else:
+        cost = None
+    return gather_objects(mesh, cost)[0]
+
+
+def _check_same_buckets(mesh, groups) -> None:
+    """Raise (on every rank) unless every rank of ``mesh`` holds the same
+    bucket list: cell indices, paddings and static parameters."""
+    import hashlib
+    from ..launch.mesh import gather_objects
+    h = hashlib.sha256()
+    for idx, _, statics, tb, vb in groups:
+        h.update(np.asarray(idx, np.int64).tobytes())
+        h.update(repr((tb, vb, sorted((statics or {}).items()))).encode())
+    digests = gather_objects(mesh, h.hexdigest())
+    if len(set(digests)) > 1:
+        raise RuntimeError(
+            "run(mesh=...): the ranks bucketed the plan differently "
+            f"(bucket digests {digests}); every rank must run the same plan "
+            "with the same arguments")
+
+
+def _lane_block(n: int, mesh) -> tuple[int, int, int]:
+    """``(padded lanes, first lane, lanes)`` of this rank's contiguous
+    block when ``n`` lanes are padded to a multiple of the mesh size and
+    split over the mesh flattened row-major."""
+    from ..launch.mesh import flat_index, mesh_size
+    size = mesh_size(mesh)
+    full = -(-n // size) * size
+    per = full // size
+    return full, flat_index(mesh) * per, per
+
+
+def _run_sharded(cols, n: int, pad_tasks: int, pad_vms: int, statics,
+                 backend, device, control, mesh):
+    """One bucket over the mesh: this rank steps its block of the padded
+    cells (:func:`_run_batch`), the blocks' host metrics are gathered in
+    mesh order and trimmed to the ``n`` real cells.  Returns the whole
+    bucket's ``(job metrics, scenario metrics, realized_epochs[n])``."""
+    from ..launch.mesh import gather_objects
+    max_pes = max(int(np.ceil(float(np.max(cols["vm_pes"])))), 1)
+    full, lo, per = _lane_block(n, mesh)
+    mine = {k: v[lo:lo + per] for k, v in _pad_cells(cols, full).items()}
+    jm, sm, _ = _run_batch(mine, pad_tasks, pad_vms, statics, backend,
+                           device, max_pes, control)
+    blocks = gather_objects(mesh, (jm, sm))
+    jm, sm = ({k: np.concatenate([b[i][k] for b in blocks])[:n]
+               for k in blocks[0][i]} for i in (0, 1))
+    return jm, sm, np.full(n, int(sm["n_epochs"].max()), np.int32)
+
+
+def simulate_batch_sharded(batch: ScenarioArrays, mesh) -> JobMetrics:
+    """:func:`simulate_batch` with the lanes split over ``mesh`` (SPMD:
+    every rank of the mesh calls it with the same batch).  The lanes are
+    padded to a multiple of the mesh size by repeating the last one and
+    split over the mesh flattened row-major; each rank steps its block on
+    the batch's device (the ``mr_epoch`` kernel for single-job lanes, the
+    engine body for multi-job ones), and the per-job metrics are
+    all-gathered (CPU tensors: a ``gloo`` backend) and trimmed, so every
+    rank returns the whole ``[N, J]`` result on the batch's device."""
+    from ..launch.mesh import gather_objects
+    n = int(batch.task_valid.shape[0])
+    full, lo, per = _lane_block(n, mesh)
+    dev = batch.task_valid.device
+    take = torch.clamp_max(torch.arange(lo, lo + per, device=dev), n - 1)
+    mine = ScenarioArrays(*(f[take] for f in batch))
+    jm = simulate_batch(mine)
+    blocks = gather_objects(mesh, {k: v.cpu().numpy()
+                                   for k, v in jm._asdict().items()})
+    return JobMetrics(**{
+        k: torch.from_numpy(np.concatenate([b[k] for b in blocks])[:n]).to(dev)
+        for k in JobMetrics._fields})
 
 
 # ---------------------------------------------------------------------------

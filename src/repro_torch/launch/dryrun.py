@@ -198,7 +198,8 @@ def build_cell(cfg, shape_name: str, mesh):
             # counted (``loops.scan``: the dry run runs two and counts the
             # second for the rest).  Activation memory is bounded at one
             # microbatch.
-            with rules.mesh_ctx(mesh, act_rules):
+            with rules.mesh_ctx(mesh, act_rules,
+                                batch=spec.global_batch // n_micro):
                 params_c = _cast_params(params)
                 leaves = [(path, p.detach().requires_grad_())
                           for path, p in tree_items(params_c)]
@@ -241,7 +242,7 @@ def build_cell(cfg, shape_name: str, mesh):
         cache_len = configs.decode_cache_len(cfg, spec.seq_len)
 
         def prefill_step(params, inputs):
-            with rules.mesh_ctx(mesh):
+            with rules.mesh_ctx(mesh, batch=spec.global_batch):
                 return prefill(_cast_params(params), cfg, inputs,
                                cache_len, attn_impl="chunked")
 
@@ -258,7 +259,7 @@ def build_cell(cfg, shape_name: str, mesh):
     t = spec.seq_len - 1        # the last position of the full-length state
 
     def serve_step(params, tokens, state):
-        with rules.mesh_ctx(mesh):
+        with rules.mesh_ctx(mesh, batch=spec.global_batch):
             return decode_step(_cast_params(params), cfg, tokens, state, t)
 
     return (serve_step, (params_sds, ins["tokens"], st_sds),

@@ -16,7 +16,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.rules import batch_only, shard_act, sharded_dims, take_last
+from ..sharding.rules import (batch_only, remat_contexts, shard_act,
+                              sharded_dims, take_last)
 from . import stacks
 from .config import ArchConfig
 from .layers import (abstract_params, apply_norm, embed_decls, embed_tokens,
@@ -121,7 +122,8 @@ def loss_fn(params, cfg: ArchConfig, batch, *, attn_impl: str = "auto",
             xc, lc = x[:, c0:c0 + ck], labels[:, c0:c0 + ck]
             if torch.is_grad_enabled():
                 nll_c, n_c = checkpoint(_xent_chunk, params, cfg, xc, lc,
-                                        use_reentrant=False)
+                                        use_reentrant=False,
+                                        context_fn=remat_contexts)
             else:
                 nll_c, n_c = _xent_chunk(params, cfg, xc, lc)
             nll, n = nll + nll_c, n + n_c

@@ -117,12 +117,26 @@ def _dispatch_groups(batch: int) -> int:
 
 
 def _expert_ffn_grouped(p, xg, cfg: ArchConfig):
-    """Grouped SwiGLU. xg: (G, E, C, D) -> (G, E, C, D); mlp dim TP."""
+    """Grouped SwiGLU. xg: (G, E, C, D) -> (G, E, C, D); mlp dim TP.
+    Each expert's product takes its rows of every group at once, experts
+    leading: the layout einsum's batched product takes, with the rows made
+    contiguous first, since a ``DTensor`` whose local shard holds several
+    groups (a batch left unsplit) cannot view its transposed rows (for
+    one group the copy is none)."""
+    G, E, C, _ = xg.shape
     dt = xg.dtype
-    h = F.silu(torch.einsum("gecd,edf->gecf", xg, p["w_gate"].to(dt))) \
-        * torch.einsum("gecd,edf->gecf", xg, p["w_up"].to(dt))
-    h = shard_act(h, ("batch", "experts", "capacity", "mlp"))
-    return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+
+    def experts_first(a):                     # (G, E, C, X) -> (E, G·C, X)
+        return a.transpose(0, 1).contiguous().flatten(1, 2)
+
+    def groups_first(a):                      # (E, G·C, X) -> (G, E, C, X)
+        return a.unflatten(1, (G, C)).transpose(0, 1)
+
+    xe = experts_first(xg)
+    h = F.silu(torch.bmm(xe, p["w_gate"].to(dt))) \
+        * torch.bmm(xe, p["w_up"].to(dt))
+    h = shard_act(groups_first(h), ("batch", "experts", "capacity", "mlp"))
+    return groups_first(torch.bmm(experts_first(h), p["w_down"].to(dt)))
 
 
 def _gather_buckets(xf, idx, E: int, C: int):

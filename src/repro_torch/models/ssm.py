@@ -25,7 +25,7 @@ from ..kernels.rwkv6.kernel import wkv6_scan
 from ..loops import scan
 from ..sharding.rules import (axis_extent, batch_only, batch_only_grad,
                               shard_act, shard_local, split_count,
-                              unsplit)
+                              split_over_model, unsplit)
 from .config import ArchConfig
 from .layers import P, torch_dtype
 
@@ -230,9 +230,12 @@ def _tmix_proj(p, x, x_prev, cfg: ArchConfig):
     # data-dependent decay in (0,1): w = exp(-exp(w0 + lora(xw)))
     # (the LoRA's hidden takes its gradient, partial over the inner
     # shards, reduced: batch_only_grad)
+    # (the LoRA's contraction over embed split over model, as GSPMD
+    # splits it, and its partial sums reduced before the tanh)
+    lo_w = batch_only(split_over_model(xw, -1) @ split_over_model(
+        p["decay_down"].to(dt), 0))
     wlog = p["w0"].to(F32) + (
-        batch_only_grad(torch.tanh(xw @ p["decay_down"].to(dt)).to(F32))
-        @ p["decay_up"].to(F32))
+        batch_only_grad(torch.tanh(lo_w).to(F32)) @ p["decay_up"].to(F32))
     w = _heads(torch.exp(-torch.exp(wlog)), shp)
     return r, k, v, g, w
 
@@ -321,7 +324,12 @@ def apply_rwkv_cmix(p, x, cfg: ArchConfig, x_prev=None):
     k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
     # the value product's partial sums (over the mlp shards) reduced
     # before the gate meets them, so both factors keep the batch layout
-    return torch.sigmoid(xr @ p["wr"].to(dt)) * batch_only(k @ p["wv"].to(dt))
+    # the gate's (embed x embed2) weight is whole over model: its output
+    # dim split there for the product, as GSPMD splits it, and the gate
+    # gathered whole after (so the block's output adds to a residual
+    # that is a partial sum over model)
+    r = xr @ split_over_model(p["wr"].to(dt), 1)
+    return batch_only(torch.sigmoid(r)) * batch_only(k @ p["wv"].to(dt))
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, device="cuda") -> dict:

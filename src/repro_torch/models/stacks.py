@@ -21,7 +21,8 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.rules import batch_only_grad, gather_weights, shard_act
+from ..sharding.rules import (batch_only_grad, gather_weights,
+                              remat_contexts, shard_act)
 from . import attention, moe, ssm
 from .config import ArchConfig
 from .layers import (apply_mlp, apply_norm, mlp_decls, norm_decls,
@@ -132,14 +133,16 @@ def apply_stack(params: dict, x, cfg: ArchConfig, positions=None, *,
             fn = functools.partial(_apply_sub_block, cfg=cfg, entry=entry,
                                    positions=positions, attn_impl=attn_impl)
             if nested:
-                fn = functools.partial(checkpoint, fn, use_reentrant=False)
+                fn = functools.partial(checkpoint, fn, use_reentrant=False,
+                                       context_fn=remat_contexts)
             x = fn(pparams[f"sub{i}"], x)
         return x
 
     for li in range(_n_periods(params)):
         pparams = {key: per[li] for key, per in layers.items()}
         if remat:
-            x = checkpoint(one_period, x, pparams, use_reentrant=False)
+            x = checkpoint(one_period, x, pparams, use_reentrant=False,
+                           context_fn=remat_contexts)
         else:
             x = one_period(x, pparams)
     return x

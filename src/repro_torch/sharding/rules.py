@@ -28,6 +28,7 @@ turns it into ``Shard``/``Replicate`` per mesh dim for a ``DTensor``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -216,25 +217,108 @@ def tree_shardings(mesh, axes_tree, shape_tree, *, rules=None):
 _CTX: dict | None = None
 
 
-def set_mesh_ctx(mesh, rules=None):
+def set_mesh_ctx(mesh, rules=None, batch: int | None = None):
     global _CTX
     _CTX = None if mesh is None else {"mesh": mesh,
-                                      "rules": rules or ACT_RULES}
+                                      "rules": rules or ACT_RULES,
+                                      "unsplit": _unsplit(mesh, batch)}
+
+
+def _unsplit(mesh, batch) -> bool:
+    """Whether a global ``batch`` of several sequences is left unsplit on
+    ``mesh``: it does not divide the (pod, data) extent, as
+    :func:`spec_for` leaves such a dim whole.  A batch of one stays whole
+    on every device anyway (``DTensor`` shards no dim shorter than its
+    mesh axis), and its cells (``long_500k``) keep ``DTensor``'s own
+    layouts."""
+    if batch is None or batch < 2:
+        return False
+    names = batch_axes(as_mesh(mesh))
+    return bool(names) and batch % _axis_size(as_mesh(mesh), names) != 0
 
 
 class mesh_ctx:
-    """``with mesh_ctx(mesh): ...`` enables activation constraints."""
+    """``with mesh_ctx(mesh): ...`` enables activation constraints.
 
-    def __init__(self, mesh, rules=None):
-        self.mesh, self.rules = mesh, rules
+    ``batch``, the step's global batch, tells the context whether the
+    batch is split over the (pod, data) axes.  When it is not (it does
+    not divide their extent), products still contract over the weights'
+    FSDP shards on those axes, and every partial sum they leave is
+    reduced at once (:class:`_ReduceOverBatch`): the activations stay
+    whole on the batch axes, as the reference's constraints on an unsplit
+    batch keep them, and ``DTensor`` never reduce-scatters them into a
+    split the rules do not give (an uneven batch, or the sequence over
+    the batch axes, which a later row-merging view cannot take)."""
+
+    def __init__(self, mesh, rules=None, *, batch: int | None = None):
+        self.mesh, self.rules, self.batch = mesh, rules, batch
 
     def __enter__(self):
         self._prev = _CTX
-        set_mesh_ctx(self.mesh, self.rules)
+        set_mesh_ctx(self.mesh, self.rules, self.batch)
+        self._mode = _unsplit_mode()
+        self._mode.__enter__()
 
     def __exit__(self, *exc):
         global _CTX
+        self._mode.__exit__(*exc)
         _CTX = self._prev
+
+
+class _ReduceOverBatch(torch.overrides.TorchFunctionMode):
+    """Under an unsplit batch: each op's ``DTensor`` output that is a
+    partial sum over a batch axis is reduced on it (all-reduce), and
+    ``DTensor``'s sharding strategies take no uneven split (a partial mean
+    it then resolves, e.g. a norm's over an embed split, is not turned
+    into an uneven batch split; ``is_tensor_shardable`` of its strategy
+    modules asks for even shards while the mode is on)."""
+
+    def __enter__(self):
+        from torch.distributed.tensor._ops import _matrix_ops, utils
+        self._patched = [(m, m.is_tensor_shardable) for m in (utils,
+                                                               _matrix_ops)
+                         if hasattr(m, "is_tensor_shardable")]
+        shardable = utils.is_tensor_shardable
+
+        def even(shape, spec, *args, **kwargs):
+            return shardable(shape, spec, *args, **kwargs) and \
+                utils.is_tensor_evenly_shardable(shape, spec)
+        for m, _ in self._patched:
+            m.is_tensor_shardable = even
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for m, f in self._patched:
+            m.is_tensor_shardable = f
+        return super().__exit__(*exc)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, DTensor) and _CTX is not None \
+                and _CTX["unsplit"]:
+            axes = as_mesh(out.device_mesh)
+            names = batch_axes(axes)
+            want = tuple(Replicate() if a in names and p.is_partial("sum")
+                         else p for a, p in zip(axes.axis_names,
+                                                out.placements))
+            if want != tuple(out.placements):
+                out = out.redistribute(out.device_mesh, want)
+        return out
+
+
+def _unsplit_mode():
+    """The mode the mesh context runs in: the partial-sum reduction of an
+    unsplit batch (:class:`mesh_ctx`), or nothing."""
+    if _CTX is None or not _CTX["unsplit"]:
+        return contextlib.nullcontext()
+    return _ReduceOverBatch()
+
+
+def remat_contexts():
+    """``context_fn`` of the models' ``torch.utils.checkpoint`` calls: the
+    forward runs in the caller's context, the recomputation (outside the
+    forward's mode stack) in the mesh context's mode again."""
+    return contextlib.nullcontext(), _unsplit_mode()
 
 
 def axis_extent(name: str) -> int:
@@ -329,6 +413,29 @@ def batch_only_grad(y):
             and torch.is_grad_enabled()):
         return y
     return _BatchOnlyGrad.apply(y)
+
+
+def split_over_model(x, dim: int):
+    """``x`` with ``dim`` split over the ``model`` axis where ``x`` is
+    whole on it and the dim divides it: the layout GSPMD gives a product
+    on a weight the rules leave whole over ``model`` (rwkv6's ``embed x
+    embed2`` gate and the decay LoRA's input dim), so that each ``model``
+    shard computes its share rather than the whole product.  A plain
+    tensor, or one that cannot be so split, is returned unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    names = as_mesh(x.device_mesh).axis_names
+    if "model" not in names:
+        return x
+    i = names.index("model")
+    m = x.device_mesh.shape[i]
+    dim %= x.dim()
+    if m == 1 or x.shape[dim] % m or not x.placements[i].is_replicate() \
+            or dim in sharded_dims(x):
+        return x
+    want = list(x.placements)
+    want[i] = Shard(dim)
+    return x.redistribute(x.device_mesh, tuple(want))
 
 
 def unsplit(x, dim: int):

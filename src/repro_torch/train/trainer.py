@@ -76,11 +76,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optimizer.OptConfig, *,
 
 def train(cfg: ArchConfig, tc: TrainConfig, *,
           fault_hook: Callable[[int], None] | None = None,
-          resume: bool = True, device="cuda") -> dict:
+          resume: bool = True, device="cuda", params=None) -> dict:
     """Run the loop on ``device``.  ``fault_hook(step)`` may raise to
     simulate node loss (the loop restores the last checkpoint and
-    replays).  Parameters are drawn by ``init_model`` from a generator on
-    ``device`` seeded with ``tc.seed``."""
+    replays).  ``params``, a parameter tree on ``device`` that the loop
+    updates in place, is the starting point; by default ``init_model``
+    draws one from a generator on ``device`` seeded with ``tc.seed``."""
     dcfg = data.DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len,
                            global_batch=tc.global_batch, seed=tc.seed)
     opt_cfg = tc.opt.replace(total_steps=tc.steps)
@@ -93,8 +94,10 @@ def train(cfg: ArchConfig, tc: TrainConfig, *,
                                            device=device)
         return data.batch_at(dcfg, s, device=device)
 
-    params = init_model(cfg, torch.Generator(device).manual_seed(tc.seed),
-                        device=device)
+    if params is None:
+        params = init_model(cfg,
+                            torch.Generator(device).manual_seed(tc.seed),
+                            device=device)
     opt_state = optimizer.init(params)
     start = 0
     if (resume and tc.ckpt_dir

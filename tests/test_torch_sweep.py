@@ -143,9 +143,12 @@ def test_select_coord_and_table_match_reference():
 
 @pytest.mark.parametrize("kw,slice_", [({"mesh": object()}, "A8")])
 def test_unported_run_options_raise(kw, slice_):
-    # compact= and stream_to= are ported (test_torch_compaction.py)
-    with pytest.raises(NotImplementedError, match=slice_):
-        _table4(tsweep).run(device="cpu", **kw)
+    # every run option is ported now: compact= and stream_to=
+    # (test_torch_compaction.py), mesh= (slice A8,
+    # test_torch_mesh_sweep.py); what raises is the combination the
+    # reference refuses too, before any collective
+    with pytest.raises(ValueError, match="mesh or chunk"):
+        _table4(tsweep).run(device="cpu", chunk=4, **kw)
 
 
 def test_control_columns_raise():
