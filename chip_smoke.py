@@ -100,8 +100,13 @@ each printing one line of numbers:
               prefill shape (B 4, S = T = 2048, 32/4 heads, head_dim 128)
               f32 and bf16, causal and with a 512 window, and the prefills
               of phases 16 (mixtral-8x7b: 2 x 8192, 32/8 heads, window
-              4096) and 17 (jamba-v0.1-52b: 4 x 2048, 32/8 heads) in f32
-              and bf16; wkv6 on the kernel tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
+              4096) and 17 (jamba-v0.1-52b: 4 x 2048, 32/8 heads) and 22
+              (stablelm-12b's and pixtral-12b's 4 x 2048, 32/8 heads,
+              head_dim 160; hubert-xlarge's non-causal 4 x 2048, 16/16,
+              head_dim 80; a ragged 200 x 260 case at 160;
+              stablelm-1.6b's 32/32 at 64; llama4-scout's 40/8, the odd
+              GQA group 5) in f32 and bf16, every served prefill shape
+              among them; wkv6 on the kernel tests' four shapes and rwkv6-3b's (4, 40, 2048, 64) with a
               non-zero initial state, y at 1e-4 and the final state
               bitwise.
 12. serve dense — yi-6b at full width (random f32 weights from a seeded
@@ -195,8 +200,10 @@ each printing one line of numbers:
               period (1 attention, 7 Mamba, 4 MoE sub-blocks; 53.2 GB),
               4 x 2048 tokens and 32 steps: flash's count must rise by 1
               per prefill; the wall of one Mamba mixer (its Python time
-              loop) and one MoE block; checks (a)-(c) as phase 16, (b) on
-              prompt 0's first 512 tokens.
+              loop) and one MoE block; flash timed as in phase 12 on its
+              attention layer's prefill inputs (4 x 2048, 32/8, 128,
+              causal); checks (a)-(c) as phase 16, (b) on prompt 0's first
+              512 tokens.
 18. train   — the training path, rwkv6-3b through the ``wkv6`` forward
               kernel (keeping the state every 4 steps) and the
               hand-written ``wkv6_bwd`` kernel: (a) ``wkv6_bwd`` against
@@ -224,13 +231,15 @@ each printing one line of numbers:
               under ``torch.use_deterministic_algorithms(True)``: kill and
               resume, ``NodeFailure`` and replay, a stale ``.tmp``
               checkpoint invisible to ``restore``.
-19. dryrun  — the launch report and sharding, after phase 18: (a) every
-              cell of ``configs.all_cells()`` on the single-pod mesh
-              (16 x 16) at full width and depth, and one cell per family
-              on the multi-pod mesh (2 x 16 x 16) at full width and one
-              period of layers (``--depth L1``), through ``python -m
+19. dryrun  — the launch report and sharding, printed after phase 18:
+              (a) every cell of ``configs.all_cells()`` on the single-pod
+              mesh (16 x 16) at full width and depth, and one cell per
+              family on the multi-pod mesh (2 x 16 x 16) at full width and
+              one period of layers (``--depth L1``), through ``python -m
               repro_torch.launch.dryrun``, ``DRY_PROCS`` runs at once on
-              the host's CPU, fake tensors: every cell recorded, one line a cell
+              the host's CPU, fake tensors, started before phase 3 and
+              run beside its checks (which time nothing; the engine body's
+              line waits for them): every cell recorded, one line a cell
               (TFLOP, argument, temp and collective wire bytes per
               device, seconds); (b) phase 18 (c)'s cell on
               ``make_host_mesh()``: its ``argument_bytes`` within
@@ -256,6 +265,27 @@ each printing one line of numbers:
               in a temporary directory (``train_lm_torch.py --preset
               smoke``): each must exit 0 with its own asserts holding;
               each one's wall and the walls of phases 20 and 21.
+22. serve more — the six families phases 12-17 do not serve, at full
+              width through ``attn_impl="flash"``, 4 x 2048 prompt
+              positions and 32 greedy steps in bf16, the weights freed
+              between them: stablelm-1.6b (24 layers, 32/32 heads,
+              head_dim 64), minitron-8b (32, 32/8, 128), stablelm-12b (40,
+              32/8, 160), pixtral-12b (40, 32/8, 160; the prefill from
+              seeded (4, 2048, 5120) embeddings, decode from tokens),
+              hubert-xlarge (48, 16/16, 80, non-causal; ``forward`` on
+              seeded (4, 2048, 1280) frame embeddings, no decode) and
+              llama4-scout-17b-a16e (4 of 48 layers, 40/8, 128, 16 experts
+              top-1).  flash's count must rise by the layers per prefill
+              (forward) and 0 per step; prefill (forward) tokens/s, decode
+              ms per step, peak memory, a profiled prefill and step; flash
+              on layer 0's prefill inputs for each (head dim, mask, GQA
+              group) no earlier phase timed (``flash_timed``: stablelm-1.6b,
+              stablelm-12b, hubert, llama4-scout), as in phase 12.  In f32 activations the prefill (forward)
+              logits match ``attn_impl="dense"`` at 1e-3 and each decode
+              step ``forward`` over the prompt and the generated tokens
+              (pixtral: the prompt's embeddings, then the tokens'); for
+              llama4-scout checks (a)-(c) as phase 16, (b) on prompt 0's
+              2048 tokens.  The phase's wall and the smoke's so far.
 
 Phase 3 also holds the trace instantiations (every carry and trace leaf,
 the carry against the untraced kernel's, and an undersized event log) and
@@ -2321,6 +2351,16 @@ FA_CHECK_SHAPES = [
     # (2 x 8192, 32/8 heads, window 4096) and jamba-v0.1-52b's (GQA 4)
     (2, 8192, 8192, 32, 8, 128, True, 4096, ("float32", "bfloat16")),
     (4, 2048, 2048, 32, 8, 128, True, None, ("float32", "bfloat16")),
+    # phase 22's head dims beyond 128 and the Dh-80 instantiations:
+    # stablelm-12b's and pixtral-12b's prefill (32/8 heads, 160), hubert's
+    # non-causal (16/16, 80), and a ragged S < T case at 160
+    (4, 2048, 2048, 32, 8, 160, True, None, ("float32", "bfloat16")),
+    (4, 2048, 2048, 16, 16, 80, False, None, ("float32", "bfloat16")),
+    (1, 200, 260, 4, 2, 160, False, None, ("float32", "bfloat16")),
+    # the rest of phase 22's prefills: stablelm-1.6b's (32/32, 64) and
+    # llama4-scout's 40/8 heads, the one odd GQA group (5) served
+    (4, 2048, 2048, 32, 32, 64, True, None, ("float32", "bfloat16")),
+    (4, 2048, 2048, 40, 8, 128, True, None, ("float32", "bfloat16")),
 ]
 # (B, H, T, hs): the four WKV_SHAPES of tests/test_kernels.py and rwkv6-3b's
 # prefill, each with a non-zero initial state, r/k/v in float32 and bfloat16
@@ -2474,7 +2514,8 @@ def _bound(nbytes, ops, ops_per_s):
             1e3 * t_bytes, 1e3 * t_ops)
 
 
-# Phases 12, 13, 16, 17: (depth cut or None, prompts, tokens per prompt)
+# Phases 12, 13, 16, 17, 22: (depth cut or None, prompts, tokens per
+# prompt)
 SERVE = {
     "yi-6b": (None, LM_BATCH, LM_PROMPT),
     "rwkv6-3b": (None, LM_BATCH, LM_PROMPT),
@@ -2485,7 +2526,24 @@ SERVE = {
     # one 8-layer period (1 attention, 7 Mamba, 4 MoE, 4 dense MLP):
     # 12.76 B f32 parameters (51.0 GB) + 2.15 GB of embedding and head
     "jamba-v0.1-52b": (8, LM_BATCH, LM_PROMPT),
+    # phase 22, the other six families, full width; f32 parameters 6.58,
+    # 30.94, 48.57, 51.09 and 3.78 GB at full depth
+    "stablelm-1.6b": (None, LM_BATCH, LM_PROMPT),
+    "minitron-8b": (None, LM_BATCH, LM_PROMPT),
+    "stablelm-12b": (None, LM_BATCH, LM_PROMPT),
+    "pixtral-12b": (None, LM_BATCH, LM_PROMPT),       # embeddings in
+    "hubert-xlarge": (None, LM_BATCH, LM_PROMPT),     # embeddings, forward
+    # 4 of 48 layers: 2.076 B f32 parameters a layer + 2.07 B of embedding
+    # and head (41.5 GB), for memory as mixtral's cut
+    "llama4-scout-17b-a16e": (4, LM_BATCH, LM_PROMPT),
 }
+# Phase 22's families, in order (weights freed between them)
+SERVE_MORE = ("stablelm-1.6b", "minitron-8b", "stablelm-12b", "pixtral-12b",
+              "hubert-xlarge", "llama4-scout-17b-a16e")
+# Embedding-input prompts (pixtral's patches, hubert's frames): seeded
+# N(0, 1) draws on the card at the token embeddings' scale (their table is
+# drawn 0.02 N(0, 1))
+EMBED_SCALE = 0.02
 # Routing near-tie (ROADMAP C12): a top-k decision whose relative gap
 # (p_j - p_j+1) / p_j, j <= k, is below this on the plain path may flip
 # between two f32 paths that differ only in attention's summation order;
@@ -2498,7 +2556,8 @@ ROUTE_MAX_FLIPS = 4
 # routing by construction; the grouped and the per-expert products sum
 # their 4096- and 14336-term dot products in other orders (outputs ~1).
 MOE_DENSE_TOL = 1e-4
-DROP_FREE_PROMPT = {"mixtral-8x7b": 8192, "jamba-v0.1-52b": 512}
+DROP_FREE_PROMPT = {"mixtral-8x7b": 8192, "jamba-v0.1-52b": 512,
+                    "llama4-scout-17b-a16e": LM_PROMPT}
 
 
 def serve_config(name):
@@ -2510,6 +2569,38 @@ def serve_config(name):
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
     return cfg, batch, S
+
+
+def flash_key(cfg):
+    """What selects flash's instantiation and mask for a config: ``(head
+    dim, causal, window, GQA group)``."""
+    return (cfg.head_dim, cfg.causal, cfg.window,
+            cfg.n_heads // cfg.n_kv_heads)
+
+
+def served_flash_shapes():
+    """``{name: (B, S, T, Hq, Hkv, Dh, causal, window)}``: the prefill
+    shape at which each serve phase with attention launches flash."""
+    out = {}
+    for name in SERVE:
+        cfg, batch, S = serve_config(name)
+        if cfg.family != "ssm":
+            out[name] = (batch, S, S, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, cfg.causal, cfg.window)
+    return out
+
+
+def flash_timed():
+    """The serve phases that time flash on their first attention layer's
+    prefill inputs: in :data:`SERVE`'s order, the first with each
+    :func:`flash_key`; the others repeat one of these."""
+    seen, names = set(), []
+    for name in served_flash_shapes():
+        key = flash_key(serve_config(name)[0])
+        if key not in seen:
+            seen.add(key)
+            names.append(name)
+    return tuple(names)
 
 
 def _serve(params, cfg, prompt, attn_impl):
@@ -2581,14 +2672,25 @@ def _fmt_breakdown(wall, kinds):
                         sorted(kinds.items(), key=lambda kv: -kv[1])))
 
 
+def _extend(params, cfg, prompt, gen):
+    """The prompt followed by the generated tokens, as ``forward`` takes
+    them: token ids, or for an embedding-input config the prompt's
+    embeddings followed by ``embed_tokens`` of the generated tokens."""
+    import torch
+    from repro_torch.models.layers import embed_tokens
+    if cfg.embedding_inputs:
+        return torch.cat([prompt, embed_tokens(params["embed"], gen, cfg)
+                          .to(prompt.dtype)], dim=1)
+    return torch.cat([prompt, gen], dim=1)
+
+
 def _check_decode(params, cfg, prompt, logits, gen, attn_impl):
     """Each decode step's logits against ``forward`` over prompt +
-    generated tokens at its position, and the prefill's at the prompt's
-    last; returns the worst ``_close`` pair."""
+    generated tokens (:func:`_extend`) at its position, and the prefill's
+    at the prompt's last; returns the worst ``_close`` pair."""
     from repro_torch.models import forward
-    import torch
     S = prompt.shape[1]
-    full = forward(params, cfg, torch.cat([prompt, gen], dim=1),
+    full = forward(params, cfg, _extend(params, cfg, prompt, gen),
                    attn_impl=attn_impl)
     worst = _close(logits[0], full[:, S - 1], LM_F32_TOL)
     for i, lg in enumerate(logits[1:]):
@@ -2720,11 +2822,12 @@ def kept_prompts(routes, B):
     return kept
 
 
-def flash_times(q, k, v, window):
+def flash_times(q, k, v, window, causal=True):
     """Times of flash at these inputs: the device time per launch
     (``launch_ms``, ``LM_ROUNDS`` rounds each) of the bf16 kernel,
-    ``F.scaled_dot_product_attention`` (causal; with a window, an explicit
-    boolean mask) with ``enable_gqa`` and the float32 instantiation; the
+    ``F.scaled_dot_product_attention`` (causal or not; with a window, an
+    explicit boolean mask) with ``enable_gqa`` and the float32
+    instantiation; the
     plain version by ``cuda_ms`` (its thousands of launches fill the
     stream's queue behind a spin, which then blocks the host); and the
     largest |SDPA - kernel|.  Before timing, the bf16 kernel and the
@@ -2737,20 +2840,20 @@ def flash_times(q, k, v, window):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(           # noqa
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
         pos = torch.arange(S, device=q.device)
         mask = (pos[:, None] >= pos[None, :]) & \
             (pos[:, None] - pos[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(           # noqa
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    run = lambda: fa.flash_attention(q, k, v, causal=True,      # noqa
+    run = lambda: fa.flash_attention(q, k, v, causal=causal,    # noqa
                                      window=window)
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    f32 = lambda: fa.flash_attention(q32, k32, v32, causal=True,  # noqa
-                                     window=window)
+    f32 = lambda: fa.flash_attention(q32, k32, v32,             # noqa
+                                     causal=causal, window=window)
     plain = lambda x: fa.flash_attention_plain(                 # noqa
-        *x, causal=True, window=window)
+        *x, causal=causal, window=window)
     shape = (tuple(q.shape), tuple(k.shape), window)
     try:
         out = {"err_bf16": _close_ulps(run(), plain((q, k, v)),
@@ -2773,22 +2876,26 @@ def flash_times(q, k, v, window):
 
 
 def phase_serve(name, dev, seed):
-    """Serve the prompts of :data:`SERVE` (seeded tokens) through
-    ``prefill`` and ``LM_DECODE`` greedy ``decode_step``s of the full-width
-    config ``name`` (random weights from a seeded generator on the card,
-    depth cut as stated there): phases 12 (yi-6b), 13 (rwkv6-3b), 16
-    (mixtral-8x7b) and 17 (jamba-v0.1-52b).  Returns the measurements."""
+    """Serve the prompts of :data:`SERVE` through ``prefill`` and
+    ``LM_DECODE`` greedy ``decode_step``s of the full-width config ``name``
+    (random weights from a seeded generator on the card, depth cut as
+    stated there): phases 12 (yi-6b), 13 (rwkv6-3b), 16 (mixtral-8x7b), 17
+    (jamba-v0.1-52b) and 22 (:data:`SERVE_MORE`).  The prompts are seeded
+    tokens, or for an embedding-input config seeded embeddings
+    (:data:`EMBED_SCALE`); a config without decode (the encoder) runs
+    ``forward`` instead.  Returns the measurements."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rwkv6 import kernel as wk
-    from repro_torch.models import (LM, attention, decode_step, moe,
-                                    prefill, ssm)
-    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models import (LM, attention, decode_step, forward,
+                                    model, moe, prefill, ssm)
+    from repro_torch.models.layers import apply_norm
     cfg, batch, S = serve_config(name)
     pattern = cfg.block_pattern()
     n_attn = sum(e["mixer"] == "attn" for e in pattern)
     rwkv = cfg.family == "ssm"
     routed = cfg.moe is not None
+    decodes = cfg.has_decode
     impl = "auto" if rwkv else "flash"
     counter = wk.wkv6_scan if rwkv else fa.flash_attention
     out = {"cfg": cfg, "batch": batch, "S": S}
@@ -2803,22 +2910,36 @@ def phase_serve(name, dev, seed):
         out["init_s"] = time.perf_counter() - t0
         out["param_bytes"] = sum(p.numel() * p.element_size()
                                  for p in lm.parameters())
-        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (batch, S))).to(dev)
+        if cfg.embedding_inputs:
+            prompt = EMBED_SCALE * torch.randn(
+                (batch, S, cfg.d_model), device=dev,
+                generator=torch.Generator(dev).manual_seed(seed))
+        else:
+            prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (batch, S))).to(dev)
 
         # warm-up (cuBLAS handles, allocator) on a short prompt
-        prefill(params, cfg, prompt[:, :64], 66, attn_impl=impl)
+        if decodes:
+            prefill(params, cfg, prompt[:, :64], 66, attn_impl=impl)
+        else:
+            forward(params, cfg, prompt[:, :64], attn_impl=impl)
         # the main path, bf16 activations: counts zeroed just before
         fa.flash_attention.launches = 0
         wk.wkv6_scan.launches = 0
-        logits, gen, out["prefill_s"], out["decode_s"] = _serve(
-            params, cfg, prompt, impl)
+        if decodes:
+            logits, gen, out["prefill_s"], out["decode_s"] = _serve(
+                params, cfg, prompt, impl)
+        else:
+            box = {}
+            out["prefill_s"] = sync_wall(lambda: box.update(lg=forward(
+                params, cfg, prompt, attn_impl=impl)))
+            logits, gen = [box.pop("lg")], None
         out["launches"] = counter.launches
         out["other_launches"] = (fa.flash_attention.launches if rwkv
                                  else wk.wkv6_scan.launches)
         per_prefill = cfg.n_layers if rwkv else n_attn
         per_step = cfg.n_layers if rwkv else 0
-        want = per_prefill + LM_DECODE * per_step
+        want = per_prefill + (LM_DECODE * per_step if decodes else 0)
         if out["launches"] != want or out["other_launches"]:
             raise AssertionError(
                 f"{name}: {counter.__name__} launched {out['launches']} "
@@ -2828,12 +2949,15 @@ def phase_serve(name, dev, seed):
         out["per_prefill"] = per_prefill
         if not all(bool(lg.isfinite().all()) for lg in logits):
             raise AssertionError(f"{name}: non-finite bf16 logits")
-        out["gen"] = gen[0, :8].tolist()
+        # the first request's first generated tokens, or (encoder) its
+        # first frames' labels
+        out["gen"] = (gen[0, :8] if decodes else
+                      logits[0][0, :8, :cfg.vocab].argmax(dim=-1)).tolist()
         del logits
 
         # layer-0-style inputs: the embedded prompt through a sub-block's
         # first norm (its attention, Mamba or MoE parameters)
-        x0 = embed_tokens(params["embed"], prompt, cfg)
+        x0 = model._embed(params, cfg, prompt)
         if rwkv:
             p0 = _sub(params, 0)
             h = apply_norm(p0["norm1"], x0, cfg)
@@ -2857,13 +2981,14 @@ def phase_serve(name, dev, seed):
             out["step_ms"] = float(np.median(out["step_times"]))
             out["p_ms"] = cuda_ms(plain, 1)
             del r, k, v, w, r1, k1, v1, w1
-        elif name in ("yi-6b", "mixtral-8x7b"):
+        elif name in flash_timed():
             # flash at its prefill shape, timed once the weights are freed
-            p0 = _sub(params, 0)
+            p0 = _sub(params, _first(cfg, "mixer", "attn"))
             h = apply_norm(p0["norm1"], x0, cfg)
             pos = torch.arange(S, device=dev)[None, :]
             qkv = attention._qkv(p0["mixer"], h, cfg, pos)
-            out["bound"] = flash_bound_ms(qkv[0], qkv[1], True, cfg.window)
+            out["bound"] = flash_bound_ms(qkv[0], qkv[1], cfg.causal,
+                                          cfg.window)
         if routed:
             # one Mamba mixer and one MoE block on layer-0-style inputs
             if cfg.mamba is not None:
@@ -2875,21 +3000,33 @@ def phase_serve(name, dev, seed):
             h = apply_norm(pe["norm2"], x0, cfg)
             out["moe_s"] = sync_wall(lambda: moe.apply_moe(pe["mlp"], h,
                                                            cfg))
-        del h, x0
+        x0 = h = None                # freed before the profiled runs
 
-        # where one prefill and one decode step spend the card's time
-        box = {}
-        out["prof_prefill"] = device_breakdown(lambda: box.update(
-            st=prefill(params, cfg, prompt, _cache_len(cfg, S),
-                       attn_impl=impl)[1]))
-        out["prof_decode"] = device_breakdown(lambda: decode_step(
-            params, cfg, gen[:, 0], box["st"], S))
-        del box
+        # where one prefill (forward) and one decode step spend the card's
+        # time
+        if decodes:
+            box = {}
+            out["prof_prefill"] = device_breakdown(lambda: box.update(
+                st=prefill(params, cfg, prompt, _cache_len(cfg, S),
+                           attn_impl=impl)[1]))
+            out["prof_decode"] = device_breakdown(lambda: decode_step(
+                params, cfg, gen[:, 0], box["st"], S))
+            del box
+        else:
+            out["prof_prefill"] = device_breakdown(lambda: forward(
+                params, cfg, prompt, attn_impl=impl))
 
         # float32 activations: the same weights, checked
         cfg32 = cfg.replace(dtype="float32")
+        ref_impl = "auto" if rwkv else "dense"
         if routed:
             check_routed(out, params, cfg32, prompt, name)
+        elif not decodes:
+            got = forward(params, cfg32, prompt, attn_impl=impl)
+            ref = forward(params, cfg32, prompt, attn_impl=ref_impl)
+            out["prefill_err"] = _close(got, ref, LM_F32_TOL)
+            out["logit_max"] = float(got.abs().max())
+            del got, ref
         else:
             logits32, gen32, _, _ = _serve(params, cfg32, prompt, impl)
             if rwkv:
@@ -2900,12 +3037,11 @@ def phase_serve(name, dev, seed):
                     ssm.wkv6_scan = wk.wkv6_scan
             else:
                 ref, _ = prefill(params, cfg32, prompt, S,
-                                 attn_impl="dense")
+                                 attn_impl=ref_impl)
             out["prefill_err"] = _close(logits32[0], ref, LM_F32_TOL)
             del ref
             out["decode_err"] = _check_decode(
-                params, cfg32, prompt, logits32, gen32,
-                "auto" if rwkv else "dense")
+                params, cfg32, prompt, logits32, gen32, ref_impl)
             out["logit_max"] = max(float(lg.abs().max()) for lg in logits32)
             del logits32
         del lm, params
@@ -2913,7 +3049,7 @@ def phase_serve(name, dev, seed):
     torch.cuda.empty_cache()
     if qkv is not None:
         with torch.inference_mode():
-            out.update(flash_times(*qkv, cfg.window))
+            out.update(flash_times(*qkv, cfg.window, cfg.causal))
         del qkv
         torch.cuda.empty_cache()
     return out
@@ -2974,6 +3110,15 @@ def check_routed(out, params, cfg32, prompt, name):
     del h
 
 
+def _flash_at(r) -> str:
+    """A serve phase's prefill shape for flash, as text."""
+    cfg = r["cfg"]
+    mask = (f"window {cfg.window}" if cfg.window is not None
+            else "causal" if cfg.causal else "non-causal")
+    return (f"({r['batch']}, {r['S']}, {cfg.n_heads}/{cfg.n_kv_heads}, "
+            f"{cfg.head_dim}, {mask})")
+
+
 def _flash_readings(r) -> str:
     """flash's launch_ms readings of a serve phase, as text."""
     bound, bound_by, b_bytes, b_ops = r["bound"]
@@ -2989,8 +3134,9 @@ def _flash_readings(r) -> str:
             f"function's operations, {bound / r['k_ms']:.4f} of the "
             f"bound), plain {r['p_ms']:.4f} ms (cuda_ms), "
             f"F.scaled_dot_product_attention("
-            + ("is_causal" if r["cfg"].window is None
-               else f"boolean window mask {r['cfg'].window}")
+            + (f"boolean window mask {r['cfg'].window}"
+               if r["cfg"].window is not None
+               else "is_causal" if r["cfg"].causal else "non-causal")
             + f", enable_gqa) {r['lib_ms']:.4f} ms device "
             f"({spread(r['lib_times'])}; kernel / SDPA "
             f"{r['k_ms'] / r['lib_ms']:.2f}; max |SDPA - kernel| "
@@ -3007,29 +3153,42 @@ def _serve_head(label, name, r) -> str:
     full = configs.get(name).n_layers
     depth = ("" if cfg.n_layers == full
              else f" (depth cut to {cfg.n_layers} of {full} layers)")
-    return (f"{label}: {name} at full width{depth}, "
+    inputs = ("seeded embeddings" if cfg.embedding_inputs
+              else "seeded tokens")
+    head = (f"{label}: {name} at full width{depth}, "
             f"{r['param_bytes'] / 1e9:.2f} GB of f32 parameters drawn in "
-            f"{r['init_s']:.2f} s; {r['batch']} x {r['S']}-token prompts "
-            f"+ {LM_DECODE} greedy steps, bf16: prefill "
+            f"{r['init_s']:.2f} s; ")
+    peak = (f"; peak {r['peak_gb']:.2f} GB allocated before the kernel "
+            f"timings; ")
+    if not cfg.has_decode:
+        return (head + f"forward over {r['batch']} x {r['S']}-frame "
+                f"{inputs} (no decode), bf16: {r['prefill_s']:.4f} s = "
+                f"{ntok / r['prefill_s']:.0f} tokens/s, first frames' "
+                f"labels {r['gen']}" + peak)
+    return (head + f"{r['batch']} x {r['S']}-position prompts ({inputs}) + "
+            f"{LM_DECODE} greedy steps, bf16: prefill "
             f"{r['prefill_s']:.4f} s = {ntok / r['prefill_s']:.0f} "
             f"tokens/s, decode {r['decode_s']:.4f} s = "
             f"{r['batch'] * LM_DECODE / r['decode_s']:.1f} tokens/s "
             f"({1e3 * r['decode_s'] / LM_DECODE:.2f} ms per step), first "
-            f"tokens {r['gen']}; peak {r['peak_gb']:.2f} GB allocated "
-            f"before the kernel timings; ")
+            f"tokens {r['gen']}" + peak)
 
 
 def _prof_tail(r) -> str:
-    return (f" | profiled bf16 prefill: {_fmt_breakdown(*r['prof_prefill'])}"
-            f"; one decode step: {_fmt_breakdown(*r['prof_decode'])}")
+    what = "prefill" if r["cfg"].has_decode else "forward"
+    tail = f" | profiled bf16 {what}: {_fmt_breakdown(*r['prof_prefill'])}"
+    if "prof_decode" in r:
+        tail += f"; one decode step: {_fmt_breakdown(*r['prof_decode'])}"
+    return tail
 
 
 def serve_line(label, name, r) -> str:
-    """Phase 12's or 13's line of numbers, from ``phase_serve``'s result."""
-    kname = "flash_attention" if name == "yi-6b" else "wkv6"
-    if name == "yi-6b":
-        kernel = _flash_readings(r)
-    else:
+    """The line of numbers of a serve phase without MoE (12, 13, 22),
+    from ``phase_serve``'s result."""
+    cfg = r["cfg"]
+    rwkv = cfg.family == "ssm"
+    kname = "wkv6" if rwkv else "flash_attention"
+    if rwkv:
         bound, bound_by, b_bytes, b_ops = r["bound"]
         rate = b_ops / r["k_ms"] * FP32_OPS_PER_S / 1e12
         kernel = (f"kernel {r['k_ms']:.4f} ms device per launch (launch_ms,"
@@ -3041,17 +3200,30 @@ def serve_line(label, name, r) -> str:
                   f"({spread(r['step_times'])}), bound {bound:.4f} ms "
                   f"({bound_by}; bytes {b_bytes:.4f} ms, operations "
                   f"{b_ops:.4f} ms), kernel / bound {r['k_ms'] / bound:.2f}")
+    elif "k_ms" in r:
+        kernel = _flash_readings(r)
+    else:
+        kernel = (f"flash at {_flash_at(r)} not timed here: its head dim, "
+                  f"mask and GQA group are timed in another serve phase")
+    per = (f"{r['per_prefill']} per "
+           + ("prefill, 0 per decode step" if cfg.has_decode
+              else "forward, no decode"))
+    what = "prefill" if cfg.has_decode else "forward"
+    decode = (f", each decode step and the prefill vs forward over prompt + "
+              f"generated tokens max |diff| {r['decode_err'][0]} (share "
+              f"{r['decode_err'][1]:.3f})" if cfg.has_decode else "")
     return (_serve_head(label, name, r)
-            + f"{kname} launches {r['launches']} (other LM kernel "
-            f"{r['other_launches']}); on layer 0's prefill inputs: {kernel}"
-            f" | f32 activations: prefill logits vs "
-            + ("attn_impl='dense'" if name == "yi-6b"
-               else "the plain _wkv_scan path")
+            + f"{kname} launches {r['launches']} ("
+            + (per if not rwkv else f"{cfg.n_layers} per prefill and per "
+               f"decode step")
+            + f"; other LM kernel {r['other_launches']}); on layer 0's "
+            f"prefill inputs: {kernel} | f32 activations: {what} logits "
+            f"vs "
+            + ("the plain _wkv_scan path" if rwkv
+               else "attn_impl='dense'")
             + f" max |diff| {r['prefill_err'][0]} (share of tol "
-            f"{r['prefill_err'][1]:.3f}), each decode step and the prefill "
-            f"vs forward over prompt + generated tokens max |diff| "
-            f"{r['decode_err'][0]} (share {r['decode_err'][1]:.3f}), max "
-            f"|logit| {r['logit_max']:.4f}, tol {LM_F32_TOL}"
+            f"{r['prefill_err'][1]:.3f}){decode}, max |logit| "
+            f"{r['logit_max']:.4f}, tol {LM_F32_TOL}"
             + _prof_tail(r))
 
 
@@ -3061,10 +3233,11 @@ def routed_line(label, name, r) -> str:
     walls = (f"one MoE block {r['moe_s']:.4f} s"
              + (f", one Mamba mixer {r['mamba_s']:.4f} s ({r['S']} steps "
                 f"of its time loop)" if "mamba_s" in r else ""))
-    flash = (f"; flash at ({r['batch']}, {r['S']}, {cfg.n_heads}/"
-             f"{cfg.n_kv_heads}, {cfg.head_dim}, window {cfg.window}) on "
-             f"layer 0's prefill inputs: {_flash_readings(r)}"
-             if "k_ms" in r else "")
+    flash = (f"; flash at {_flash_at(r)} on layer "
+             f"{_first(cfg, 'mixer', 'attn')}'s prefill inputs: "
+             f"{_flash_readings(r)}" if "k_ms" in r
+             else f"; flash at {_flash_at(r)} not timed here: its head dim,"
+             f" mask and GQA group are timed in another serve phase")
     pe = r["prefill_err"]
     left = sorted(rc["left_out"])
     kept = [b for b in range(r["batch"]) if b not in rc["left_out"]]
@@ -3641,7 +3814,8 @@ DRY_MULTI_POD = (("yi-6b", "train_4k"), ("hubert-xlarge", "prefill_32k"),
                  ("pixtral-12b", "decode_32k"), ("mixtral-8x7b", "train_4k"),
                  ("jamba-v0.1-52b", "long_500k"), ("rwkv6-3b", "train_4k"))
 DRY_FIRST = ("jamba-v0.1-52b", "rwkv6-3b")    # their cells take longest
-DRY_PROCS = 7            # dry-run CLI processes at once (8 host cores)
+DRY_PROCS = 6            # dry-run CLI processes at once (8 host cores;
+                         # phase 3's checks run beside them)
 DRY_TIMEOUT = 600        # seconds the phase's dry runs may take in all
 DRY_OUT = os.path.join(ROOT, "chiprun_out", "dryrun")
 ALLOC_ROUND = 512        # the caching allocator rounds each block up to it
@@ -3650,27 +3824,42 @@ ALLOC_ROUND = 512        # the caching allocator rounds each block up to it
 def dry_commands():
     """Phase 19 (a)'s runs of ``python -m repro_torch.launch.dryrun``, as
     ``(label, arguments, keys it records)``: each arch's cells at full
-    depth on the single-pod mesh (``DRY_FIRST`` first), then the ``DRY_MULTI_POD`` cells with ``--multi-pod`` at
-    ``--depth L1`` (one period of layers)."""
+    depth on the single-pod mesh (``DRY_FIRST`` first, their
+    ``train_4k`` cells, the longest, each a run of its own), then the
+    ``DRY_MULTI_POD`` cells with ``--multi-pod`` at ``--depth L1`` (one
+    period of layers)."""
     from repro_torch import configs
     cells = configs.all_cells()
     archs = sorted({a for a, _ in cells}, key=lambda a: (
         a not in DRY_FIRST, a))
-    out = [(a, ["--arch", a], [f"{a}|{s}|16x16|full" for b, s in cells
-                               if b == a]) for a in archs]
+    out = []
+    for a in archs:
+        shapes = [s for b, s in cells if b == a]
+        if a in DRY_FIRST:
+            out.append((f"{a} train_4k", ["--arch", a, "--shape",
+                                          "train_4k"],
+                        [f"{a}|train_4k|16x16|full"]))
+            out += [(f"{a} {s}", ["--arch", a, "--shape", s],
+                     [f"{a}|{s}|16x16|full"]) for s in shapes
+                    if s != "train_4k"]
+        else:
+            out.append((a, ["--arch", a],
+                        [f"{a}|{s}|16x16|full" for s in shapes]))
     out += [(f"{a} {s} multi-pod L1", ["--arch", a, "--shape", s,
                                        "--multi-pod", "--depth", "L1"],
              [f"{a}|{s}|2x16x16|L1"]) for a, s in DRY_MULTI_POD]
     return out
 
 
-def phase_dryrun():
-    """Phase 19 (a), after phases 2-18, on the host's CPU: the dry run's
-    CLI, ``DRY_PROCS`` processes at once (each opens the fake 512-rank
-    process group), every command of :func:`dry_commands` writing its own
-    JSON.  Fails if a command exits other than 0 (a cell failed), takes
-    past ``DRY_TIMEOUT`` s in all, or misses a record.  Returns
-    ``(records, wall seconds)``."""
+def phase_dryrun(stop=None):
+    """Phase 19 (a) on the host's CPU (run beside phase 3's checks, see
+    :func:`in_background`): the dry run's CLI, ``DRY_PROCS`` processes at
+    once (each opens the fake 512-rank process group), every command of
+    :func:`dry_commands` writing its own JSON.  Fails if a command exits
+    other than 0 (a cell failed), takes past ``DRY_TIMEOUT`` s in all,
+    misses a record, or ``stop`` (a ``threading.Event``) is set; a
+    failure kills the runs still going.  Returns ``(records, wall
+    seconds)``."""
     os.makedirs(DRY_OUT, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
@@ -3695,6 +3884,9 @@ def phase_dryrun():
                 raise AssertionError(f"phase 19 (a): the dry runs ran past "
                                      f"{DRY_TIMEOUT} s; still running: "
                                      f"{[r[0] for r in running]}")
+            if stop is not None and stop.is_set():
+                raise AssertionError("phase 19 (a): stopped, an earlier "
+                                     "phase failed")
             for r in [r for r in running if r[-1].poll() is not None]:
                 running.remove(r)
                 r[3].close()
@@ -3722,6 +3914,30 @@ def phase_dryrun():
         if not (r["flops"] > 0 and r["memory"]["argument_bytes"] > 0):
             raise AssertionError(f"phase 19 (a): {key} counted nothing: {r}")
     return recs, wall
+
+
+def in_background(fn):
+    """Start ``fn()`` in a thread (not a daemon: the interpreter waits for
+    it at exit, so what it started is stopped); the function returned
+    waits for it and returns its result, or raises its exception."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except Exception as e:          # re-raised by join()
+            box["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
 
 
 def dryrun_line(key, r) -> str:
@@ -4163,6 +4379,7 @@ def main() -> int:
     from repro_torch.kernels.mr_sched import megakernel as mk
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    t_start = time.perf_counter()
     # float32 products in full float32: the LM checks compare float32
     # paths, and rwkv6's decay LoRA product is float32 by design
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4197,40 +4414,56 @@ def main() -> int:
           f"{cm.sync_us!r} ({cm.device}, {cm_s:.2f} s; file "
           f"{os.environ['REPRO_TORCH_COSTMODEL_PATH']})", flush=True)
 
-    # 3. kernels against their plain versions
-    t0 = time.perf_counter()
-    worst, checked = phase_kernels(dev)
-    print(f"kernels: mr_epoch bitwise == mr_epoch_plain on {checked} lanes "
-          f"at T={list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} "
-          f"fleet among them (+ resume split; control instantiation "
-          f"on degenerate data == open loop on 8 leaves), max_abs_err "
-          f"{worst}, {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    worst_c, checked_c, tot = phase_control_kernels(dev)
-    print(f"kernels: mr_epoch control bitwise == mr_epoch_plain(control="
-          f"True) on all 15 leaves, {checked_c} closed-loop lanes at "
-          f"T={list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} fleet "
-          f"among them (+ resume split), max_abs_err {worst_c} | "
-          f"hit tasks {tot[0]}, scale events {tot[1]}, shed {tot[2]}, "
-          f"evictions {tot[3]}, {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    worst_to, worst_tc, checked_t, n_ev, n_drop = phase_trace_kernels(dev)
-    print(f"kernels: mr_epoch_trace and mr_epoch_control_trace bitwise == "
-          f"mr_epoch_plain(trace=True) on every carry and trace leaf, "
-          f"{checked_t} lanes (open loop and closed loop at T="
-          f"{list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} fleet "
-          f"among them), carry == the untraced kernels'; undersized "
-          f"event logs (half the median count) bitwise plain, kept rows == "
-          f"the full log's first rows, {n_drop} of {n_ev} events dropped and "
-          f"counted; max_abs_err {worst_to} / {worst_tc}, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    worst_s, checked_s = phase_schedule_kernel(dev)
-    print(f"kernels: mr_schedule bitwise == mr_schedule_plain on {checked_s} "
-          f"lanes at T={list(KERNEL_TS)}, both sched policies mixed, "
-          f"max_abs_err {worst_s}, {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    # 19 (a)'s dry runs, on the host's CPU, start here and run beside
+    # phase 3's kernel checks, which time nothing; they are joined before
+    # the engine body's line, the first that times anything, and printed
+    # in their place after phase 18
+    import threading
+    dry_stop = threading.Event()
+    dry_join = in_background(lambda: phase_dryrun(dry_stop))
+    try:
+        # 3. kernels against their plain versions
+        t0 = time.perf_counter()
+        worst, checked = phase_kernels(dev)
+        print(f"kernels: mr_epoch bitwise == mr_epoch_plain on {checked} "
+              f"lanes at T={list(KERNEL_TS)} and stress lanes, a (T, V) = "
+              f"{FLEET} fleet among them (+ resume split; control "
+              f"instantiation on degenerate data == open loop on 8 leaves), "
+              f"max_abs_err "
+              f"{worst}, {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        worst_c, checked_c, tot = phase_control_kernels(dev)
+        print(f"kernels: mr_epoch control bitwise == mr_epoch_plain(control="
+              f"True) on all 15 leaves, {checked_c} closed-loop lanes at "
+              f"T={list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} "
+              f"fleet among them (+ resume split), max_abs_err {worst_c} | "
+              f"hit tasks {tot[0]}, scale events {tot[1]}, shed {tot[2]}, "
+              f"evictions {tot[3]}, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        worst_to, worst_tc, checked_t, n_ev, n_drop = phase_trace_kernels(dev)
+        print(f"kernels: mr_epoch_trace and mr_epoch_control_trace bitwise == "
+              f"mr_epoch_plain(trace=True) on every carry and trace leaf, "
+              f"{checked_t} lanes (open loop and closed loop at T="
+              f"{list(KERNEL_TS)} and stress lanes, a (T, V) = {FLEET} "
+              f"fleet among them), carry == the untraced kernels'; "
+              f"undersized event logs (half the median count) bitwise "
+              f"plain, kept rows == the full log's first rows, {n_drop} of "
+              f"{n_ev} events dropped and counted; max_abs_err {worst_to} / "
+              f"{worst_tc}, {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        worst_s, checked_s = phase_schedule_kernel(dev)
+        print(f"kernels: mr_schedule bitwise == mr_schedule_plain on "
+              f"{checked_s} lanes at T={list(KERNEL_TS)}, both sched "
+              f"policies mixed, max_abs_err {worst_s}, "
+              f"{time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        recs, dry_wall = dry_join()
+        dry_wait = time.perf_counter() - t0
+    except BaseException:
+        dry_stop.set()
+        raise
 
     t0 = time.perf_counter()
     rows = phase_engine_j1(dev)
@@ -4375,7 +4608,12 @@ def main() -> int:
           f"cases (tests' FA_SHAPES in f32 and bf16, yi-6b's prefill "
           f"(4, 2048, 32/4 heads, 128) f32 and bf16 causal, and with window "
           f"512, mixtral's (2, 8192, 32/8, 128, window 4096) and jamba's "
-          f"(4, 2048, 32/8, 128) prefills f32 and bf16), max_abs_err {worst_fa}, bf16 worst {worst_ulps:.3f} "
+          f"(4, 2048, 32/8, 128) prefills, stablelm-12b's / pixtral-12b's "
+          f"(4, 2048, 32/8, 160), hubert's non-causal (4, 2048, 16/16, 80)"
+          f", a ragged (1, 200 / 260, 4/2, 160), stablelm-1.6b's (4, 2048,"
+          f" 32/32, 64) and llama4-scout's (4, 2048, 40/8, 128), f32 and "
+          f"bf16: every served prefill shape), "
+          f"max_abs_err {worst_fa}, bf16 worst {worst_ulps:.3f} "
           f"ulps beyond the {FA_TOL['bfloat16'][1]} floor (tol: f32 "
           f"{FA_TOL['float32']}, bf16 {FA_TOL['bfloat16'][0]} ulps + "
           f"{FA_TOL['bfloat16'][1]}); wkv6 vs "
@@ -4468,15 +4706,16 @@ def main() -> int:
     print(train_line(trn), flush=True)
     print(train_faults_line(phase_train_faults(dev)), flush=True)
 
-    # 19. the launch report and sharding, after the timed phases: the dry
-    # runs on the host's CPU, then the card's own mesh
-    recs, wall = phase_dryrun()
+    # 19. the launch report and sharding: the dry runs' records (run
+    # beside phase 3), then the card's own mesh
     for key, r in recs.items():
         print(dryrun_line(key, r), flush=True)
     print(f"dryrun: {len(recs)} cells at full width, every one recorded "
           f"(16x16 at full depth, 2x16x16 at L1: one period of layers) "
-          f"in {wall:.2f} s ({len(dry_commands())} runs of python -m "
-          f"repro_torch.launch.dryrun, {DRY_PROCS} at once)", flush=True)
+          f"in {dry_wall:.2f} s ({len(dry_commands())} runs of python -m "
+          f"repro_torch.launch.dryrun, {DRY_PROCS} at once, on the host's "
+          f"CPU beside phase 3's checks, which then waited {dry_wait:.2f} "
+          f"s for them)", flush=True)
     print(dry_host_line(smi, run_dry_host()), flush=True)
 
     # 20. multi-rank sweeps: phases 4 and 6's grids on a one-rank mesh,
@@ -4505,6 +4744,18 @@ def main() -> int:
           + ", ".join(f"{k} {v!r} s" for k, v in walls.items())
           + f" | phase walls: 20 (mesh) {wall_mesh!r} s, 21 (examples) "
           f"{wall_ex!r} s", flush=True)
+
+    # 22. the other six families at full width through attn_impl="flash"
+    # (head dims 64, 128, 160 and 80), the weights freed between them
+    t0 = time.perf_counter()
+    for name in SERVE_MORE:
+        torch.cuda.empty_cache()
+        r = phase_serve(name, dev, seed=0)
+        line = routed_line if r["cfg"].moe is not None else serve_line
+        print(line("serve more", name, r), flush=True)
+    print(f"serve more: phase 22 wall {time.perf_counter() - t0!r} s; the "
+          f"smoke so far {time.perf_counter() - t_start!r} s on {smi}",
+          flush=True)
 
     src = "src/repro_torch/kernels/mr_sched/csrc/"
     to, tc = traced["open"], traced["closed"]

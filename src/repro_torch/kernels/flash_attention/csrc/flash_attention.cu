@@ -24,6 +24,12 @@
 // are not stored.  q, k, v are read in the model layout (B, S, H, Dh) through their
 // strides; o is written contiguous (B, S, Hq, Dh).
 //
+// Head dims: each kernel is instantiated for a padded head dim DP of 16,
+// 32, 64, 80, 128 and 160 (kMaxDh; stablelm-12b's and pixtral-12b's 5120 /
+// 32), and a head dim runs in the smallest DP that holds it.  Above 160 the
+// launch is refused (the Pallas kernel takes any head dim; no configuration
+// of the repo has one above 160).
+//
 // bf16 (flash_attention_tc_kernel): the products run on the tensor cores.
 // Four warps own 16 q rows each and loop over 32-key tiles.  Q once, and K
 // and V per tile, go from global to shared memory by 16-byte cp.async, K
@@ -66,6 +72,7 @@ namespace {
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16
+constexpr int kMaxDh = 160;    // the largest head dim of an instantiation
 constexpr float kMasked = -1e30f;
 
 struct Params {
@@ -266,7 +273,9 @@ int dispatch(const Params& p, cudaStream_t stream) {
   if (p.Dh <= 16) return launch<T, 1>(p, stream);
   if (p.Dh <= 32) return launch<T, 2>(p, stream);
   if (p.Dh <= 64) return launch<T, 4>(p, stream);
+  if (p.Dh <= 80) return launch<T, 5>(p, stream);
   if (p.Dh <= 128) return launch<T, 8>(p, stream);
+  if (p.Dh <= kMaxDh) return launch<T, 10>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -597,7 +606,9 @@ int dispatch_tc(const Params& p, cudaStream_t stream) {
   if (p.Dh <= 16) return launch_tc<16>(p, stream);
   if (p.Dh <= 32) return launch_tc<32>(p, stream);
   if (p.Dh <= 64) return launch_tc<64>(p, stream);
+  if (p.Dh <= 80) return launch_tc<80>(p, stream);
   if (p.Dh <= 128) return launch_tc<128>(p, stream);
+  if (p.Dh <= kMaxDh) return launch_tc<kMaxDh>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -613,7 +624,7 @@ extern "C" int flash_attention_launch(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Dh <= 0 || Dh > 128)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Dh <= 0 || Dh > kMaxDh)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   Params p{q, k, v, o, B, S, T, Hq, Hkv, Dh, Hq / Hkv, causal, window,

@@ -13,7 +13,9 @@ recurrence:
 * :func:`flash_attention` — the wrapper: a CUDA tensor launches the
   hand-written kernel ``csrc/flash_attention.cu`` (built for ``sm_90a`` at
   first use; its own tiles of 64 q rows by 64 keys in float32 and 32 keys
-  in bfloat16), a CPU tensor takes the plain version.
+  in bfloat16; head dims up to :data:`MAX_HEAD_DIM` = 160, each run in the
+  smallest of the instantiations 16, 32, 64, 80, 128 and 160 that holds
+  it), a CPU tensor takes the plain version (any head dim).
   float32 runs on the CUDA cores and agrees with the plain version up to
   summation order; bfloat16 runs on the tensor cores (``mma.sync``, p
   split into a bf16 hi/lo pair in PV) and is held to 2 bf16 ulps
@@ -30,6 +32,7 @@ import torch
 F32 = torch.float32
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 160     # the kernel's largest instantiation (kMaxDh)
 
 
 def shrink_blocks(S: int, T: int, block_q: int, block_k: int):
@@ -133,9 +136,9 @@ def _check(q, k, v, window):
     if k.shape[0] != B or k.shape[3] != Dh or Hq % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match")
-    if not 0 < Dh <= 128:
-        raise ValueError(f"flash_attention: head_dim {Dh} above the "
-                         f"kernel's 128")
+    if not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {Dh} outside the "
+                         f"kernel's 1 .. {MAX_HEAD_DIM}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
     if not (q.device == k.device == v.device):

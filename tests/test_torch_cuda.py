@@ -535,7 +535,17 @@ FA_SHAPES = [(2, 128, 128, 4, 2, 32, True, None),
              (2, 320, 320, 4, 1, 128, True, 100),      # window, head_dim 128
              (2, 100, 260, 4, 2, 64, False, None),     # S < T
              (1, 192, 72, 2, 2, 32, False, None),      # S > T
-             (1, 80, 80, 2, 1, 12, True, None)]        # head_dim padded to 16
+             (1, 80, 80, 2, 1, 12, True, None),        # head_dim padded to 16
+             # the Dh-80 and Dh-160 instantiations
+             (2, 256, 256, 8, 2, 160, True, None),     # stablelm-12b's GQA 4
+             (1, 200, 260, 4, 2, 160, False, None),    # ragged, S < T
+             (1, 320, 320, 4, 1, 160, True, 100),      # window, head_dim 160
+             (1, 64, 64, 2, 1, 150, True, None),       # bf16 padded to 152
+             (2, 192, 192, 4, 4, 80, False, None),     # hubert: non-causal
+             (1, 100, 100, 2, 1, 72, True, None),      # 72 in the 80 tiles
+             # odd GQA groups: llama4-scout's 40/8 (5), and 3 at 80
+             (1, 200, 200, 10, 2, 128, True, None),
+             (1, 96, 96, 6, 2, 80, False, None)]
 # bf16 against the plain version: 2 bf16 ulps of |want| + 1e-4 (the hi/lo
 # split of p and the tensor cores' summation order, near outputs that
 # cancel); float32 2e-6 (summation order).
@@ -575,6 +585,19 @@ def test_flash_kernel_matches_plain_on_card(shape, dtype):
     want = fa_kernel.flash_attention_plain(q, k, v, causal=causal,
                                            window=window)
     _assert_flash_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_refuses_head_dims_above_160_on_card(dtype):
+    # 160 is the largest instantiation: above it the wrapper raises before
+    # any launch, and never takes the plain version
+    dev = _card()
+    q, k, v = _fa_inputs((1, 64, 64, 2, 1, 168, True, None), dtype, dev, 0)
+    before = fa_kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="1 .. 160"):
+        fa_kernel.flash_attention(q, k, v)
+    assert fa_kernel.flash_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -385,3 +385,56 @@ def test_a_refused_op_fails_the_cell():
     census: it is not retried on re-laid operands."""
     out = _run("import json\n" + _REFUSED)
     assert out == {"raised": True, "records": 0}
+
+
+def test_smoke_dry_commands_record_every_cell_once():
+    """``chip_smoke.py``'s phase 19 (a) runs: every ``all_cells()`` cell at
+    full depth on 16 x 16 and every multi-pod cell at one period, each
+    recorded by exactly one run; the longest archs' cells each a run of
+    their own."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch import configs
+    cmds = chip_smoke.dry_commands()
+    keys = [k for _, _, ks in cmds for k in ks]
+    assert len(keys) == len(set(keys))
+    assert sorted(keys) == sorted(
+        [f"{a}|{s}|16x16|full" for a, s in configs.all_cells()]
+        + [f"{a}|{s}|2x16x16|L1" for a, s in chip_smoke.DRY_MULTI_POD])
+    for a in chip_smoke.DRY_FIRST:
+        assert ([len(ks) for _, args, ks in cmds if args[1] == a]
+                == [1] * len(configs.supported_shapes(configs.get(a))) + [1]
+                * sum(b == a for b, _ in chip_smoke.DRY_MULTI_POD))
+
+
+def test_smoke_dry_runs_stop_when_an_earlier_phase_fails(tmp_path,
+                                                          monkeypatch):
+    """Phase 19 (a)'s runs go on beside phase 3 in a thread; when phase 3
+    fails, setting ``stop`` kills the runs still going and the thread's
+    join raises, so the smoke leaves no process behind."""
+    import threading
+    import time
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    started, popen = [], subprocess.Popen
+
+    def sleeper(cmd, **kw):
+        proc = popen(["sleep", "60"], stdout=kw["stdout"],
+                     stderr=kw["stderr"])
+        started.append(proc)
+        return proc
+    monkeypatch.setattr(chip_smoke, "DRY_OUT", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "dry_commands", lambda: [
+        (f"run {i}", [], [f"cell {i}"]) for i in range(3)])
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", sleeper)
+    stop = threading.Event()
+    join = chip_smoke.in_background(lambda: chip_smoke.phase_dryrun(stop))
+    deadline = time.time() + 30
+    while len(started) < 3 and time.time() < deadline:
+        time.sleep(0.1)
+    stop.set()
+    with pytest.raises(AssertionError, match="stopped"):
+        join()
+    assert len(started) == 3
+    assert all(p.poll() is not None for p in started)
